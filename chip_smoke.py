@@ -9,7 +9,9 @@ the hand-written kernel on the way:
 1. the card: CUDA with compute capability 9.x, its name and power limit;
 2. build every kernel of the path from ``gpmpc_tpu_torch/csrc`` (nvcc);
 3. each kernel against its plain PyTorch version on the card, at the
-   main-path shape, a dense QP of that size and the sparse-form golden shape;
+   main-path shape (its 60 rows declared diagonal), a dense QP of that size
+   and the sparse-form golden shape, with the variant each launches and its
+   registers and spills; times at the first two;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
    steps with the launch counters reset just before and read just after,
    and hold one cycle on the card against the same cycle on the CPU;
@@ -42,9 +44,6 @@ DT = 0.1
 # the TPU kernels this path's kernel replaces (gpmpc_tpu/ops/pallas)
 REPLACES = ("gpmpc_tpu/ops/pallas/admm_kernel.py:29 (_chunk_kernel via admm_chunk:75), "
             "gpmpc_tpu/ops/pallas/admm_kernel.py:137 (_lanes_kernel via make_admm_chunk_lanes:227)")
-# published H100 SXM peaks: HBM bandwidth and non-tensor-core f32 rate
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 # tests/test_pallas.py tolerances: duals on ρ-boosted rows amplify f32
 # reordering noise, hence the looser bound on y. They are absolute for O(1)
 # iterates; the check divides by max(1, max|plain|) so that they stay a
@@ -84,138 +83,64 @@ def phase_build():
             log(f"[build]   {line.strip()}")
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def chunk_inputs(kind, gen):
-    """Chunk operands on the card: (Minv, A, q, l, u, rho_v, x, z, y)."""
-    from gpmpc_tpu_torch.ops.qp import QPData, ruiz_equilibrate
-    from gpmpc_tpu_torch.ops.qp.admm import _factor, _rho_vec
-
-    dev = torch.device("cuda")
-    if kind == "golden":
-        fx = np.load(os.path.join(ROOT, "tests", "fixtures", "qp_golden.npz"))
-        names = ("canonical", "high_fast", "low_slow", "lateral") * 2
-        stack = lambda p: torch.tensor(np.stack([fx[f"{s}/{p}"] for s in names]),
-                                       dtype=torch.float32, device=dev)
-        data = QPData(*[stack(p) for p in ("P", "q", "A", "l", "u")])
-    else:
-        B, n = BATCH, N * 3
-        G = torch.randn(B, n, n, generator=gen, device=dev)
-        P = G @ G.transpose(1, 2) / n + 0.1 * torch.eye(n, device=dev)
-        if kind == "main":  # identity control-bound rows, as build_condensed_qp makes them
-            A = torch.eye(n, device=dev).expand(B, n, n).contiguous()
-        else:
-            A = torch.randn(B, n, n, generator=gen, device=dev)
-        lo = -torch.rand(B, n, generator=gen, device=dev) - 0.5
-        hi = torch.rand(B, n, generator=gen, device=dev) + 0.5
-        q = torch.randn(B, n, generator=gen, device=dev)
-        data = QPData(P=P, q=q, A=A, l=lo, u=hi)
-    sdata, _ = ruiz_equilibrate(data, 2)
-    B, m, n = sdata.A.shape
-    rho_v = _rho_vec(sdata.l, sdata.u, torch.full((B,), 0.1, device=dev))
-    Minv = _factor(sdata.P, sdata.A, rho_v, 1e-6)
-    x = 0.1 * torch.randn(B, n, generator=gen, device=dev)
-    z = torch.bmm(sdata.A, x[:, :, None])[:, :, 0]
-    y = 0.01 * torch.randn(B, m, generator=gen, device=dev)
-    return (Minv, sdata.A.contiguous(), sdata.q, sdata.l, sdata.u, rho_v, x, z, y)
-
-
-def bmm_chain_graph(args, iters):
-    """The chunk as a chain of cuBLAS batched products, captured once in a
-    CUDA graph and replayed — the library yardstick (never used by the port)."""
-    Minv, A, q, l, u, rho, x, z, y = [a.clone() for a in args]
-    AT = A.transpose(1, 2).contiguous()
-    inv_rho = 1.0 / rho
-    bufs = [x, z, y]
-
-    def chain():
-        xx, zz, yy = bufs
-        for _ in range(iters):
-            t = (rho * zz - yy)[:, :, None]
-            rhs = torch.baddbmm((1e-6 * xx - q)[:, :, None], AT, t)
-            xt = torch.bmm(Minv, rhs)
-            zt = torch.bmm(A, xt)[:, :, 0]
-            xt = xt[:, :, 0]
-            xn = 1.6 * xt - 0.6 * xx
-            zr = 1.6 * zt - 0.6 * zz
-            zn = torch.clamp(zr + yy * inv_rho, l, u)
-            yy = yy + rho * (zr - zn)
-            xx, zz = xn, zn
-        return xx, zz, yy
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        chain()  # warm cuBLAS handles before capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        chain()
-    return graph.replay
-
-
-def bound_ms(args, iters):
-    """Least time for the chunk on this card: max(bytes / HBM rate, flops /
-    f32 rate), each input read once and each output written once; the
-    matvec work counts A's nonzeros in this run's data."""
-    Minv, A = args[0], args[1]
-    B, m, n = A.shape
-    nnz_a = int((A != 0).sum().item())
-    bytes_moved = 4 * (sum(t.numel() for t in args) + B * (n + 2 * m))
-    flops = iters * (2 * (B * n * n + 2 * nnz_a) + B * (11 * m + 5 * n))
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            bytes_moved, flops)
-
-
 def phase_kernels():
+    """Kernel vs plain at three shapes; times at the main-path shape (its
+    declared diagonal rows) and at the dense 60×60 shape. Returns the timing
+    of both, main first: ``ms`` is the kernel's device time from a CUDA-graph
+    replay, ``eager_ms`` the time of eager back-to-back calls (it reads the
+    wrapper's host time wherever that exceeds the kernel's), ``wrapper_us``
+    the host time of one wrapper call."""
+    from gpmpc_tpu_torch.chunk_bench import (bmm_chain_graph, bound_ms, chunk_inputs, cuda_ms,
+                                             graph_ms, host_us, kernel_entry, ptxas_report)
+    from gpmpc_tpu_torch.ops.kernels import _build
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    timing = None
-    main_err = None
-    for kind in ("main", "dense", "golden"):
-        args = chunk_inputs(kind, gen)
+    golden = os.path.join(ROOT, "tests", "fixtures", "qp_golden.npz")
+    timings = []
+    # the main path's QP declares its 60 identity control rows as "diag"
+    # (mpc/rti.py::_condensed_admm_cfg); the other two shapes are all dense
+    for kind, segs in (("main", (("diag", N * 3),)), ("dense", None), ("golden", None)):
+        args = chunk_inputs(kind, gen, golden)
         B, m, n = args[1].shape
-        xk, zk, yk = K.admm_chunk(*args, iters=ITERS, sigma=1e-6, alpha=1.6)
-        xp, zp, yp = K.admm_chunk_plain(*args, iters=ITERS, sigma=1e-6, alpha=1.6)
+        kw = dict(iters=ITERS, sigma=1e-6, alpha=1.6, row_structure=segs)
+        xk, zk, yk = K.admm_chunk(*args, **kw)
+        xp, zp, yp = K.admm_chunk_plain(*args, **kw)
         torch.cuda.synchronize()
         err = [(a - b).abs().max().item() for a, b in ((xk, xp), (zk, zp), (yk, yp))]
         scale = [max(1.0, b.abs().max().item()) for b in (xp, zp, yp)]
         rel = [e / s for e, s in zip(err, scale)]
         finite = all(bool(torch.isfinite(t).all()) for t in (xk, zk, yk))
-        variant = "shared" if K.smem_variant(n, m) == 1 else "global"
-        log(f"[kernel] {kind}: B={B} n={n} m={m} iters={ITERS} variant={variant} "
+        mg = K.kernel_rows(args[1], segs)[1]
+        variant = K.variant(n, m, mg)
+        regs, spill_st, spill_ld = ptxas_report(_build.build_log("admm_chunk"),
+                                                kernel_entry(variant, n, m, mg))
+        log(f"[kernel] {kind}: B={B} n={n} m={m} diagonal rows {mg} iters={ITERS} "
+            f"variant={variant} ({regs} registers, spill stores {spill_st} B, loads {spill_ld} B) "
             f"max|dx|={err[0]:.3e} max|dz|={err[1]:.3e} max|dy|={err[2]:.3e}; "
             f"over max(1,|plain|): {rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e} "
             f"(atol {ATOL_XZ}/{ATOL_XZ}/{ATOL_Y})")
         if not finite or rel[0] > ATOL_XZ or rel[1] > ATOL_XZ or rel[2] > ATOL_Y:
             raise RuntimeError(f"admm_chunk kernel disagrees with its plain version ({kind})")
-        if kind == "main":
-            main_err = max(err)
-            ms = cuda_ms(lambda: K.admm_chunk(*args, iters=ITERS, sigma=1e-6, alpha=1.6), 50)
-            plain_ms = cuda_ms(lambda: K.admm_chunk_plain(*args, iters=ITERS, sigma=1e-6, alpha=1.6), 5)
-            lib_ms = cuda_ms(bmm_chain_graph(args, ITERS), 20)
-            ms2 = cuda_ms(lambda: K.admm_chunk(*args, iters=ITERS, sigma=1e-6, alpha=1.6), 50)
-            bnd, by, nbytes, flops = bound_ms(args, ITERS)
-            timing = dict(ms=ms, ms_repeat=ms2, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bnd, bound_by=by)
-            log(f"[kernel] main-path chunk: kernel {ms:.4f} ms (repeat {ms2:.4f}), "
-                f"plain {plain_ms:.4f} ms, bmm chain in a CUDA graph {lib_ms:.4f} ms, "
-                f"bound {bnd:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-    return timing, main_err
+        if kind == "golden":
+            continue
+        chunk = lambda: K.admm_chunk(*args, **kw)
+        ms = graph_ms(chunk, 20)
+        plain_ms = cuda_ms(lambda: K.admm_chunk_plain(*args, **kw), 5)
+        lib_ms = cuda_ms(bmm_chain_graph(args, ITERS, segs), 20)
+        ms2 = graph_ms(chunk, 20)
+        eager_ms, wrap_us = cuda_ms(chunk, 50), host_us(chunk, 200)
+        bnd, by, nbytes, flops = bound_ms(args, ITERS, segs)
+        timings.append(dict(shape=kind, variant=variant, registers=regs, max_abs_err=max(err),
+                            ms=ms, ms_repeat=ms2, eager_ms=eager_ms, wrapper_us=wrap_us,
+                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by))
+        log(f"[kernel] {kind} chunk: kernel {ms:.4f} ms (repeat {ms2:.4f}; CUDA graph of 20 "
+            f"launches), eager back-to-back calls {eager_ms:.4f} ms, wrapper host time "
+            f"{wrap_us:.1f} us a call, "
+            f"plain {plain_ms:.4f} ms, bmm chain in a CUDA graph {lib_ms:.4f} ms, "
+            f"bound {bnd:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
+            f"share of bound {bnd / ms:.3f}")
+    return timings
 
 
 def _to(obj, dev):
@@ -340,23 +265,31 @@ def phase_landing(gp_fns_, dev=torch.device("cuda")):
 def main():
     smi = phase_card()
     phase_build()
-    timing, main_err = phase_kernels()
+    timings = phase_kernels()
     main_res, fns = phase_main_path()
     land = phase_landing(fns)
     log(f"[summary] main path {main_res['ms_per_cycle']:.3f} ms/cycle, "
         f"{main_res['solves_per_s']:.1f} solves/s, landing success {land['success_share']:.4f}")
+    main_t = timings[0]
     kernels = [{
         "name": "admm_chunk",
         "route": "cuda",
         "source": "gpmpc_tpu_torch/csrc/admm_chunk.cu",
         "replaces": REPLACES,
         "launches": main_res["launches"],
-        "max_abs_err": main_err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
+        "max_abs_err": main_t["max_abs_err"],
+        "ms": main_t["ms"],
+        "eager_ms": main_t["eager_ms"],
+        "wrapper_us": main_t["wrapper_us"],
+        "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"],
+        "bound_by": main_t["bound_by"],
+        "library_ms": main_t["library_ms"],
+        "variant": main_t["variant"],
+        "shapes": [{k: t[k] for k in ("shape", "variant", "registers", "ms", "eager_ms",
+                                       "wrapper_us", "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by")}
+                   for t in timings],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,35 +16,65 @@
 //
 // and return (x, z, y). f32 throughout, FMA accumulation.
 //
-// What bounds it on this card. Per lane and iteration the work is three
-// matvecs against loop-invariant matrices (2·(n² + 2mn) flops) and O(n+m)
-// elementwise work; between the three stages every thread needs the whole
-// previous vector, so an iteration is a chain of three dependent reductions.
-// Streamed from device memory every iteration (what the XLA path does on the
-// TPU) the matrices would cost iters × (n² + mn) × 4 bytes per lane; kept on
-// chip they cost one read per chunk. At the main-path shape (n = m = 60,
-// 50 iterations, 512 lanes) one chunk reads ≈15 MB (≈4.5 µs at 3.35 TB/s)
-// and does ≈0.55 GFLOP as dense f32 FMA (≈8 µs at 67 TFLOP/s), but the
-// chain of 150 dependent stages with a block barrier after each is what
-// the run time is made of: latency, not bandwidth or arithmetic.
+// Row structure. The solver's declared row structure reaches the kernel as
+// mg: the first mg rows of A (a leading "diag" segment, mg ≤ n) are read as
+// their diagonal alone (row i has one entry, A[i][i]) and applied as
+// elementwise products; the other md = m − mg rows are dense. On the main
+// path (condensed 3-DoF QP, every state bound elided) all 60 rows are the
+// identity control bounds, so A costs no matvec at all.
 //
-// What the design does about it:
+// What bounds it on this card. Per lane and iteration the work is one dense
+// matvec with M⁻¹ (2n² flops), two with the dense rows (4·md·n) and O(n+m)
+// elementwise work; every stage needs the whole previous vector, so an
+// iteration is a chain of dependent reductions, one per dense stage. At the
+// main-path shape (n = m = 60, all rows diagonal, 50 iterations, 512 lanes)
+// one chunk reads 8.7 MB (2.6 µs at 3.35 TB/s) and does 0.215 GFLOP (3.2 µs
+// at 67 TFLOP/s); a dense 60×60 A makes it 16 MB and 0.58 GFLOP (8.6 µs).
+// Neither is what the run time is made of. Measured on an H100 (700 W,
+// gpmpc_tpu_torch/chunk_bench.py): loading the operands takes 3.6 µs, close
+// to the bytes bound, and then each iteration ~300 ns, a latency chain of
+// barrier, broadcast loads, split dot product, shuffle and row update, with
+// four warps a scheduler to overlap.
+//
+// What the design does about it (the register variant, n ≤ 64 and md ≤ 64):
 // - One CTA per lane, one launch per chunk: all `iters` iterations run
-//   inside the kernel, so the host launches once instead of a few hundred
-//   tiny kernels per chunk.
-// - M⁻¹ and A are copied into dynamic shared memory once per chunk (28.8 KB
-//   a lane at n = m = 60) and the iterate lives in shared memory, so each
-//   matrix crosses device memory once per chunk.
-// - Thread j owns output element j of each matvec. Aᵀt and M⁻¹·rhs read
-//   columns (neighbouring threads, neighbouring words: no bank conflicts;
-//   M⁻¹ is symmetric, so its column is its row). A·x̃ reads rows, so A is
-//   stored with an odd row stride (n | 1) to keep those reads conflict-free.
-// - Four partial sums per dot product shorten the dependent FMA chain.
-// - When the matrices do not fit in shared memory (the sparse-form QP,
-//   n = 207, m = 354, is 464 KB a lane) the same kernel reads them from
-//   global memory, where they stay L2-resident across iterations: columns
-//   coalesce across threads, and A·x̃ is done one warp per row with a shuffle
-//   reduction so that those reads coalesce too.
+//   inside the kernel.
+// - M⁻¹ (and the dense rows of A, twice: row-major for A·x̃ and transposed
+//   for Aᵀt) are loaded once per chunk from device memory into registers.
+//   NP = 64 padded rows, K = 2 threads per row: 128 threads a lane, each
+//   thread holding 32 entries of each matrix it keeps. The arrays are
+//   indexed only with unrolled compile-time indices, so they stay in
+//   registers: ptxas reports 83 registers for the main path's kernel and 128
+//   with dense rows, no spills.
+// - Shared memory holds only the vectors. A thread reads its entries as
+//   float4 broadcasts; thread c of a row group takes float4 chunks c, c+K,
+//   c+2K, …, so a warp's distinct chunks are contiguous and never conflict.
+// - A row's dot product is split over its K threads, each with eight partial
+//   sums, and joined by __shfl_xor_sync: the dependent chain is 4 FMAs and
+//   one shuffle instead of 60 FMAs fed by 120 shared loads.
+// - The thread group that owns row j of M⁻¹ also owns column j of the
+//   diagonal rows and row j of the iterate, so with no dense rows (the main
+//   path) an iteration is one matvec, a register-local update and ONE block
+//   barrier, on a double-buffered right-hand side. Dense rows add a stage
+//   and a barrier each for Aᵀt and A·x̃.
+// - Residency: 4 CTAs of 128 threads an SM fit the register file even with
+//   dense rows (128 × 128 × 4 = 65,536), so 512 lanes run in one wave on
+//   132 SMs. K = 2 is fixed: in the tile sweep (admm_chunk_tiles.cu, timed
+//   by gpmpc_tpu_torch/chunk_bench.py; PERF.md) K = 1 was 5% faster on the
+//   main path but spilled with dense rows, and K = 4 was 37% slower.
+//
+// Larger shapes keep the earlier designs: the shared variant copies M⁻¹ and
+// the dense rows into dynamic shared memory once per chunk (thread j owns
+// element j of each stage), and the global variant, for matrices beyond
+// shared memory (the sparse-form golden QP, n = 207, m = 354, is 464 KB a
+// lane), reads them from global memory, where they stay L2-resident, with
+// A·x̃ done one warp per row. `admm_chunk_variant` picks by shape.
+//
+// Tensor cores and TMA are not the tool. Each lane's matrix meets one vector
+// per iteration: a chain of GEMVs with no reuse to feed an MMA tile, and the
+// port keeps f32 with TF32 off. The one load of the matrices per chunk is
+// itself the bytes bound, with no compute to hide behind, so an
+// asynchronous copy has nothing to overlap with.
 //
 // C interface for ctypes: admm_chunk_f32(...) returns cudaGetLastError().
 
@@ -53,6 +83,194 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Variant { kUnsupported = -1, kGlobal = 0, kShared = 1, kRegister = 2 };
+
+struct Lane {
+  int n, m, mg, iters;
+  float sigma, alpha;
+};
+
+// one iteration's projection and dual update of a row; returns the new t
+__device__ __forceinline__ float row_update(float zt, float& z, float& y, float l,
+                                            float u, float r, float ir, float alpha,
+                                            float beta) {
+  const float zr = alpha * zt + beta * z;
+  const float zn = fminf(fmaxf(zr + y * ir, l), u);
+  y = y + r * (zr - zn);
+  z = zn;
+  return r * zn - y;
+}
+
+// ---------------------------------------------------------------------------
+// Register variant: thread (g, c) = (tid / K, tid % K) holds row g of each
+// kept matrix at columns 4(c + K·s) + e, s < C/4, e < 4.
+
+template <int NP, int K>
+struct Tile {
+  static constexpr int C = NP / K;  // entries of a row a thread holds
+  static constexpr int S = C / 4;   // float4 chunks
+  static_assert(C % 8 == 0 && 32 % K == 0, "tile");
+
+  __device__ static int col(int c, int s, int e) { return 4 * (c + K * s) + e; }
+
+  // R[g, :] from a row-major (rows × cols) matrix with leading dimension ld;
+  // zero outside it. The transposed read takes R[g, k] = M[k, g]. Rows read
+  // as float4 where the layout allows (cols and ld multiples of 4, M 16-byte
+  // aligned: n = 60 on the main path).
+  template <bool kTransposed>
+  __device__ static void load(float (&R)[C], const float* __restrict__ M, int rows,
+                              int cols, int ld, int g, int c) {
+    const bool vec = !kTransposed && cols % 4 == 0 && ld % 4 == 0 &&
+                     (reinterpret_cast<unsigned long long>(M) & 15) == 0;
+    if (vec) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int k = col(c, s, 0);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (g < rows && k < cols)
+          v = *reinterpret_cast<const float4*>(M + static_cast<size_t>(g) * ld + k);
+        R[4 * s + 0] = v.x; R[4 * s + 1] = v.y; R[4 * s + 2] = v.z; R[4 * s + 3] = v.w;
+      }
+      return;
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = col(c, s, e);
+        float v = 0.f;
+        if (kTransposed) {
+          if (k < rows && g < cols) v = M[static_cast<size_t>(k) * ld + g];
+        } else {
+          if (g < rows && k < cols) v = M[static_cast<size_t>(g) * ld + k];
+        }
+        R[4 * s + e] = v;
+      }
+    }
+  }
+
+  // Σ_k R[g, k] v[k] over the K threads of the group (every thread gets it),
+  // with eight partial sums
+  __device__ static float dot(const float (&R)[C], const float* v, int c) {
+    const float4* v4 = reinterpret_cast<const float4*>(v);
+    float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float4 w = v4[c + K * s];
+      float* h = a + 4 * (s & 1);
+      h[0] = fmaf(R[4 * s + 0], w.x, h[0]);
+      h[1] = fmaf(R[4 * s + 1], w.y, h[1]);
+      h[2] = fmaf(R[4 * s + 2], w.z, h[2]);
+      h[3] = fmaf(R[4 * s + 3], w.w, h[3]);
+    }
+    float acc = ((a[0] + a[4]) + (a[1] + a[5])) + ((a[2] + a[6]) + (a[3] + a[7]));
+#pragma unroll
+    for (int off = 1; off < K; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
+    return acc;
+  }
+};
+
+constexpr int kRowThreads = 2;  // threads per row of a tile (K)
+
+template <int NP, int K, bool kDense>
+__global__ void __launch_bounds__(NP * K, (kDense && K > 2) ? 1 : 4)
+admm_chunk_reg(const float* __restrict__ Minv, const float* __restrict__ A,
+               const float* __restrict__ q, const float* __restrict__ l,
+               const float* __restrict__ u, const float* __restrict__ rho,
+               const float* __restrict__ x0, const float* __restrict__ z0,
+               const float* __restrict__ y0, float* __restrict__ xo,
+               float* __restrict__ zo, float* __restrict__ yo, Lane p) {
+  using T = Tile<NP, K>;
+  __shared__ __align__(16) float s_rhs[2][NP];  // double-buffered M⁻¹ operand
+  __shared__ __align__(16) float s_xt[NP];      // x̃ for the dense rows
+  __shared__ __align__(16) float s_t[NP];       // t of the dense rows
+  __shared__ float s_lu[kDense ? 2 : 1][NP];    // bounds of the dense rows
+
+  const int b = blockIdx.x;
+  const int g = threadIdx.x / K;
+  const int c = threadIdx.x % K;
+  const int n = p.n, m = p.m, mg = p.mg, md = m - mg;
+  const float alpha = p.alpha, beta = 1.0f - p.alpha, sigma = p.sigma;
+  const float* Ab = A + static_cast<size_t>(b) * m * n;
+
+  float Mr[T::C];
+  T::template load<false>(Mr, Minv + static_cast<size_t>(b) * n * n, n, n, n, g, c);
+  float Ar[kDense ? T::C : 1], ATr[kDense ? T::C : 1];
+  if constexpr (kDense) {
+    const float* Ad = Ab + static_cast<size_t>(mg) * n;
+    T::template load<false>(Ar, Ad, md, n, n, g, c);   // dense row g
+    T::template load<true>(ATr, Ad, md, n, n, g, c);   // column g of the dense rows
+  }
+
+  // row g of the iterate; diagonal row g (column g); dense row mg + g
+  const bool own_x = g < n, own_d = g < mg, own_D = kDense && g < md;
+  float xg = own_x ? x0[b * n + g] : 0.f;
+  const float qg = own_x ? q[b * n + g] : 0.f;
+  float zd = 0.f, yd = 0.f, ld = 0.f, ud = 0.f, rd = 1.f, ird = 1.f, dd = 0.f, td = 0.f;
+  if (own_d) {
+    const int i = b * m + g;
+    zd = z0[i]; yd = y0[i]; ld = l[i]; ud = u[i]; rd = rho[i];
+    ird = 1.0f / rd;
+    dd = Ab[g * n + g];
+    td = rd * zd - yd;
+  }
+  float zD = 0.f, yD = 0.f, rD = 1.f, irD = 1.f;
+  if (own_D) {
+    const int i = b * m + mg + g;
+    zD = z0[i]; yD = y0[i]; rD = rho[i];
+    irD = 1.0f / rD;
+  }
+  for (int k = threadIdx.x; k < NP; k += NP * K) {
+    s_rhs[0][k] = 0.f; s_rhs[1][k] = 0.f; s_xt[k] = 0.f; s_t[k] = 0.f;
+  }
+  __syncthreads();
+  if (kDense && c == 0 && own_D) {
+    s_t[g] = rD * zD - yD;
+    s_lu[0][g] = l[b * m + mg + g];  // kept out of registers: the dense
+    s_lu[1][g] = u[b * m + mg + g];  // tiles leave none to spare
+  }
+
+  for (int it = 0; it < p.iters; ++it) {
+    float* rhs = s_rhs[it & 1];
+    // rhs = σx − q + Aᵀt   (group g: column g)
+    float at = 0.f;
+    if constexpr (kDense) {
+      __syncthreads();  // s_t of the previous stage
+      at = T::dot(ATr, s_t, c);
+    }
+    if (own_d) at = fmaf(dd, td, at);
+    if (c == 0 && own_x) rhs[g] = sigma * xg - qg + at;
+    __syncthreads();
+
+    // x̃ = M⁻¹ rhs   (group g: row g), then the diagonal row g
+    const float xt = T::dot(Mr, rhs, c);
+    if (own_x) xg = alpha * xt + beta * xg;
+    if (own_d) td = row_update(dd * xt, zd, yd, ld, ud, rd, ird, alpha, beta);
+
+    if constexpr (kDense) {
+      // z̃ = Ad x̃   (group g: dense row g)
+      if (c == 0 && own_x) s_xt[g] = xt;
+      __syncthreads();
+      const float zt = T::dot(Ar, s_xt, c);
+      if (own_D) {
+        const float tD = row_update(zt, zD, yD, s_lu[0][g], s_lu[1][g], rD, irD, alpha, beta);
+        if (c == 0) s_t[g] = tD;
+      }
+    }
+  }
+
+  if (c == 0) {
+    if (own_x) xo[b * n + g] = xg;
+    if (own_d) { zo[b * m + g] = zd; yo[b * m + g] = yd; }
+    if (own_D) { zo[b * m + mg + g] = zD; yo[b * m + mg + g] = yD; }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Shared- and global-memory variants: thread j owns element j of each stage.
 
 template <bool kMatSmem>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -61,16 +279,17 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
                   const float* __restrict__ u, const float* __restrict__ rho,
                   const float* __restrict__ x0, const float* __restrict__ z0,
                   const float* __restrict__ y0, float* __restrict__ xo,
-                  float* __restrict__ zo, float* __restrict__ yo,
-                  int n, int m, int lda, int iters, float sigma, float alpha) {
+                  float* __restrict__ zo, float* __restrict__ yo, Lane p, int lda) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const float beta = 1.0f - alpha;
+  const int n = p.n, m = p.m, mg = p.mg, md = m - mg;
+  const float alpha = p.alpha, beta = 1.0f - p.alpha, sigma = p.sigma;
 
   const float* Mg = Minv + static_cast<size_t>(b) * n * n;
-  const float* Ag = A + static_cast<size_t>(b) * m * n;
+  const float* Ab = A + static_cast<size_t>(b) * m * n;
+  const float* Ag = Ab + static_cast<size_t>(mg) * n;  // the dense rows
 
   float* sx = smem;        // x         (n)
   float* sxt = sx + n;     // x̃         (n)
@@ -83,8 +302,9 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
   float* su = sl + m;      // u         (m)
   float* srho = su + m;    // ρ         (m)
   float* sirho = srho + m; // 1/ρ       (m)
-  float* sM = sirho + m;   // M⁻¹ (n×n), shared-memory variant only
-  float* sA = sM + n * n;  // A (m×lda), shared-memory variant only
+  float* sdg = sirho + m;  // diagonal of the first mg rows (mg)
+  float* sM = sdg + mg;    // M⁻¹ (n×n), shared-memory variant only
+  float* sA = sM + n * n;  // Ad (md×lda), shared-memory variant only
 
   for (int j = tid; j < n; j += nt) {
     sx[j] = x0[b * n + j];
@@ -102,9 +322,10 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
     sirho[i] = 1.0f / r;
     st[i] = r * zi - yi;
   }
+  for (int i = tid; i < mg; i += nt) sdg[i] = Ab[i * n + i];
   if constexpr (kMatSmem) {
     for (int k = tid; k < n * n; k += nt) sM[k] = Mg[k];
-    for (int k = tid; k < m * n; k += nt) {
+    for (int k = tid; k < md * n; k += nt) {
       const int i = k / n;
       sA[i * lda + (k - i * n)] = Ag[k];
     }
@@ -114,20 +335,23 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
   const float* Mp = kMatSmem ? sM : Mg;
   const float* Ap = kMatSmem ? sA : Ag;
   const int ldA = kMatSmem ? lda : n;
+  const float* td = st + mg;  // t of the dense rows
 
-  for (int it = 0; it < iters; ++it) {
-    // rhs = σx − q + Aᵀt   (thread j: column j of A)
+  for (int it = 0; it < p.iters; ++it) {
+    // rhs = σx − q + Aᵀt   (thread j: column j of Ad, diagonal entry j)
     for (int j = tid; j < n; j += nt) {
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
       int i = 0;
-      for (; i + 3 < m; i += 4) {
-        a0 = fmaf(Ap[(i + 0) * ldA + j], st[i + 0], a0);
-        a1 = fmaf(Ap[(i + 1) * ldA + j], st[i + 1], a1);
-        a2 = fmaf(Ap[(i + 2) * ldA + j], st[i + 2], a2);
-        a3 = fmaf(Ap[(i + 3) * ldA + j], st[i + 3], a3);
+      for (; i + 3 < md; i += 4) {
+        a0 = fmaf(Ap[(i + 0) * ldA + j], td[i + 0], a0);
+        a1 = fmaf(Ap[(i + 1) * ldA + j], td[i + 1], a1);
+        a2 = fmaf(Ap[(i + 2) * ldA + j], td[i + 2], a2);
+        a3 = fmaf(Ap[(i + 3) * ldA + j], td[i + 3], a3);
       }
-      for (; i < m; ++i) a0 = fmaf(Ap[i * ldA + j], st[i], a0);
-      srhs[j] = sigma * sx[j] - sq[j] + ((a0 + a1) + (a2 + a3));
+      for (; i < md; ++i) a0 = fmaf(Ap[i * ldA + j], td[i], a0);
+      float at = (a0 + a1) + (a2 + a3);
+      if (j < mg) at = fmaf(sdg[j], st[j], at);
+      srhs[j] = sigma * sx[j] - sq[j] + at;
     }
     __syncthreads();
 
@@ -150,9 +374,12 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
     for (int j = tid; j < n; j += nt) sx[j] = alpha * sxt[j] + beta * sx[j];
 
     // z̃ = A x̃, then the relaxation, projection and dual update of row i
+    for (int i = tid; i < mg; i += nt)
+      st[i] = row_update(sdg[i] * sxt[i], sz[i], sy[i], sl[i], su[i], srho[i],
+                         sirho[i], alpha, beta);
     if constexpr (kMatSmem) {
-      for (int i = tid; i < m; i += nt) {
-        const float* row = sA + i * lda;
+      for (int r = tid; r < md; r += nt) {
+        const float* row = sA + r * lda;
         float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
         int j = 0;
         for (; j + 3 < n; j += 4) {
@@ -162,31 +389,23 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
           a3 = fmaf(row[j + 3], sxt[j + 3], a3);
         }
         for (; j < n; ++j) a0 = fmaf(row[j], sxt[j], a0);
-        const float zt = (a0 + a1) + (a2 + a3);
-        const float zr = alpha * zt + beta * sz[i];
-        const float zn = fminf(fmaxf(zr + sy[i] * sirho[i], sl[i]), su[i]);
-        const float yn = sy[i] + srho[i] * (zr - zn);
-        sz[i] = zn;
-        sy[i] = yn;
-        st[i] = srho[i] * zn - yn;
+        const int i = mg + r;
+        st[i] = row_update((a0 + a1) + (a2 + a3), sz[i], sy[i], sl[i], su[i],
+                           srho[i], sirho[i], alpha, beta);
       }
     } else {
       const int lane = tid & 31;
       const int warp = tid >> 5;
       const int nwarps = nt >> 5;
-      for (int i = warp; i < m; i += nwarps) {
-        const float* row = Ag + static_cast<size_t>(i) * n;
+      for (int r = warp; r < md; r += nwarps) {
+        const float* row = Ag + static_cast<size_t>(r) * n;
         float acc = 0.f;
         for (int j = lane; j < n; j += 32) acc = fmaf(row[j], sxt[j], acc);
-        for (int off = 16; off > 0; off >>= 1)
-          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
         if (lane == 0) {
-          const float zr = alpha * acc + beta * sz[i];
-          const float zn = fminf(fmaxf(zr + sy[i] * sirho[i], sl[i]), su[i]);
-          const float yn = sy[i] + srho[i] * (zr - zn);
-          sz[i] = zn;
-          sy[i] = yn;
-          st[i] = srho[i] * zn - yn;
+          const int i = mg + r;
+          st[i] = row_update(acc, sz[i], sy[i], sl[i], su[i], srho[i], sirho[i],
+                             alpha, beta);
         }
       }
     }
@@ -200,61 +419,117 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
   }
 }
 
-size_t vec_bytes(int n, int m) { return sizeof(float) * (4 * static_cast<size_t>(n) + 7 * static_cast<size_t>(m)); }
+size_t vec_bytes(int n, int m, int mg) {
+  return sizeof(float) * (4 * static_cast<size_t>(n) + 7 * static_cast<size_t>(m) + mg);
+}
 int row_stride(int n) { return n | 1; }  // odd stride: conflict-free row reads
-size_t mat_bytes(int n, int m) {
-  return sizeof(float) * (static_cast<size_t>(n) * n + static_cast<size_t>(m) * row_stride(n));
+size_t mat_bytes(int n, int md) {
+  return sizeof(float) * (static_cast<size_t>(n) * n + static_cast<size_t>(md) * row_stride(n));
 }
 
-int smem_budget() {
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return optin;
+// Per-device state, read or set once: the opt-in shared memory of a block,
+// and whether each dynamic-shared-memory kernel has been allowed all of it.
+int g_smem_optin[kMaxDevices];
+bool g_smem_set[kMaxDevices][2];
+
+int smem_budget(int dev) {
+  if (g_smem_optin[dev] == 0) {
+    int optin = 0;
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    g_smem_optin[dev] = optin;
+  }
+  return g_smem_optin[dev];
+}
+
+template <bool kMatSmem>
+void allow_smem(int dev) {
+  if (!g_smem_set[dev][kMatSmem]) {
+    cudaFuncSetAttribute(admm_chunk_kernel<kMatSmem>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_budget(dev));
+    g_smem_set[dev][kMatSmem] = true;
+  }
+}
+
+using KernelFn = void (*)(const float*, const float*, const float*, const float*,
+                         const float*, const float*, const float*, const float*,
+                         const float*, float*, float*, float*, Lane);
+
+// the register kernel instance for a shape: the tile's padded rows and
+// whether it keeps dense rows; *threads gets its block size
+template <int K>
+KernelFn register_kernel(int n, int md, int* threads) {
+  const bool small = n <= 32 && md <= 32;
+  *threads = (small ? 32 : 64) * K;
+  if (md > 0) return small ? &admm_chunk_reg<32, K, true> : &admm_chunk_reg<64, K, true>;
+  return small ? &admm_chunk_reg<32, K, false> : &admm_chunk_reg<64, K, false>;
+}
+
+int variant_for(int n, int m, int mg, int device) {
+  const int md = m - mg;
+  if (n <= 0 || m <= 0 || mg < 0 || mg > m || mg > n) return kUnsupported;
+  if (device < 0 || device >= kMaxDevices) return kUnsupported;
+  if (n <= 64 && md <= 64) return kRegister;
+  const size_t budget = static_cast<size_t>(smem_budget(device));
+  if (vec_bytes(n, m, mg) + mat_bytes(n, md) <= budget) return kShared;
+  if (vec_bytes(n, m, mg) <= budget) return kGlobal;
+  return kUnsupported;
+}
+
+// one chunk launch, the register variant tiled with K threads per row
+template <int K>
+int launch_chunk(const float* Minv, const float* A, const float* q, const float* l,
+                 const float* u, const float* rho, const float* x, const float* z,
+                 const float* y, float* xo, float* zo, float* yo,
+                 int B, int n, int m, int mg, int iters, float sigma, float alpha,
+                 int device, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int variant = variant_for(n, m, mg, device);
+  if (variant == kUnsupported) return static_cast<int>(cudaErrorInvalidValue);
+  const Lane p{n, m, mg, iters, sigma, alpha};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int md = m - mg;
+  if (variant == kRegister) {
+    int threads = 0;
+    const KernelFn kernel = register_kernel<K>(n, md, &threads);
+    kernel<<<B, threads, 0, s>>>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int threads = ((n > m ? n : m) + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  const int lda = row_stride(n);
+  if (variant == kShared) {
+    allow_smem<true>(device);
+    admm_chunk_kernel<true><<<B, threads, vec_bytes(n, m, mg) + mat_bytes(n, md), s>>>(
+        Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, p, lda);
+  } else {
+    allow_smem<false>(device);
+    admm_chunk_kernel<false><<<B, threads, vec_bytes(n, m, mg), s>>>(
+        Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, p, lda);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1: matrices in shared memory; 0: matrices read from global memory;
-// -1: the vectors alone exceed a block's shared memory (not supported).
-int admm_chunk_smem_variant(int n, int m) {
-  const size_t budget = static_cast<size_t>(smem_budget());
-  if (vec_bytes(n, m) + mat_bytes(n, m) <= budget) return 1;
-  if (vec_bytes(n, m) <= budget) return 0;
-  return -1;
+// 2: register variant; 1: matrices in shared memory; 0: matrices read from
+// global memory; -1: the vectors alone exceed a block's shared memory, or
+// the declared diagonal rows outnumber the columns (not supported).
+int admm_chunk_variant(int n, int m, int mg, int device) {
+  return variant_for(n, m, mg, device);
 }
 
-int admm_chunk_f32(const float* Minv, const float* A, const float* q,
-                   const float* l, const float* u, const float* rho,
-                   const float* x, const float* z, const float* y,
-                   float* xo, float* zo, float* yo,
-                   int B, int n, int m, int iters, float sigma, float alpha,
-                   void* stream) {
-  if (B <= 0 || n <= 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int variant = admm_chunk_smem_variant(n, m);
-  if (variant < 0) return static_cast<int>(cudaErrorInvalidValue);
-  int threads = ((n > m ? n : m) + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const int lda = row_stride(n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    const size_t bytes = vec_bytes(n, m) + mat_bytes(n, m);
-    cudaFuncSetAttribute(admm_chunk_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(bytes));
-    admm_chunk_kernel<true><<<B, threads, bytes, s>>>(
-        Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, n, m, lda, iters, sigma, alpha);
-  } else {
-    const size_t bytes = vec_bytes(n, m);
-    cudaFuncSetAttribute(admm_chunk_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(bytes));
-    admm_chunk_kernel<false><<<B, threads, bytes, s>>>(
-        Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, n, m, lda, iters, sigma, alpha);
-  }
-  return static_cast<int>(cudaGetLastError());
+// Minv (B,n,n), A (B,m,n), q/x (B,n), l/u/rho/z/y (B,m); outputs xo (B,n),
+// zo/yo (B,m). The first mg rows of A are read as their diagonal alone.
+// `device` is the current CUDA device.
+int admm_chunk_f32(const float* Minv, const float* A, const float* q, const float* l,
+                   const float* u, const float* rho, const float* x, const float* z,
+                   const float* y, float* xo, float* zo, float* yo,
+                   int B, int n, int m, int mg, int iters, float sigma, float alpha,
+                   int device, void* stream) {
+  return launch_chunk<kRowThreads>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B, n, m,
+                                   mg, iters, sigma, alpha, device, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,7 @@
 
 Route: ``nvcc`` by hand into a ``.so`` with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go to
-``build/`` at the repository root, named by a hash of the source and the
+``build/`` at the repository root, named by a hash of the sources and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing is compiled at import time: the first launch builds.
 """
@@ -42,7 +42,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # every source of the directory, since one may include another
+    text = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cu")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -16,8 +16,9 @@ matrix so each iteration is three batched matvecs. The iterations of one
 check interval (a "chunk") run either through the hand-written chunk kernel
 (``use_pallas`` "on"/"auto"/"lanes": the CUDA kernel on a CUDA tensor, its
 plain version on a CPU tensor) or as the streamed, structure-compacted loop
-(``use_pallas="off"``). Converged lanes are frozen; the chunk loop stops once
-every lane is done.
+(``use_pallas="off"``); both apply A through the declared ``row_structure``
+(a "diag" segment by its diagonal alone). Converged lanes are frozen; the
+chunk loop stops once every lane is done.
 
 Not in this slice (each raises ``NotImplementedError``): ``polish``,
 ``infeas_certs=True``, ``kkt_inv0`` (warm KKT / Newton–Schulz refresh),
@@ -34,6 +35,7 @@ import torch
 from torch.profiler import record_function
 
 from ..kernels import admm_chunk as chunk_kernel
+from ..kernels.admm_chunk import compact_structure, make_A_ops
 from .ruiz import Scaling, ruiz_equilibrate
 from .types import MAX_ITER, SOLVED, QPData, QPSolution
 
@@ -93,62 +95,6 @@ def _check_supported(cfg: ADMMConfig, kkt_inv0) -> None:
             f"ported ({later}); only f32 matvecs")
     if cfg.use_pallas not in _KERNEL_MODES + ("off",):
         raise ValueError(f"unknown use_pallas={cfg.use_pallas!r}")
-
-
-def _compact_structure(A: torch.Tensor, segs: tuple) -> tuple:
-    """Compact per-segment operands of the batched (scaled) A (B,m,n), in
-    row order; rows past the declared segments form a trailing dense one."""
-    m = A.shape[1]
-    ops = []
-    r0 = 0
-    for seg in segs:
-        kind = seg[0]
-        if kind == "dense":
-            ops.append(("dense", A[:, r0 : r0 + seg[1]]))
-            r0 += seg[1]
-        elif kind == "diag":
-            nr = seg[1]
-            ops.append(("diag", torch.diagonal(A[:, r0 : r0 + nr, :nr], dim1=1, dim2=2)))
-            r0 += nr
-        elif kind in ("blt", "blockdiag", "blockdiag_shared"):
-            raise NotImplementedError(
-                f"row-structure segment {kind!r} is not ported yet (it arrives "
-                "with the 6-DoF slice); only 'dense' and 'diag'")
-        else:
-            raise ValueError(f"unknown row-structure segment {kind!r}")
-    if r0 > m:
-        raise ValueError("row structure exceeds A's rows")
-    if r0 < m:
-        ops.append(("dense", A[:, r0:]))
-    return tuple(ops)
-
-
-def _make_A_ops(ops: tuple, n: int):
-    """(A_apply, AT_apply) on batched vectors from compacted structure ops."""
-
-    def A_apply(v):
-        outs = []
-        for kind, M in ops:
-            if kind == "dense":
-                outs.append(torch.bmm(M, v[:, :, None])[:, :, 0])
-            else:  # diag
-                outs.append(M * v[:, : M.shape[1]])
-        return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
-
-    def AT_apply(t):
-        out = torch.zeros(t.shape[0], n, dtype=t.dtype, device=t.device)
-        r0 = 0
-        for kind, M in ops:
-            nr = M.shape[1]
-            ts = t[:, r0 : r0 + nr]
-            if kind == "dense":
-                out = out + torch.bmm(M.transpose(1, 2), ts[:, :, None])[:, :, 0]
-            else:  # diag
-                out = out + torch.nn.functional.pad(M * ts, (0, n - nr))
-            r0 += nr
-        return out
-
-    return A_apply, AT_apply
 
 
 def _rho_vec(l: torch.Tensor, u: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
@@ -237,7 +183,7 @@ def solve(
 
     use_kernel = cfg.use_pallas in _KERNEL_MODES
     segs = cfg.row_structure if cfg.row_structure is not None else (("dense", m),)
-    A_apply, AT_apply = _make_A_ops(_compact_structure(A, segs), n)
+    A_apply, AT_apply = make_A_ops(compact_structure(A, segs), n)
     L = _factor(P, A, rho_v, cfg.sigma)
 
     q_unsc_norm = _amax(Dinv * q) / c
@@ -258,8 +204,8 @@ def solve(
     def run_chunk(x, z, y, rho_v, L):
         if use_kernel:
             return chunk_kernel.admm_chunk(
-                L, A, q, l, u, rho_v, x, z, y,
-                iters=cfg.check_interval, sigma=cfg.sigma, alpha=cfg.alpha)
+                L, A, q, l, u, rho_v, x, z, y, iters=cfg.check_interval,
+                sigma=cfg.sigma, alpha=cfg.alpha, row_structure=segs)
         for _ in range(cfg.check_interval):
             rhs = cfg.sigma * x - q + AT_apply(rho_v * z - y)
             x_t = _mv(L, rhs)

@@ -96,3 +96,100 @@ def test_pallas_available_false_without_a_card():
         pytest.skip("this machine has a CUDA device")
     assert not K.pallas_available()
     assert not K.pallas_available("cpu")
+
+
+def _structured_qp(seed, n=12, m=18, nd=12, off=0.01):
+    """random_qp with its first nd rows made diagonal, plus ``off``-scaled
+    off-diagonal entries in those rows that a declared ("diag", nd) segment
+    does not read."""
+    rng = np.random.default_rng(seed)
+    data = random_qp(rng, n=n, m=m, eq_rows=4)
+    A = np.array(data.A)
+    A[:nd] = off * rng.normal(size=(nd, n))
+    A[np.arange(nd), np.arange(nd)] = 1.0 + 0.5 * rng.random(nd)
+    return data.replace(A=jnp.asarray(A, jnp.float32))
+
+
+@pytest.mark.parametrize("iters", [1, 10])
+def test_plain_with_row_structure_matches_jax_streamed_solve(iters):
+    """One chunk of the JAX solver's streamed path (use_pallas="off", no
+    scaling, fixed ρ) with a declared diagonal segment whose rows also hold
+    small off-diagonal entries: the plain chunk given the same structure
+    reads the diagonal alone, as the JAX stream does."""
+    segs = (("diag", 12), ("dense", 6))
+    cfg = JA.ADMMConfig(max_iter=iters, check_interval=iters, scaling=0, adaptive_rho=False,
+                        polish=False, infeas_certs=False, use_pallas="off", row_structure=segs)
+    outs, ins = [], []
+    for seed in range(3):
+        data = _structured_qp(seed)
+        rng = np.random.default_rng(100 + seed)
+        x0 = jnp.asarray(rng.normal(size=12) * 0.1, jnp.float32)
+        y0 = jnp.asarray(rng.normal(size=18) * 0.01, jnp.float32)
+        outs.append(JA.solve(data, x0, y0, cfg))
+        rho_v = JA._rho_vec(data.l, data.u, jnp.asarray(cfg.rho))
+        Minv = JA._factor(data.P, data.A, rho_v, cfg.sigma)
+        ins.append((Minv, data.A, data.q, data.l, data.u, rho_v, x0, data.A @ x0, y0))
+    args = _torch([np.stack([np.asarray(l[i]) for l in ins]) for i in range(9)])
+    kw = dict(iters=iters, sigma=cfg.sigma, alpha=cfg.alpha)
+    xt, zt, yt = K.admm_chunk_plain(*args, row_structure=segs, **kw)
+    for b, js in enumerate(outs):
+        np.testing.assert_allclose(xt[b].numpy(), js.x, atol=ATOL_XZ)
+        np.testing.assert_allclose(zt[b].numpy(), js.z, atol=ATOL_XZ)
+        np.testing.assert_allclose(yt[b].numpy(), js.y, atol=ATOL_Y)
+    # the off-diagonal entries are large enough to show: applied densely
+    # they move the iterate well past the tolerance
+    xd, zd, _ = K.admm_chunk_plain(*args, row_structure=None, **kw)
+    assert float((zd - zt).abs().max()) > 10 * ATOL_XZ
+
+
+def test_declared_dense_rows_match_pallas_lanes_kernel():
+    """row_structure=None and an all-dense declaration are the function both
+    Pallas kernels compute."""
+    args = _batch(range(4))
+    chunk = make_admm_chunk_lanes(8, 1e-6, 1.6, interpret=True)
+    xj, zj, yj = jax.jit(jax.vmap(chunk))(*[jnp.asarray(a) for a in args])
+    for segs in (None, (("dense", 18),), (("dense", 7), ("dense", 11))):
+        xt, zt, yt = K.admm_chunk_plain(*_torch(args), iters=8, sigma=1e-6, alpha=1.6,
+                                        row_structure=segs)
+        np.testing.assert_allclose(xt.numpy(), xj, atol=ATOL_XZ)
+        np.testing.assert_allclose(zt.numpy(), zj, atol=ATOL_XZ)
+        np.testing.assert_allclose(yt.numpy(), yj, atol=ATOL_Y)
+
+
+@pytest.mark.parametrize("segs", [
+    None,
+    (("diag", 12),),
+    (("diag", 12), ("dense", 6)),
+    (("dense", 6), ("diag", 12)),
+    (("diag", 8), ("dense", 2), ("diag", 5)),
+])
+def test_kernel_layout_applies_the_declared_structure(segs):
+    """The operands the CUDA kernel is handed (kernel_rows: the first mg rows
+    read as their diagonal, every other row dense, a later diagonal segment
+    as dense rows holding its diagonal) give the plain chunk's function."""
+    data = _structured_qp(5)
+    rho_v = JA._rho_vec(data.l, data.u, jnp.asarray(0.1))
+    Minv = JA._factor(data.P, data.A, rho_v, 1e-6)
+    x = jnp.asarray(np.random.default_rng(7).normal(size=12) * 0.1, jnp.float32)
+    args = _torch([np.asarray(a)[None] for a in
+                   (Minv, data.A, data.q, data.l, data.u, rho_v, x, data.A @ x, jnp.zeros(18))])
+    kw = dict(iters=5, sigma=1e-6, alpha=1.6)
+    want = K.admm_chunk_plain(*args, row_structure=segs, **kw)
+    Ak, mg = K.kernel_rows(args[1], segs)
+    args[1] = Ak
+    got = K.admm_chunk_plain(*args, row_structure=(("diag", mg),) if mg else None, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("segs,err", [
+    ((("diag", 13),), ValueError),            # more diagonal rows than columns
+    ((("dense", 19),), ValueError),           # more rows than A has
+    ((("blt", 2, 3, 6),), NotImplementedError),
+])
+def test_wrapper_rejects_unsupported_structure(segs, err):
+    args = _torch(_batch(range(2)))
+    with pytest.raises(err):
+        K.admm_chunk(*args, iters=1, sigma=1e-6, alpha=1.6, row_structure=segs)
+    with pytest.raises(err):
+        K.kernel_rows(args[1], segs)

@@ -245,3 +245,58 @@ def test_join_split_roundtrip():
     torch.testing.assert_close(U2, U)
     _, Uj = jax_split_z(jnp.asarray(z[0].numpy()), 4, 7, 3)
     np.testing.assert_array_equal(U[0].numpy(), Uj)
+
+
+def _diag_rows_qp(seed, n=12, m=18):
+    """random_qp whose first n rows are diagonal (as the condensed QP's
+    control-bound rows are)."""
+    rng = np.random.default_rng(seed)
+    data = random_qp(rng, n=n, m=m, eq_rows=4)
+    A = np.array(data.A)
+    A[:n] = np.diag(1.0 + 0.5 * rng.random(n))
+    return data.replace(A=jnp.asarray(A, jnp.float32))
+
+
+@pytest.mark.parametrize("mode", ["off", "auto"])
+def test_solve_with_declared_structure_matches_jax_off(mode):
+    """A declared ("diag", 12) + ("dense", 6) structure: the port's streamed
+    loop and its chunk (plain version on the CPU) both match the JAX
+    streamed solve with the same declaration, at the full-solve bound."""
+    segs = (("diag", 12), ("dense", 6))
+    datas = [_diag_rows_qp(s) for s in range(4)]
+    jcfg = JA.ADMMConfig(max_iter=100, use_pallas="off", infeas_certs=False,
+                         adaptive_rho=False, row_structure=segs)
+    tcfg = convert.admm_config_from_fields(_fields(jcfg)).replace(use_pallas=mode)
+    assert tcfg.row_structure == segs
+    ts = TA.solve(_stack(datas), config=tcfg)
+    js = [JA.solve(d, config=jcfg) for d in datas]
+    np.testing.assert_allclose(ts.x.numpy(), np.stack([s.x for s in js]), atol=5e-4)
+    np.testing.assert_array_equal(ts.status.numpy(), [int(s.status) for s in js])
+
+
+def test_solve_hands_the_declared_structure_to_the_chunk(monkeypatch):
+    """solve() passes the main path's declared row structure, the 60
+    identity control rows as ("diag", 60), to the chunk kernel's wrapper."""
+    from gpmpc_tpu_torch.main_path import main_path
+    from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg
+
+    cfg = _condensed_admm_cfg(main_path("cpu").config.base)
+    assert cfg.row_structure == (("diag", 60),) and cfg.use_pallas == "auto"
+    calls = []
+    real = TA.chunk_kernel.admm_chunk
+
+    def record(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TA.chunk_kernel, "admm_chunk", record)
+    rng = np.random.default_rng(0)
+    n = 60
+    G = rng.normal(size=(2, n, n))
+    T = lambda a: torch.tensor(a, dtype=torch.float32)
+    data = QPData(P=T(G @ G.transpose(0, 2, 1) / n + 0.1 * np.eye(n)), q=T(rng.normal(size=(2, n))),
+                  A=torch.eye(n).expand(2, n, n).clone(), l=-torch.ones(2, n), u=torch.ones(2, n))
+    sol = TA.solve(data, config=cfg)
+    assert len(calls) == cfg.max_iter // cfg.check_interval
+    assert all(kw["row_structure"] == (("diag", 60),) for kw in calls)
+    assert bool(torch.isfinite(sol.x).all())
