@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-Drives the port's main path — the 3-DoF GP-MPC real-time cycle that
-``bench.py`` times, at its full width (512 lanes, N = 20, one 50-iteration
-ADMM chunk per cycle) — through the entry points a user calls, and checks
-the hand-written kernel on the way:
+Drives the port's paths at their full width (512 lanes, N = 20) through the
+entry points a user calls, and checks the hand-written kernel on the way:
 
 1. the card: CUDA with compute capability 9.x, its name and power limit;
-2. build every kernel of the path from ``gpmpc_tpu_torch/csrc`` (nvcc);
-3. each kernel against its plain PyTorch version on the card, at the
-   main-path shape (its 60 rows declared diagonal), a dense QP of that size
-   and the sparse-form golden shape, with the variant each launches and its
-   registers and spills; times at the first two;
+2. build every kernel of the paths from ``gpmpc_tpu_torch/csrc`` (nvcc);
+3. each kernel against its plain PyTorch version on the card at every shape
+   the paths give it — the main path's (60 rows declared diagonal, 50
+   iterations), a dense QP of that size, the sparse-form golden shape, the
+   RTI path's (25 iterations), a condensed QP that keeps its state-bound
+   rows (140 dense rows before the 60 diagonal ones) and the golden shape at
+   4 and 512 lanes — with the variant each launches, its registers and
+   spills, and its time beside its bound, the plain version and a cuBLAS
+   chain;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
    steps with the launch counters reset just before and read just after,
    and hold one cycle on the card against the same cycle on the CPU;
-5. a closed-loop landing of the 512-lane fleet under the dispersed plant,
-   judged by the landing demo's pass criteria.
+5. a closed-loop landing of the fleet under the dispersed plant, judged by
+   the landing demo's pass criteria;
+6. the RTI path: the GP-free RTI cycle on the nominal plant, timed and
+   counted the same way, held against the CPU, then a closed-loop landing
+   of the fleet along per-lane descent references;
+7. the production GP fit: ``pretrain_gp_3dof`` on the card (sparse-form RTI
+   episodes through the kernel's global variant, FITC fit, Adam tuning),
+   then the GP-MPC landing of the fleet with that GP.
 
 Everything worth reporting is printed before the last two lines: a JSON
 object with one entry per kernel, the card's name and power limit, and last
@@ -40,6 +48,7 @@ sys.path.insert(0, ROOT)
 N = 20
 BATCH = 512
 ITERS = 50
+RTI_CHUNK = 25  # the default check interval: the RTI and pretraining paths' chunk
 DT = 0.1
 # the TPU kernels this path's kernel replaces (gpmpc_tpu/ops/pallas)
 REPLACES = ("gpmpc_tpu/ops/pallas/admm_kernel.py:29 (_chunk_kernel via admm_chunk:75), "
@@ -84,26 +93,36 @@ def phase_build():
 
 
 def phase_kernels():
-    """Kernel vs plain at three shapes; times at the main-path shape (its
-    declared diagonal rows) and at the dense 60×60 shape. Returns the timing
-    of both, main first: ``ms`` is the kernel's device time from a CUDA-graph
-    replay, ``eager_ms`` the time of eager back-to-back calls (it reads the
-    wrapper's host time wherever that exceeds the kernel's), ``wrapper_us``
-    the host time of one wrapper call."""
-    from gpmpc_tpu_torch.chunk_bench import (bmm_chain_graph, bound_ms, chunk_inputs, cuda_ms,
-                                             graph_ms, host_us, kernel_entry, ptxas_report)
+    """Kernel vs plain at every shape of the paths; times at all but the
+    8-lane golden check. Returns the timings, main first: ``ms`` is the
+    kernel's device time from a CUDA-graph replay, ``eager_ms`` the time of
+    eager back-to-back calls (it reads the wrapper's host time wherever that
+    exceeds the kernel's), ``wrapper_us`` the host time of one wrapper call."""
+    from gpmpc_tpu_torch.chunk_bench import (BOUNDED_SEGS, bmm_chain_graph, bound_ms,
+                                             chunk_inputs, cuda_ms, graph_ms, host_us,
+                                             kernel_entry, ptxas_report)
     from gpmpc_tpu_torch.ops.kernels import _build
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     golden = os.path.join(ROOT, "tests", "fixtures", "qp_golden.npz")
     timings = []
-    # the main path's QP declares its 60 identity control rows as "diag"
-    # (mpc/rti.py::_condensed_admm_cfg); the other two shapes are all dense
-    for kind, segs in (("main", (("diag", N * 3),)), ("dense", None), ("golden", None)):
-        args = chunk_inputs(kind, gen, golden)
+    diag = (("diag", N * 3),)
+    # (name, inputs, lanes of the golden set, row structure, iterations, timed).
+    # The condensed paths declare their 60 identity control rows as "diag"
+    # (mpc/rti.py::_condensed_admm_cfg): alone on the main and RTI paths,
+    # after the block-lower-triangular state-bound rows where those are kept.
+    # The sparse-form golden shape is what the pretraining episodes solve.
+    shapes = (("main", "main", 0, diag, ITERS, True), ("dense", "dense", 0, None, ITERS, True),
+              ("golden", "golden", 8, None, ITERS, False),
+              ("rti", "main", 0, diag, RTI_CHUNK, True),
+              ("bounded", "bounded", 0, BOUNDED_SEGS, RTI_CHUNK, True),
+              ("golden_b4", "golden", 4, None, RTI_CHUNK, True),
+              ("golden_b512", "golden", BATCH, None, RTI_CHUNK, True))
+    for kind, inputs, lanes, segs, iters, timed in shapes:
+        args = chunk_inputs(inputs, gen, golden, lanes)
         B, m, n = args[1].shape
-        kw = dict(iters=ITERS, sigma=1e-6, alpha=1.6, row_structure=segs)
+        kw = dict(iters=iters, sigma=1e-6, alpha=1.6, row_structure=segs)
         xk, zk, yk = K.admm_chunk(*args, **kw)
         xp, zp, yp = K.admm_chunk_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -111,30 +130,34 @@ def phase_kernels():
         scale = [max(1.0, b.abs().max().item()) for b in (xp, zp, yp)]
         rel = [e / s for e, s in zip(err, scale)]
         finite = all(bool(torch.isfinite(t).all()) for t in (xk, zk, yk))
-        mg = K.kernel_rows(args[1], segs)[1]
+        Ak, d0, mg = K.kernel_rows(args[1], segs)
+        if Ak is not args[1]:
+            raise RuntimeError(f"the wrapper copied A for the {kind} shape")
         variant = K.variant(n, m, mg)
         regs, spill_st, spill_ld = ptxas_report(_build.build_log("admm_chunk"),
                                                 kernel_entry(variant, n, m, mg))
-        log(f"[kernel] {kind}: B={B} n={n} m={m} diagonal rows {mg} iters={ITERS} "
+        log(f"[kernel] {kind}: B={B} n={n} m={m} diagonal rows {d0}..{d0 + mg} iters={iters} "
             f"variant={variant} ({regs} registers, spill stores {spill_st} B, loads {spill_ld} B) "
             f"max|dx|={err[0]:.3e} max|dz|={err[1]:.3e} max|dy|={err[2]:.3e}; "
             f"over max(1,|plain|): {rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e} "
             f"(atol {ATOL_XZ}/{ATOL_XZ}/{ATOL_Y})")
         if not finite or rel[0] > ATOL_XZ or rel[1] > ATOL_XZ or rel[2] > ATOL_Y:
             raise RuntimeError(f"admm_chunk kernel disagrees with its plain version ({kind})")
-        if kind == "golden":
+        if not timed:
             continue
         chunk = lambda: K.admm_chunk(*args, **kw)
-        ms = graph_ms(chunk, 20)
+        reps = 20 if B * n * m < 1e7 else 4  # the 512-lane golden chunk takes milliseconds
+        ms = graph_ms(chunk, reps)
         plain_ms = cuda_ms(lambda: K.admm_chunk_plain(*args, **kw), 5)
-        lib_ms = cuda_ms(bmm_chain_graph(args, ITERS, segs), 20)
-        ms2 = graph_ms(chunk, 20)
+        lib_ms = cuda_ms(bmm_chain_graph(args, iters, segs), reps)
+        ms2 = graph_ms(chunk, reps)
         eager_ms, wrap_us = cuda_ms(chunk, 50), host_us(chunk, 200)
-        bnd, by, nbytes, flops = bound_ms(args, ITERS, segs)
-        timings.append(dict(shape=kind, variant=variant, registers=regs, max_abs_err=max(err),
+        bnd, by, nbytes, flops = bound_ms(args, iters, segs)
+        timings.append(dict(shape=kind, lanes=B, n=n, m=m, iters=iters, variant=variant,
+                            registers=regs, max_abs_err=max(err),
                             ms=ms, ms_repeat=ms2, eager_ms=eager_ms, wrapper_us=wrap_us,
                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by))
-        log(f"[kernel] {kind} chunk: kernel {ms:.4f} ms (repeat {ms2:.4f}; CUDA graph of 20 "
+        log(f"[kernel] {kind} chunk: kernel {ms:.4f} ms (repeat {ms2:.4f}; CUDA graph of {reps} "
             f"launches), eager back-to-back calls {eager_ms:.4f} ms, wrapper host time "
             f"{wrap_us:.1f} us a call, "
             f"plain {plain_ms:.4f} ms, bmm chain in a CUDA graph {lib_ms:.4f} ms, "
@@ -158,11 +181,37 @@ def _to(obj, dev):
     return obj
 
 
+def _time_cycles(cycle, state, xs, cycles, dev, what):
+    """Warm up, then time ``cycles`` calls of ``cycle(state, xs) → (sol,
+    state, xs)`` with the kernel's launch count set to 0 just before and read
+    just after. Returns (sol, state, xs, ms per cycle from CUDA events, ms
+    per cycle on the host clock, launches)."""
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    for _ in range(5):  # warm-up: allocator, cuBLAS/cuSOLVER handles, kernel load
+        sol, state, xs = cycle(state, xs)
+    torch.cuda.synchronize(dev)
+    K.LAUNCHES = 0  # counts from here on are this path's
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    start.record()
+    for _ in range(cycles):
+        sol, state, xs = cycle(state, xs)
+    end.record()
+    torch.cuda.synchronize(dev)
+    host_ms = (time.time() - t0) * 1e3 / cycles
+    launches = K.LAUNCHES
+    for name, t in (("u0", sol.u0), ("X_opt", sol.X_opt), ("state.X_lin", state.X_lin),
+                    ("state.y_prev", state.y_prev), ("x", xs)):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"non-finite {name} on {what}")
+    return sol, state, xs, start.elapsed_time(end) / cycles, host_ms, launches
+
+
 def phase_main_path(dev=torch.device("cuda")):
     from gpmpc_tpu_torch.learning import explore_gp_3dof
     from gpmpc_tpu_torch.main_path import fleet_x0, gp_fns, main_path
     from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
-    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
     mp = main_path(dev)
     cfg = mp.config
@@ -181,26 +230,9 @@ def phase_main_path(dev=torch.device("cuda")):
         sol, state = gp_mpc_solve(mp.F, mean_fn, var_fn, cfg, state, xs)
         return sol, state, mp.F_true(xs, sol.u0)
 
-    for _ in range(5):  # warm-up: allocator, cuBLAS/cuSOLVER handles, kernel load
-        sol, state, xs = cycle(state, xs)
-    torch.cuda.synchronize(dev)
-
     cycles = 20
-    K.LAUNCHES = 0  # counts from here on are the main path's
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.time()
-    start.record()
-    for _ in range(cycles):
-        sol, state, xs = cycle(state, xs)
-    end.record()
-    torch.cuda.synchronize(dev)
-    host_ms = (time.time() - t0) * 1e3 / cycles
-    launches = K.LAUNCHES
-    dev_ms = start.elapsed_time(end) / cycles
-    for name, t in (("u0", sol.u0), ("X_opt", sol.X_opt), ("state.X_lin", state.X_lin),
-                    ("state.y_prev", state.y_prev), ("x", xs)):
-        if not bool(torch.isfinite(t).all()):
-            raise RuntimeError(f"non-finite {name} on the main path")
+    sol, state, xs, dev_ms, host_ms, launches = _time_cycles(
+        cycle, state, xs, cycles, dev, "the main path")
     chunks = cfg.scp_iterations * (cfg.base.admm.max_iter // cfg.base.admm.check_interval)
     if launches != cycles * chunks:
         raise RuntimeError(f"admm_chunk launched {launches} times in {cycles} cycles, "
@@ -230,7 +262,24 @@ def phase_main_path(dev=torch.device("cuda")):
                 solves_per_s=BATCH * 1000.0 / host_ms), (mean_fn, var_fn)
 
 
-def phase_landing(gp_fns_, dev=torch.device("cuda")):
+def _judge(tag, xs, landed, steps, seconds):
+    """scripts/demo_landing.py:91-93: every lane landed, |v| < 2 m/s,
+    position error < 1 m, altitude < 0.5 m."""
+    v = torch.linalg.vector_norm(xs[:, 4:7], dim=1)
+    perr = torch.linalg.vector_norm(xs[:, 2:4], dim=1)
+    alt = xs[:, 1]
+    ok = landed & (v < 2.0) & (perr < 1.0) & (alt < 0.5)
+    share = float(ok.float().mean())
+    log(f"[{tag}] {xs.shape[0]} lanes, {steps} cycles in {seconds:.1f} s: "
+        f"landed {int(landed.sum())}/{xs.shape[0]}, success share {share:.4f}, "
+        f"worst touchdown |v| {float(v.max()):.4f} m/s, mean {float(v.mean()):.4f}, "
+        f"worst position error {float(perr.max()):.4f} m, worst altitude {float(alt.max()):.4f} m")
+    if share < 1.0:
+        raise RuntimeError(f"the fleet failed the landing criteria ({tag})")
+    return dict(success_share=share, worst_v=float(v.max()), steps=steps)
+
+
+def phase_landing(gp_fns_, dev=torch.device("cuda"), tag="landing"):
     from gpmpc_tpu_torch.main_path import fleet_x0, main_path
     from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
 
@@ -248,18 +297,100 @@ def phase_landing(gp_fns_, dev=torch.device("cuda")):
         landed = landed | (xs[:, 1] < 0.1)
         if steps % 10 == 0 and bool(landed.all()):
             break
-    v = torch.linalg.vector_norm(xs[:, 4:7], dim=1)
-    perr = torch.linalg.vector_norm(xs[:, 2:4], dim=1)
-    alt = xs[:, 1]
-    ok = landed & (v < 2.0) & (perr < 1.0) & (alt < 0.5)  # scripts/demo_landing.py:91-93
-    share = float(ok.float().mean())
-    log(f"[landing] {xs.shape[0]} lanes, {steps} cycles in {time.time() - t0:.1f} s: "
-        f"landed {int(landed.sum())}/{xs.shape[0]}, success share {share:.4f}, "
-        f"worst touchdown |v| {float(v.max()):.4f} m/s, mean {float(v.mean()):.4f}, "
-        f"worst position error {float(perr.max()):.4f} m, worst altitude {float(alt.max()):.4f} m")
-    if share < 1.0:
-        raise RuntimeError("the fleet failed the landing criteria")
-    return dict(success_share=share, worst_v=float(v.max()), steps=steps)
+    return _judge(tag, xs, landed, steps, time.time() - t0)
+
+
+def phase_rti(dev=torch.device("cuda")):
+    """Path A: the GP-free RTI cycle of the bench's secondary metric."""
+    from gpmpc_tpu_torch.main_path import fleet_x0, rti_path
+    from gpmpc_tpu_torch.mpc import rti_closed_loop, rti_init, rti_step
+    from gpmpc_tpu_torch.reference import cubic_descent_reference, pad_reference
+
+    rp = rti_path(dev)
+    cfg = rp.config
+    xs = fleet_x0(BATCH, dev)
+    state = rti_init(cfg, xs, rp.x_target)
+
+    def cycle(state, xs):
+        sol, state = rti_step(rp.F, cfg, state, xs)
+        return sol, state, rp.F(xs, sol.u0)
+
+    cycles = 20
+    sol, state, xs, dev_ms, host_ms, launches = _time_cycles(
+        cycle, state, xs, cycles, dev, "the RTI path")
+    # two chunks of 25 a cycle; early exit may skip the second
+    if not cycles <= launches <= 2 * cycles:
+        raise RuntimeError(f"admm_chunk launched {launches} times in {cycles} RTI cycles, "
+                           f"expected {cycles} to {2 * cycles}")
+    log(f"[rti] {cycles} cycles x {BATCH} lanes: {dev_ms:.3f} ms/cycle (CUDA events), "
+        f"{host_ms:.3f} ms/cycle (host clock), {BATCH * 1000.0 / host_ms:.1f} solves/s; "
+        f"admm_chunk launches {launches} ({launches / cycles:.2f}/cycle); "
+        f"accepted {float(sol.success.float().mean()):.4f}")
+
+    lanes = 8
+    cpu = torch.device("cpu")
+    st_gpu = type(state)(**{f: getattr(state, f)[:lanes] for f in
+                            ("X_lin", "U_lin", "X_prev", "U_prev", "y_prev", "rho", "x_ref")})
+    sol_g, _ = rti_step(rp.F, cfg, st_gpu, xs[:lanes])
+    rp_c = rti_path(cpu)
+    sol_c, _ = rti_step(rp_c.F, rp_c.config, _to(st_gpu, cpu), xs[:lanes].cpu())
+    du = (sol_g.u0.cpu() - sol_c.u0).abs().max().item()
+    dX = (sol_g.X_opt.cpu() - sol_c.X_opt).abs().max().item()
+    log(f"[rti] card vs CPU, one cycle at {lanes} lanes: max|du0|={du:.3e} "
+        f"max|dX_opt|={dX:.3e} (atol 1e-3)")
+    if du > 1e-3 or dX > 1e-3:
+        raise RuntimeError("the card's RTI cycle disagrees with the CPU reference")
+
+    # closed-loop landing as scripts/demo_landing.py flies it: every lane
+    # tracks its own cubic descent reference
+    steps = 110
+    x0s = fleet_x0(BATCH, dev)
+    ref = pad_reference(cubic_descent_reference(x0s, rp.x_target, steps - 10, DT), cfg.N + 20)
+    t0 = time.time()
+    out = rti_closed_loop(rp.F, cfg, x0s, rp.x_target, steps, X_ref_full=ref)
+    torch.cuda.synchronize(dev)
+    land = _judge("rti landing", out["x_final"], out["landed"], steps, time.time() - t0)
+    return dict(launches=launches, ms_per_cycle=dev_ms, host_ms_per_cycle=host_ms,
+                solves_per_s=BATCH * 1000.0 / host_ms, landing=land)
+
+
+def phase_pretrain(dev=torch.device("cuda")):
+    """Path B: the production GP fit on the card, then the GP-MPC landing
+    with that GP."""
+    from gpmpc_tpu_torch.gp import sparse_lml
+    from gpmpc_tpu_torch.main_path import pretrain_path
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    episodes, episode_len = 4, 64
+    K.LAUNCHES = 0  # counts from here on are this path's
+    t0 = time.time()
+    gp, mean_fn, var_fn = pretrain_path(torch.Generator(device=dev).manual_seed(2),
+                                        dev, n_episodes=episodes, episode_len=episode_len)
+    torch.cuda.synchronize(dev)
+    seconds = time.time() - t0
+    launches = K.LAUNCHES
+    # the episodes' QP is the sparse form, n = 207, m = 354, all rows dense:
+    # four chunks of 25 a cycle, every one an adapt chunk (no early exit)
+    variant = K.variant(207, 354, 0)
+    if variant != "global" or launches != 4 * episode_len:
+        raise RuntimeError(f"pretraining launched the {variant} variant {launches} times, "
+                           f"expected the global one {4 * episode_len} times")
+    g = gp.gp
+    k0, ln0 = gp.initial_hyperparameters()
+    lml = sparse_lml(g.kernels, g.Z, g.X, g.Y, g.mask, g.log_noise, g.method)
+    lml0 = sparse_lml(k0, g.Z, g.X, g.Y, g.mask, ln0, g.method)
+    log(f"[pretrain] {episodes} episodes x {episode_len} cycles + fit + tuning in {seconds:.2f} s: "
+        f"{int(gp.buffer.count)} points, {g.Z.shape[0]} inducing, admm_chunk launches {launches} "
+        f"({variant} variant); LML per output untuned {[round(v, 2) for v in lml0.tolist()]} "
+        f"tuned {[round(v, 2) for v in lml.tolist()]}")
+    if not bool(torch.isfinite(lml).all()) or bool((lml < lml0).any()):
+        raise RuntimeError("the tuned marginal likelihood is worse than the untuned one")
+    K.LAUNCHES = 0
+    land = phase_landing((mean_fn, var_fn), dev, tag="pretrained landing")
+    if K.LAUNCHES < land["steps"]:
+        raise RuntimeError("the pretrained landing did not go through the kernel")
+    return dict(launches=launches, seconds=seconds, landing=land,
+                landing_launches=K.LAUNCHES)
 
 
 def main():
@@ -268,8 +399,13 @@ def main():
     timings = phase_kernels()
     main_res, fns = phase_main_path()
     land = phase_landing(fns)
+    rti_res = phase_rti()
+    pre_res = phase_pretrain()
     log(f"[summary] main path {main_res['ms_per_cycle']:.3f} ms/cycle, "
-        f"{main_res['solves_per_s']:.1f} solves/s, landing success {land['success_share']:.4f}")
+        f"{main_res['solves_per_s']:.1f} solves/s, landing success {land['success_share']:.4f}; "
+        f"RTI path {rti_res['ms_per_cycle']:.3f} ms/cycle, landing success "
+        f"{rti_res['landing']['success_share']:.4f}; pretraining {pre_res['seconds']:.2f} s, "
+        f"landing success with its GP {pre_res['landing']['success_share']:.4f}")
     main_t = timings[0]
     kernels = [{
         "name": "admm_chunk",
@@ -277,6 +413,9 @@ def main():
         "source": "gpmpc_tpu_torch/csrc/admm_chunk.cu",
         "replaces": REPLACES,
         "launches": main_res["launches"],
+        "launches_by_path": {"main": main_res["launches"], "rti": rti_res["launches"],
+                             "pretrain": pre_res["launches"],
+                             "pretrained_landing": pre_res["landing_launches"]},
         "max_abs_err": main_t["max_abs_err"],
         "ms": main_t["ms"],
         "eager_ms": main_t["eager_ms"],
@@ -286,7 +425,8 @@ def main():
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
         "variant": main_t["variant"],
-        "shapes": [{k: t[k] for k in ("shape", "variant", "registers", "ms", "eager_ms",
+        "shapes": [{k: t[k] for k in ("shape", "lanes", "n", "m", "iters", "variant",
+                                       "registers", "max_abs_err", "ms", "eager_ms",
                                        "wrapper_us", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")}
                    for t in timings],

@@ -76,18 +76,24 @@ def host_us(fn, reps):
     return (t1 - t0) * 1e6 / reps
 
 
-def chunk_inputs(kind, gen, golden_path=None):
+BOUNDED_SEGS = (("blt", 5, 28, 12), ("diag", N_VARS))  # 140 state-bound rows, then controls
+
+
+def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     """Chunk operands on the card: (Minv, A, q, l, u, rho_v, x, z, y).
     "main": 512 lanes, n = m = 60, A the identity control-bound rows as
     build_condensed_qp makes them; "dense": the same size with a random A;
-    "golden": the eight sparse-form golden QPs of ``golden_path``."""
+    "bounded": n = 60, m = 200, the condensed QP that keeps its state-bound
+    rows: 140 block-lower-triangular rows (BOUNDED_SEGS), then the identity;
+    "golden": ``lanes`` sparse-form golden QPs (n = 207, m = 354), the four of
+    ``golden_path`` repeated."""
     from .ops.qp import QPData, ruiz_equilibrate
     from .ops.qp.admm import _factor, _rho_vec
 
     dev = torch.device("cuda")
     if kind == "golden":
         fx = np.load(golden_path)
-        names = ("canonical", "high_fast", "low_slow", "lateral") * 2
+        names = (("canonical", "high_fast", "low_slow", "lateral") * ((lanes + 3) // 4))[:lanes]
         stack = lambda p: torch.tensor(np.stack([fx[f"{s}/{p}"] for s in names]),
                                        dtype=torch.float32, device=dev)
         data = QPData(*[stack(p) for p in ("P", "q", "A", "l", "u")])
@@ -97,10 +103,17 @@ def chunk_inputs(kind, gen, golden_path=None):
         P = G @ G.transpose(1, 2) / n + 0.1 * torch.eye(n, device=dev)
         if kind == "main":
             A = torch.eye(n, device=dev).expand(B, n, n).contiguous()
+        elif kind == "bounded":
+            _, C, h, w = BOUNDED_SEGS[0]
+            keep = (torch.arange(n, device=dev)[None, :]
+                    < (torch.arange(C * h, device=dev)[:, None] // h + 1) * w)
+            blt = torch.randn(B, C * h, n, generator=gen, device=dev) * keep
+            A = torch.cat([blt, torch.eye(n, device=dev).expand(B, n, n)], dim=1)
         else:
             A = torch.randn(B, n, n, generator=gen, device=dev)
-        lo = -torch.rand(B, n, generator=gen, device=dev) - 0.5
-        hi = torch.rand(B, n, generator=gen, device=dev) + 0.5
+        m = A.shape[1]
+        lo = -torch.rand(B, m, generator=gen, device=dev) - 0.5
+        hi = torch.rand(B, m, generator=gen, device=dev) + 0.5
         q = torch.randn(B, n, generator=gen, device=dev)
         data = QPData(P=P, q=q, A=A, l=lo, u=hi)
     sdata, _ = ruiz_equilibrate(data, 2)
@@ -159,10 +172,11 @@ def bound_ms(args, iters, row_structure):
 
     Minv, A = args[0], args[1]
     B, m, n = A.shape
-    Ak, mg = K.kernel_rows(A, row_structure)
-    nnz_a = int((Ak[:, mg:] != 0).sum().item()) + B * mg
-    operands = [Minv, Ak[:, mg:]] + list(args[2:])
-    bytes_moved = 4 * (sum(t.numel() for t in operands) + B * mg + B * (n + 2 * m))
+    Ak, d0, mg = K.kernel_rows(A, row_structure)
+    nnz_dense = sum(int((rows != 0).sum().item()) for rows in (Ak[:, :d0], Ak[:, d0 + mg:]))
+    nnz_a = nnz_dense + B * mg
+    n_in = Minv.numel() + B * (m - mg) * n + sum(t.numel() for t in args[2:])
+    bytes_moved = 4 * (n_in + B * mg + B * (n + 2 * m))
     flops = iters * (2 * (B * n * n + 2 * nnz_a) + B * (11 * m + 5 * n))
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -203,11 +217,11 @@ def tile_chunk(lib, row_threads, args, row_structure, iters=ITERS):
     from .ops.kernels import admm_chunk as K
 
     Minv, A, *vecs = args
-    A, mg = K.kernel_rows(A, row_structure)
+    A, d0, mg = K.kernel_rows(A, row_structure)
     B, m, n = A.shape
     outs = [torch.empty(B, k, device=A.device) for k in (n, m, m)]
     err = lib.admm_chunk_tile_f32(
-        *[t.data_ptr() for t in (Minv, A, *vecs, *outs)], B, n, m, mg, iters,
+        *[t.data_ptr() for t in (Minv, A, *vecs, *outs)], B, n, m, d0, mg, iters,
         KERNEL_ARGS["sigma"], KERNEL_ARGS["alpha"], row_threads, A.device.index,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -222,7 +236,7 @@ def sweep(row_threads=(1, 2, 4)):
 
     lib = _build.load(TILES)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.admm_chunk_tile_f32.argtypes = [p] * 12 + [i] * 5 + [f, f, i, i, p]
+    lib.admm_chunk_tile_f32.argtypes = [p] * 12 + [i] * 6 + [f, f, i, i, p]
     lib.admm_chunk_tile_f32.restype = i
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {kind: chunk_inputs(kind, gen) for kind, _ in SHAPES}
@@ -230,7 +244,7 @@ def sweep(row_threads=(1, 2, 4)):
     for k in row_threads:
         for kind, segs in SHAPES:
             args = inputs[kind]
-            mg = K.kernel_rows(args[1], segs)[1]
+            mg = K.kernel_rows(args[1], segs)[2]
             regs, st, ld = ptxas_report(_build.build_log(TILES),
                                         kernel_entry("register", N_VARS, N_VARS, mg, k))
             run = lambda: tile_chunk(lib, k, args, segs)

@@ -4,7 +4,13 @@ The port never imports JAX: a caller (in this repository, the parity tests)
 flattens a JAX object into a dict of NumPy arrays or plain values, and these
 functions build the port's counterpart from that dict.
 
-``simple3dof_gp_from_numpy`` expects the keys of a fitted ``Simple3DoFGP``:
+``rti_state_from_numpy`` expects the fields of a (batched) ``RTIState``:
+``X_lin``, ``U_lin``, ``X_prev``, ``U_prev``, ``y_prev``, ``rho``, ``x_ref``,
+each with a leading lane axis; the warm-KKT carry is dropped (not ported).
+
+``simple3dof_gp_from_numpy`` expects the keys of a fitted ``Simple3DoFGP``,
+tuned or not (a tuned GP differs only in its kernel parameters, noise and
+factors):
 
 - ``Z``, ``X``, ``Y`` (n_out, cap), ``mask``, ``log_noise`` — the sparse GP;
 - ``log_lengthscales`` (n_out, d), ``log_variance`` (n_out,) — the stacked
@@ -28,7 +34,7 @@ from .gp import Simple3DoFFeatureExtractor, Simple3DoFGP, StructuredGPConfig
 from .gp.kernels import SquaredExponentialARD
 from .gp.sparse_gp import MultiOutputSparseGPState
 from .gp.structured_gp import RingBuffer
-from .mpc import GPMPCConfig, RTIConfig
+from .mpc import GPMPCConfig, RTIConfig, RTIState
 from .ops.qp import ADMMConfig
 
 
@@ -49,6 +55,11 @@ def simple3dof_gp_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda") -> 
     cfg = _dataclass_from(StructuredGPConfig, d.get("config", {}))
     return Simple3DoFGP(config=cfg, extractor=Simple3DoFFeatureExtractor(),
                         buffer=buf, gp=gp, is_fitted=True)
+
+
+def rti_state_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda") -> RTIState:
+    dev = resolve_device(device)
+    return RTIState(**{f.name: as_f32(np.array(d[f.name]), dev) for f in fields(RTIState)})
 
 
 def _plain(v):

@@ -17,11 +17,14 @@
 // and return (x, z, y). f32 throughout, FMA accumulation.
 //
 // Row structure. The solver's declared row structure reaches the kernel as
-// mg: the first mg rows of A (a leading "diag" segment, mg ≤ n) are read as
-// their diagonal alone (row i has one entry, A[i][i]) and applied as
-// elementwise products; the other md = m − mg rows are dense. On the main
-// path (condensed 3-DoF QP, every state bound elided) all 60 rows are the
-// identity control bounds, so A costs no matvec at all.
+// (d0, mg): the mg rows of A from row d0 on (a "diag" segment, mg ≤ n) are
+// read as their diagonal alone (row d0 + i has one entry, A[d0 + i][i]) and
+// applied as elementwise products; the other md = m − mg rows, d0 of them
+// before the segment and the rest after it, are dense and are read where
+// they stand. On the main path (condensed 3-DoF QP, every state bound
+// elided) all 60 rows are the identity control bounds, so A costs no matvec
+// at all; with the state bounds kept the row order is [state bounds (dense);
+// control bounds (diagonal); facets (dense)] and d0 > 0.
 //
 // What bounds it on this card. Per lane and iteration the work is one dense
 // matvec with M⁻¹ (2n² flops), two with the dense rows (4·md·n) and O(n+m)
@@ -44,8 +47,9 @@
 //   NP = 64 padded rows, K = 2 threads per row: 128 threads a lane, each
 //   thread holding 32 entries of each matrix it keeps. The arrays are
 //   indexed only with unrolled compile-time indices, so they stay in
-//   registers: ptxas reports 83 registers for the main path's kernel and 128
-//   with dense rows, no spills.
+//   registers: ptxas reports 84 registers for the main path's kernel, no
+//   spills, and 128 with dense rows, where 8 bytes of the row indexing
+//   spill, outside the iteration loop.
 // - Shared memory holds only the vectors. A thread reads its entries as
 //   float4 broadcasts; thread c of a row group takes float4 chunks c, c+K,
 //   c+2K, …, so a warp's distinct chunks are contiguous and never conflict.
@@ -67,8 +71,11 @@
 // the dense rows into dynamic shared memory once per chunk (thread j owns
 // element j of each stage), and the global variant, for matrices beyond
 // shared memory (the sparse-form golden QP, n = 207, m = 354, is 464 KB a
-// lane), reads them from global memory, where they stay L2-resident, with
-// A·x̃ done one warp per row. `admm_chunk_variant` picks by shape.
+// lane), reads them from global memory, with A·x̃ done one warp per row:
+// L2-resident for a few lanes, streamed from device memory every iteration
+// for hundreds (512 lanes hold 237 MB). One CTA a lane leaves most of the
+// card idle when the lanes are few, as the four lanes of a GP pretraining
+// run are; PERF.md has the times. `admm_chunk_variant` picks by shape.
 //
 // Tensor cores and TMA are not the tool. Each lane's matrix meets one vector
 // per iteration: a chain of GEMVs with no reuse to feed an MMA tile, and the
@@ -89,8 +96,15 @@ constexpr unsigned kFull = 0xffffffffu;
 enum Variant { kUnsupported = -1, kGlobal = 0, kShared = 1, kRegister = 2 };
 
 struct Lane {
-  int n, m, mg, iters;
+  int n, m, d0, mg, iters;
   float sigma, alpha;
+};
+
+// dense row r (of md) → its row of A: the diagonal segment's mg rows, which
+// start at row d0, are skipped
+struct Rows {
+  int d0, mg;
+  __device__ int at(int r) const { return r < d0 ? r : r + mg; }
 };
 
 // one iteration's projection and dual update of a row; returns the new t
@@ -116,13 +130,14 @@ struct Tile {
 
   __device__ static int col(int c, int s, int e) { return 4 * (c + K * s) + e; }
 
-  // R[g, :] from a row-major (rows × cols) matrix with leading dimension ld;
-  // zero outside it. The transposed read takes R[g, k] = M[k, g]. Rows read
-  // as float4 where the layout allows (cols and ld multiples of 4, M 16-byte
-  // aligned: n = 60 on the main path).
+  // R[g, :] from the `rows` rows that `map` picks of a row-major matrix with
+  // `cols` columns and leading dimension ld; zero outside it. The transposed
+  // read takes R[g, k] = row k, column g. Rows read as float4 where the
+  // layout allows (cols and ld multiples of 4, M 16-byte aligned: n = 60 on
+  // the main path).
   template <bool kTransposed>
   __device__ static void load(float (&R)[C], const float* __restrict__ M, int rows,
-                              int cols, int ld, int g, int c) {
+                              int cols, int ld, int g, int c, Rows map) {
     const bool vec = !kTransposed && cols % 4 == 0 && ld % 4 == 0 &&
                      (reinterpret_cast<unsigned long long>(M) & 15) == 0;
     if (vec) {
@@ -131,7 +146,7 @@ struct Tile {
         const int k = col(c, s, 0);
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (g < rows && k < cols)
-          v = *reinterpret_cast<const float4*>(M + static_cast<size_t>(g) * ld + k);
+          v = *reinterpret_cast<const float4*>(M + static_cast<size_t>(map.at(g)) * ld + k);
         R[4 * s + 0] = v.x; R[4 * s + 1] = v.y; R[4 * s + 2] = v.z; R[4 * s + 3] = v.w;
       }
       return;
@@ -143,9 +158,9 @@ struct Tile {
         const int k = col(c, s, e);
         float v = 0.f;
         if (kTransposed) {
-          if (k < rows && g < cols) v = M[static_cast<size_t>(k) * ld + g];
+          if (k < rows && g < cols) v = M[static_cast<size_t>(map.at(k)) * ld + g];
         } else {
-          if (g < rows && k < cols) v = M[static_cast<size_t>(g) * ld + k];
+          if (g < rows && k < cols) v = M[static_cast<size_t>(map.at(g)) * ld + k];
         }
         R[4 * s + e] = v;
       }
@@ -192,35 +207,39 @@ admm_chunk_reg(const float* __restrict__ Minv, const float* __restrict__ A,
   const int b = blockIdx.x;
   const int g = threadIdx.x / K;
   const int c = threadIdx.x % K;
-  const int n = p.n, m = p.m, mg = p.mg, md = m - mg;
+  const int n = p.n, m = p.m, d0 = p.d0, mg = p.mg, md = m - mg;
   const float alpha = p.alpha, beta = 1.0f - p.alpha, sigma = p.sigma;
   const float* Ab = A + static_cast<size_t>(b) * m * n;
+  const Rows dense{d0, mg};
 
   float Mr[T::C];
-  T::template load<false>(Mr, Minv + static_cast<size_t>(b) * n * n, n, n, n, g, c);
+  T::template load<false>(Mr, Minv + static_cast<size_t>(b) * n * n, n, n, n, g, c, Rows{0, 0});
   float Ar[kDense ? T::C : 1], ATr[kDense ? T::C : 1];
   if constexpr (kDense) {
-    const float* Ad = Ab + static_cast<size_t>(mg) * n;
-    T::template load<false>(Ar, Ad, md, n, n, g, c);   // dense row g
-    T::template load<true>(ATr, Ad, md, n, n, g, c);   // column g of the dense rows
+    T::template load<false>(Ar, Ab, md, n, n, g, c, dense);   // dense row g
+    T::template load<true>(ATr, Ab, md, n, n, g, c, dense);   // column g of the dense rows
   }
 
-  // row g of the iterate; diagonal row g (column g); dense row mg + g
+  // row g of the iterate; diagonal row d0 + g (column g); dense row g of md
   const bool own_x = g < n, own_d = g < mg, own_D = kDense && g < md;
+  // this group's diagonal row and dense row among the B·m rows (recomputed
+  // where they are needed: the dense tiles leave no register to hold them)
+  auto diag_row = [&] { return b * m + d0 + g; };
+  auto dense_row = [&] { return b * m + dense.at(g); };
   float xg = own_x ? x0[b * n + g] : 0.f;
   const float qg = own_x ? q[b * n + g] : 0.f;
   float zd = 0.f, yd = 0.f, ld = 0.f, ud = 0.f, rd = 1.f, ird = 1.f, dd = 0.f, td = 0.f;
   if (own_d) {
-    const int i = b * m + g;
-    zd = z0[i]; yd = y0[i]; ld = l[i]; ud = u[i]; rd = rho[i];
+    const int id = diag_row();
+    zd = z0[id]; yd = y0[id]; ld = l[id]; ud = u[id]; rd = rho[id];
     ird = 1.0f / rd;
-    dd = Ab[g * n + g];
+    dd = Ab[static_cast<size_t>(d0 + g) * n + g];
     td = rd * zd - yd;
   }
   float zD = 0.f, yD = 0.f, rD = 1.f, irD = 1.f;
   if (own_D) {
-    const int i = b * m + mg + g;
-    zD = z0[i]; yD = y0[i]; rD = rho[i];
+    const int iD = dense_row();
+    zD = z0[iD]; yD = y0[iD]; rD = rho[iD];
     irD = 1.0f / rD;
   }
   for (int k = threadIdx.x; k < NP; k += NP * K) {
@@ -229,8 +248,8 @@ admm_chunk_reg(const float* __restrict__ Minv, const float* __restrict__ A,
   __syncthreads();
   if (kDense && c == 0 && own_D) {
     s_t[g] = rD * zD - yD;
-    s_lu[0][g] = l[b * m + mg + g];  // kept out of registers: the dense
-    s_lu[1][g] = u[b * m + mg + g];  // tiles leave none to spare
+    s_lu[0][g] = l[dense_row()];  // kept out of registers: the dense
+    s_lu[1][g] = u[dense_row()];  // tiles leave none to spare
   }
 
   for (int it = 0; it < p.iters; ++it) {
@@ -264,13 +283,16 @@ admm_chunk_reg(const float* __restrict__ Minv, const float* __restrict__ A,
 
   if (c == 0) {
     if (own_x) xo[b * n + g] = xg;
-    if (own_d) { zo[b * m + g] = zd; yo[b * m + g] = yd; }
-    if (own_D) { zo[b * m + mg + g] = zD; yo[b * m + mg + g] = yD; }
+    if (own_d) { zo[diag_row()] = zd; yo[diag_row()] = yd; }
+    if (own_D) { zo[dense_row()] = zD; yo[dense_row()] = yD; }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Shared- and global-memory variants: thread j owns element j of each stage.
+// The vectors lie in shared memory in A's row order. The shared variant
+// copies the md dense rows, compacted, beside M⁻¹; the global one reads them
+// where they stand in A.
 
 template <bool kMatSmem>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -284,12 +306,12 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int n = p.n, m = p.m, mg = p.mg, md = m - mg;
+  const int n = p.n, m = p.m, d0 = p.d0, mg = p.mg, md = m - mg;
   const float alpha = p.alpha, beta = 1.0f - p.alpha, sigma = p.sigma;
+  const Rows dense{d0, mg};
 
   const float* Mg = Minv + static_cast<size_t>(b) * n * n;
   const float* Ab = A + static_cast<size_t>(b) * m * n;
-  const float* Ag = Ab + static_cast<size_t>(mg) * n;  // the dense rows
 
   float* sx = smem;        // x         (n)
   float* sxt = sx + n;     // x̃         (n)
@@ -302,9 +324,9 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
   float* su = sl + m;      // u         (m)
   float* srho = su + m;    // ρ         (m)
   float* sirho = srho + m; // 1/ρ       (m)
-  float* sdg = sirho + m;  // diagonal of the first mg rows (mg)
+  float* sdg = sirho + m;  // diagonal of the rows d0 .. d0+mg (mg)
   float* sM = sdg + mg;    // M⁻¹ (n×n), shared-memory variant only
-  float* sA = sM + n * n;  // Ad (md×lda), shared-memory variant only
+  float* sA = sM + n * n;  // dense rows (md×lda), shared-memory variant only
 
   for (int j = tid; j < n; j += nt) {
     sx[j] = x0[b * n + j];
@@ -322,35 +344,45 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
     sirho[i] = 1.0f / r;
     st[i] = r * zi - yi;
   }
-  for (int i = tid; i < mg; i += nt) sdg[i] = Ab[i * n + i];
+  for (int i = tid; i < mg; i += nt) sdg[i] = Ab[static_cast<size_t>(d0 + i) * n + i];
   if constexpr (kMatSmem) {
     for (int k = tid; k < n * n; k += nt) sM[k] = Mg[k];
     for (int k = tid; k < md * n; k += nt) {
-      const int i = k / n;
-      sA[i * lda + (k - i * n)] = Ag[k];
+      const int r = k / n;
+      const int j = k - r * n;
+      sA[r * lda + j] = Ab[static_cast<size_t>(dense.at(r)) * n + j];
     }
   }
   __syncthreads();
 
   const float* Mp = kMatSmem ? sM : Mg;
-  const float* Ap = kMatSmem ? sA : Ag;
+  // dense row r lies at Ap + (r + shift)·ldA and has its t at st[r + tshift]:
+  // rows before the diagonal segment with both shifts 0, rows after it with
+  // tshift = mg, and shift = mg too where A is read in place
+  const float* Ap = kMatSmem ? sA : Ab;
   const int ldA = kMatSmem ? lda : n;
-  const float* td = st + mg;  // t of the dense rows
+  const int after = kMatSmem ? 0 : mg;
 
   for (int it = 0; it < p.iters; ++it) {
-    // rhs = σx − q + Aᵀt   (thread j: column j of Ad, diagonal entry j)
+    // rhs = σx − q + Aᵀt   (thread j: column j of the dense rows, diagonal entry j)
     for (int j = tid; j < n; j += nt) {
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      int i = 0;
-      for (; i + 3 < md; i += 4) {
-        a0 = fmaf(Ap[(i + 0) * ldA + j], td[i + 0], a0);
-        a1 = fmaf(Ap[(i + 1) * ldA + j], td[i + 1], a1);
-        a2 = fmaf(Ap[(i + 2) * ldA + j], td[i + 2], a2);
-        a3 = fmaf(Ap[(i + 3) * ldA + j], td[i + 3], a3);
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        const int r1 = part == 0 ? d0 : md;
+        const float* Aj = Ap + static_cast<size_t>(part == 0 ? 0 : after) * ldA + j;
+        const float* tp = st + (part == 0 ? 0 : mg);
+        int r = part == 0 ? 0 : d0;
+        for (; r + 3 < r1; r += 4) {
+          a0 = fmaf(Aj[(r + 0) * ldA], tp[r + 0], a0);
+          a1 = fmaf(Aj[(r + 1) * ldA], tp[r + 1], a1);
+          a2 = fmaf(Aj[(r + 2) * ldA], tp[r + 2], a2);
+          a3 = fmaf(Aj[(r + 3) * ldA], tp[r + 3], a3);
+        }
+        for (; r < r1; ++r) a0 = fmaf(Aj[r * ldA], tp[r], a0);
       }
-      for (; i < md; ++i) a0 = fmaf(Ap[i * ldA + j], td[i], a0);
       float at = (a0 + a1) + (a2 + a3);
-      if (j < mg) at = fmaf(sdg[j], st[j], at);
+      if (j < mg) at = fmaf(sdg[j], st[d0 + j], at);
       srhs[j] = sigma * sx[j] - sq[j] + at;
     }
     __syncthreads();
@@ -374,9 +406,11 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
     for (int j = tid; j < n; j += nt) sx[j] = alpha * sxt[j] + beta * sx[j];
 
     // z̃ = A x̃, then the relaxation, projection and dual update of row i
-    for (int i = tid; i < mg; i += nt)
-      st[i] = row_update(sdg[i] * sxt[i], sz[i], sy[i], sl[i], su[i], srho[i],
+    for (int k = tid; k < mg; k += nt) {
+      const int i = d0 + k;
+      st[i] = row_update(sdg[k] * sxt[k], sz[i], sy[i], sl[i], su[i], srho[i],
                          sirho[i], alpha, beta);
+    }
     if constexpr (kMatSmem) {
       for (int r = tid; r < md; r += nt) {
         const float* row = sA + r * lda;
@@ -389,7 +423,7 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
           a3 = fmaf(row[j + 3], sxt[j + 3], a3);
         }
         for (; j < n; ++j) a0 = fmaf(row[j], sxt[j], a0);
-        const int i = mg + r;
+        const int i = dense.at(r);
         st[i] = row_update((a0 + a1) + (a2 + a3), sz[i], sy[i], sl[i], su[i],
                            srho[i], sirho[i], alpha, beta);
       }
@@ -398,15 +432,14 @@ admm_chunk_kernel(const float* __restrict__ Minv, const float* __restrict__ A,
       const int warp = tid >> 5;
       const int nwarps = nt >> 5;
       for (int r = warp; r < md; r += nwarps) {
-        const float* row = Ag + static_cast<size_t>(r) * n;
+        const int i = dense.at(r);
+        const float* row = Ab + static_cast<size_t>(i) * n;
         float acc = 0.f;
         for (int j = lane; j < n; j += 32) acc = fmaf(row[j], sxt[j], acc);
         for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
-        if (lane == 0) {
-          const int i = mg + r;
+        if (lane == 0)
           st[i] = row_update(acc, sz[i], sy[i], sl[i], su[i], srho[i], sirho[i],
                              alpha, beta);
-        }
       }
     }
     __syncthreads();
@@ -480,12 +513,12 @@ template <int K>
 int launch_chunk(const float* Minv, const float* A, const float* q, const float* l,
                  const float* u, const float* rho, const float* x, const float* z,
                  const float* y, float* xo, float* zo, float* yo,
-                 int B, int n, int m, int mg, int iters, float sigma, float alpha,
+                 int B, int n, int m, int d0, int mg, int iters, float sigma, float alpha,
                  int device, void* stream) {
-  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || d0 < 0 || d0 + mg > m) return static_cast<int>(cudaErrorInvalidValue);
   const int variant = variant_for(n, m, mg, device);
   if (variant == kUnsupported) return static_cast<int>(cudaErrorInvalidValue);
-  const Lane p{n, m, mg, iters, sigma, alpha};
+  const Lane p{n, m, d0, mg, iters, sigma, alpha};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int md = m - mg;
   if (variant == kRegister) {
@@ -515,21 +548,22 @@ extern "C" {
 
 // 2: register variant; 1: matrices in shared memory; 0: matrices read from
 // global memory; -1: the vectors alone exceed a block's shared memory, or
-// the declared diagonal rows outnumber the columns (not supported).
+// the declared diagonal rows outnumber the columns (not supported). The
+// diagonal segment's row offset does not enter the choice.
 int admm_chunk_variant(int n, int m, int mg, int device) {
   return variant_for(n, m, mg, device);
 }
 
 // Minv (B,n,n), A (B,m,n), q/x (B,n), l/u/rho/z/y (B,m); outputs xo (B,n),
-// zo/yo (B,m). The first mg rows of A are read as their diagonal alone.
+// zo/yo (B,m). Rows d0 .. d0+mg of A are read as their diagonal alone.
 // `device` is the current CUDA device.
 int admm_chunk_f32(const float* Minv, const float* A, const float* q, const float* l,
                    const float* u, const float* rho, const float* x, const float* z,
                    const float* y, float* xo, float* zo, float* yo,
-                   int B, int n, int m, int mg, int iters, float sigma, float alpha,
+                   int B, int n, int m, int d0, int mg, int iters, float sigma, float alpha,
                    int device, void* stream) {
   return launch_chunk<kRowThreads>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B, n, m,
-                                   mg, iters, sigma, alpha, device, stream);
+                                   d0, mg, iters, sigma, alpha, device, stream);
 }
 
 }  // extern "C"

@@ -10,6 +10,7 @@ from .sparse_gp import (
     init_inducing_points,
     predict_sparse_multi,
     refit_sparse_multi,
+    sparse_lml,
 )
 from .structured_gp import RingBuffer, Simple3DoFGP, StructuredGPConfig
 
@@ -19,4 +20,5 @@ __all__ = [
     "Simple3DoFGP", "SquaredExponentialARD", "StructuredGPConfig",
     "create_kernel", "fit_sparse_multi", "init_inducing_points",
     "predict_sparse_multi", "refit_sparse_multi", "simple_3dof_features",
+    "sparse_lml",
 ]

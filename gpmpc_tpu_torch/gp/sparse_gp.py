@@ -30,7 +30,8 @@ def _tri_inv(L: torch.Tensor) -> torch.Tensor:
 
 def _factors(kernel: SquaredExponentialARD, Z, X, Y, mask, log_noise, method: str):
     """FITC/VFE factors for every output: Y is (n_out, cap), log_noise
-    (n_out,). Returns (Luu_inv, LB_inv, c)."""
+    (n_out,). Returns (Luu_inv, LB_inv, c, lam, qff, kff, ym); the last four
+    (each (n_out, cap)) are what the marginal likelihood needs."""
     jitter = 1e-6
     M = Z.shape[0]
     mf = mask.to(X.dtype)
@@ -63,7 +64,26 @@ def _factors(kernel: SquaredExponentialARD, Z, X, Y, mask, log_noise, method: st
     LB_inv = _tri_inv(LB)
     ym = (Y * mf) / torch.sqrt(lam)
     c = (LB_inv @ (A @ ym[:, :, None]))[:, :, 0]
-    return Luu_inv, LB_inv, c
+    return Luu_inv, LB_inv, c, lam, qff, kff, ym
+
+
+def sparse_lml(kernels, Z, X, Y, mask, log_noise, method: str = "fitc") -> torch.Tensor:
+    """FITC marginal likelihood / VFE ELBO of every output, (n_out,): Y is
+    (n_out, cap), the kernel parameters and log_noise carry the leading
+    output axis. Differentiable in the kernel parameters, log_noise and Z."""
+    _, LB_inv, c, lam, qff, kff, ym = _factors(kernels, Z, X, Y, mask, log_noise, method)
+    n = mask.sum()
+    quad = (ym * ym).sum(-1) - (c * c).sum(-1)
+    # log|B| = −2 Σ log diag(LB⁻¹): the inverse of a triangular factor has
+    # the reciprocal diagonal
+    zero = torch.zeros_like(lam)
+    logdet = (-2.0 * torch.log(torch.diagonal(LB_inv, dim1=-2, dim2=-1)).sum(-1)
+              + torch.where(mask, torch.log(lam), zero).sum(-1))
+    lml = -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
+    if method == "vfe":
+        noise = torch.exp(2.0 * log_noise)
+        lml = lml - 0.5 * torch.where(mask, kff - qff, zero).sum(-1) / noise
+    return lml
 
 
 def init_inducing_points(X, n_inducing: int, mask=None,
@@ -90,7 +110,7 @@ class MultiOutputSparseGPState:
 
 def refit_sparse_multi(kernels, Z, X, YT, mask, log_noise, method: str = "fitc"
                        ) -> MultiOutputSparseGPState:
-    Luu_inv, LB_inv, c = _factors(kernels, Z, X, YT, mask, log_noise, method)
+    Luu_inv, LB_inv, c, *_ = _factors(kernels, Z, X, YT, mask, log_noise, method)
     return MultiOutputSparseGPState(
         kernels=kernels, Z=Z, X=X, Y=YT, mask=mask, log_noise=log_noise,
         method=method, Luu_inv=Luu_inv, LB_inv=LB_inv, c=c,

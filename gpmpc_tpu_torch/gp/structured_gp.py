@@ -122,15 +122,23 @@ class Simple3DoFGP:
         return replace(self, buffer=self.buffer.add_batch(
             self.extractor.extract(X, U), R))
 
+    def initial_hyperparameters(self):
+        """(kernels, log_noise) a fit starts from: data-driven ARD
+        lengthscales on the buffered features and the configured noise."""
+        b = self.buffer
+        kernels = _stacked_kernels(
+            self.config.kernel, self.extractor.n_features, 3,
+            _data_lengthscales(b.X, b.mask), device=self.device)
+        log_noise = torch.full((3,), math.log(self.config.noise), device=self.device)
+        return kernels, log_noise
+
     def fit(self, generator: Optional[torch.Generator] = None,
             init_idx: Optional[torch.Tensor] = None) -> "Simple3DoFGP":
         """Fit the sparse GP on the buffered data. ``generator`` draws the
         k-means start (``init_idx`` fixes it instead)."""
         cfg = self.config
         b = self.buffer
-        kernels = _stacked_kernels(
-            cfg.kernel, self.extractor.n_features, 3,
-            _data_lengthscales(b.X, b.mask), device=self.device)
+        kernels, _ = self.initial_hyperparameters()
         Z = init_inducing_points(b.X, min(cfg.n_inducing, b.capacity),
                                  mask=b.mask, generator=generator,
                                  init_idx=init_idx)

@@ -1,5 +1,7 @@
-"""Learning layer of the 3-DoF slice: GP pretraining."""
+"""Learning layer: GP pretraining and hyperparameter tuning."""
 
-from .pretrain import explore_gp_3dof
+from .hyperparameter_tuner import HyperparameterConfig, tune_mle
+from .pretrain import collect_residuals_3dof, explore_gp_3dof, pretrain_gp_3dof
 
-__all__ = ["explore_gp_3dof"]
+__all__ = ["HyperparameterConfig", "collect_residuals_3dof", "explore_gp_3dof",
+           "pretrain_gp_3dof", "tune_mle"]

@@ -1,8 +1,14 @@
-"""The main path's configuration, in one place: the 3-DoF GP-MPC real-time
-cycle that ``bench.py`` times as its primary metric (``bench.py:78-132``),
-with the chunk kernel selected (``use_pallas="auto"``).
+"""The configurations of the port's paths, in one place, each with the chunk
+kernel selected (``use_pallas="auto"``):
 
-``chip_smoke.py`` and ``gpmpc_tpu_torch/profile_cycle.py`` drive it.
+- :func:`main_path` — the 3-DoF GP-MPC real-time cycle that ``bench.py``
+  times as its primary metric (``bench.py:78-132``);
+- :func:`rti_path` — the GP-free RTI cycle on the nominal plant, its
+  secondary metric (``bench.py:110-115``, ``:186-201``);
+- :func:`pretrain_path` — the production GP fit, ``pretrain_gp_3dof`` under
+  the dispersed plant, whose GP then serves the GP-MPC cycle.
+
+``chip_smoke.py`` and ``gpmpc_tpu_torch/profile_cycle.py`` drive them.
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .dynamics import Rocket3DoFParams, rocket3dof as r3
-from .gp import Simple3DoFGP
+from .learning.pretrain import gp_fns, pretrain_gp_3dof  # noqa: F401  (gp_fns: re-exported for chip_smoke.py)
 from .mpc import GPMPCConfig, RTIConfig
 from .ops.qp import ADMMConfig
 
@@ -58,17 +64,44 @@ def main_path(device: DeviceLike = "cuda") -> MainPath:
     )
 
 
+class RTIPath(NamedTuple):
+    params: Rocket3DoFParams
+    F: Callable  # nominal step: the controller's model and the plant
+    config: RTIConfig
+    x_target: torch.Tensor
+
+
+def rti_path(device: DeviceLike = "cuda") -> RTIPath:
+    """The bench's RTI configuration (``bench.py:110-115``): condensed, every
+    state-bound row elided (n = m = 60, the rows declared ``("diag", 60)``),
+    50 iterations in two chunks of 25 with the certificates on, and the
+    nominal model as the plant (``bench.py:195``)."""
+    dev = resolve_device(device)
+    p = Rocket3DoFParams(device=dev)
+    cfg = RTIConfig(
+        N=N, accept_pri_tol=5e-3, condensed=True, x_bound_mask=(False,) * 7,
+        admm=ADMMConfig(max_iter=ADMM_ITERS, polish=False, adaptive_rho=False, scaling=2,
+                        use_pallas="auto"),
+        device=dev,
+    )
+    xT = torch.zeros(7, device=dev)
+    xT[0] = 2.0
+    return RTIPath(params=p, F=lambda x, u: r3.step(p, x, u, DT), config=cfg, x_target=xT)
+
+
+def pretrain_path(generator: torch.Generator, device: DeviceLike = "cuda", **kw):
+    """The production GP for the main path: ``pretrain_gp_3dof`` with the
+    main path's nominal model and dispersed plant (four 64-step episodes of
+    the default sparse-form ``RTIConfig(N=20)``, FITC fit, 150 Adam steps).
+    Returns (gp, mean_fn, var_fn); ``kw`` goes to ``pretrain_gp_3dof``."""
+    mp = main_path(device)
+    return pretrain_gp_3dof(generator, mp.params, mp.F_true, dt=DT,
+                            device=resolve_device(device), **kw)
+
+
 def fleet_x0(batch: int = BATCH, device: DeviceLike = "cuda") -> torch.Tensor:
     """Initial states of the fleet (``bench.py:131-132``)."""
     dev = resolve_device(device)
     x0s = torch.tensor([2.0, 30.0, 0.0, 0.0, -3.0, 0.0, 0.0], device=dev).repeat(batch, 1)
     x0s[:, 1] += torch.linspace(0.0, 5.0, batch, device=dev)
     return x0s
-
-
-def gp_fns(gp: Simple3DoFGP):
-    """(mean_fn, var_fn) in the form ``gp_mpc_solve`` takes: the
-    variance-gated residual mean lifted to the state, and the variances."""
-    mean_fn = lambda x, u: Simple3DoFGP.lift_residual(gp.predict_gated(x, u)[0], 7)
-    var_fn = lambda x, u: gp.predict(x, u)[1]
-    return mean_fn, var_fn

@@ -1,7 +1,20 @@
-"""Model-predictive control layer of the 3-DoF slice: the GP-MPC cycle."""
+"""Model-predictive control layer: the RTI cycle and the GP-MPC cycle."""
 
 from .gp_mpc import GPMPCConfig, GPMPCSolution, GPMPCState, gp_mpc_init, gp_mpc_solve
-from .rti import RTIConfig
+from .rti import (
+    RTIConfig,
+    RTISolution,
+    RTIState,
+    make_rti_controller,
+    rti_closed_loop,
+    rti_feedback,
+    rti_init,
+    rti_prepare,
+    rti_step,
+    simple_rti_step,
+)
 
-__all__ = ["GPMPCConfig", "GPMPCSolution", "GPMPCState", "RTIConfig",
-           "gp_mpc_init", "gp_mpc_solve"]
+__all__ = ["GPMPCConfig", "GPMPCSolution", "GPMPCState", "RTIConfig", "RTISolution",
+           "RTIState", "gp_mpc_init", "gp_mpc_solve", "make_rti_controller",
+           "rti_closed_loop", "rti_feedback", "rti_init", "rti_prepare", "rti_step",
+           "simple_rti_step"]

@@ -7,8 +7,12 @@ linearization of the nominal dynamics, GP posterior mean and variance at
 every knot, linear covariance propagation and box chance tightening,
 condensed QP build, warm-started ADMM solve, acceptance}.
 
-Not in this slice (``NotImplementedError``): the sparse (non-condensed) QP
-form, ``solver="ipm"``, ``warm_kkt`` and facet/linearized state rows.
+Facet rows (``Gx``/``Gu``) and per-cycle linearized state rows
+(``stage_rows_fn(X_lin (B,N+1,n_x)) → Gx (B,N,n_gx,n_x), gx_l, gx_u``) of the
+base config enter the condensed QP as in the JAX package.
+
+Not ported (``NotImplementedError``): the sparse (non-condensed) QP form of
+the SCP loop, ``solver="ipm"`` and ``warm_kkt``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics.linearize import trajectory_jacobians
 from ..ops.qp import SOLVED, build_condensed_qp, recover_states, solve
 from .constraints import normal_quantile
-from .rti import RTIConfig, _condensed_admm_cfg, _gx_rows, _n_bound_states, _n_extra_rows
+from .rti import RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows
 from .uncertainty_prop import box_tightening, propagate_linear
 
 Tensor = torch.Tensor
@@ -82,16 +86,12 @@ def _check_supported(config: GPMPCConfig) -> None:
     cfg = config.base
     if config.warm_kkt:
         raise NotImplementedError(
-            "GP-MPC warm_kkt is not ported (the condensed path never needs it; "
-            "the sparse form arrives with a later slice)")
+            "GP-MPC warm_kkt (KKT inverse carried across cycles) is not ported yet")
     if not cfg.condensed:
         raise NotImplementedError(
             "the sparse (condensed=False) GP-MPC QP is not ported yet")
     if cfg.solver != "admm":
         raise NotImplementedError(f"solver={cfg.solver!r} is not ported yet")
-    if cfg.stage_rows_fn is not None or cfg.Gx is not None or cfg.Gu is not None:
-        raise NotImplementedError(
-            "facet / linearized state rows arrive with the 6-DoF slice")
 
 
 def _rollout(step_fn, x0, U, dt, residual_fn):
@@ -278,10 +278,9 @@ def gp_mpc_init(
         U_lin[:, :, 0] = x0[:, 0:1]
     else:
         U_lin = as_f32(U_init, dev)
-    m = N * (_n_bound_states(cfg) + cfg.n_u) + _n_extra_rows(cfg)
     return GPMPCState(
         X_lin=X_lin, U_lin=U_lin,
         x_ref=xT.expand(Bsz, N + 1, cfg.n_x).clone(),
         rho=torch.full((Bsz,), cfg.admm.rho, device=dev),
-        y_prev=torch.zeros(Bsz, m, device=dev),
+        y_prev=torch.zeros(Bsz, _n_rows(cfg), device=dev),
     )

@@ -1,19 +1,44 @@
-"""RTI configuration and the condensed-QP row helpers that GP-MPC uses
-(counterpart of the corresponding parts of ``gpmpc_tpu/mpc/rti.py``).
+"""Real-Time-Iteration MPC on the batched ADMM solver, batch-first
+(counterpart of ``gpmpc_tpu/mpc/rti.py``).
 
-The GP-free RTI cycle itself (``rti_init`` / ``rti_step``) is not ported in
-this slice.
+One linearize → QP → shift cycle per control step for B lanes at once, with
+warm starting from the shifted previous solution and, per lane, fallback to
+it when the QP is neither solved nor primal-feasible within
+``accept_pri_tol``. The QP is the sparse form (z = [X;U], dynamics as
+equality rows; the default) or the condensed one (controls only). The
+solver's adapted ρ and duals ride in :class:`RTIState`.
+
+``step_fn(x, u) → x⁺`` is the discrete dynamics on (…, n_x), (…, n_u): it is
+called on the whole batch for rollouts and differentiated knot by knot with
+``torch.func``, so it must use no in-place ops.
+
+Not ported (``NotImplementedError``): ``solver="ipm"`` and ``warm_kkt=True``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
-from typing import Callable, Optional
+from dataclasses import dataclass, field, fields, replace
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
-from .._device import DeviceLike, resolve_device
-from ..ops.qp import ADMMConfig
+from .._device import DeviceLike, as_f32, resolve_device
+from ..dynamics.linearize import trajectory_jacobians
+from ..ops.qp import (
+    SOLVED,
+    ADMMConfig,
+    build_condensed_qp,
+    build_mpc_qp,
+    build_stage_rows,
+    extend_qp,
+    join_z,
+    recover_states,
+    solve,
+    split_z,
+)
+
+Tensor = torch.Tensor
 
 _Q_DIAG = (0.0, 10.0, 10.0, 10.0, 1.0, 1.0, 1.0)
 
@@ -21,9 +46,9 @@ _Q_DIAG = (0.0, 10.0, 10.0, 10.0, 1.0, 1.0, 1.0)
 @dataclass(frozen=True)
 class RTIConfig:
     """RTI settings; field names and defaults are those of the JAX
-    ``RTIConfig`` (the fields only the GP-free RTI cycle reads come with
-    that cycle). The matrices live on ``device`` (built once, so the
-    control cycle never copies them); pass ``None`` to take the defaults."""
+    ``RTIConfig`` (see there for the meaning of each). The matrices live on
+    ``device`` (built once, so the control cycle never copies them); pass
+    ``None`` to take the defaults."""
 
     N: int = 15
     dt: float = 0.1
@@ -38,7 +63,11 @@ class RTIConfig:
     u_max: Optional[torch.Tensor] = None
     admm: ADMMConfig = field(default_factory=lambda: ADMMConfig(max_iter=100, polish=True))
     solver: str = "admm"
+    ipm_iters: int = 20
+    warm_start_duals: bool = True
     accept_pri_tol: float = 0.0
+    warm_kkt: bool = False
+    reanchor: bool = True
     condensed: bool = False
     Gx: Optional[torch.Tensor] = None
     gx_l: Optional[torch.Tensor] = None
@@ -68,6 +97,11 @@ class RTIConfig:
             v = default if v is None else v
             object.__setattr__(self, name, torch.as_tensor(
                 v, dtype=torch.float32).to(dev))
+        for name in ("Gx", "gx_l", "gx_u", "Gu", "gu_l", "gu_u"):
+            v = getattr(self, name)
+            if v is not None:
+                object.__setattr__(self, name, torch.as_tensor(
+                    v, dtype=torch.float32).to(dev))
 
     def replace(self, **kw) -> "RTIConfig":
         return replace(self, **kw)
@@ -126,3 +160,287 @@ def _condensed_admm_cfg(config) -> ADMMConfig:
     if config.Gu is not None:
         segs.append(("blockdiag_shared", N, config.Gu.shape[0], n_u))
     return config.admm.replace(row_structure=tuple(segs))
+
+
+def _check_supported(config: RTIConfig) -> None:
+    if config.solver != "admm":
+        raise NotImplementedError(
+            f"solver={config.solver!r} is not ported yet; only 'admm'")
+    if config.warm_kkt:
+        raise NotImplementedError(
+            "warm_kkt (KKT inverse carried across cycles, Newton–Schulz "
+            "refresh) is not ported yet")
+
+
+def _stage_rows(config):
+    """(A_ext, l_ext, u_ext) for the configured facet rows."""
+    if config.Gx is not None and config.Gx.dim() == 3:
+        raise ValueError(
+            "per-stage (N, n_gx, n_x) Gx requires condensed=True (the "
+            "sparse form's build_stage_rows tiles one constant block)")
+    return build_stage_rows(
+        config.N, config.n_x, config.n_u,
+        config.Gx, config.gx_l, config.gx_u, config.Gu, config.gu_l, config.gu_u)
+
+
+def _build_rti_qp(config, Aks, Bks, cks, x_current, x_ref):
+    """The LTV QP plus any configured per-stage facet rows."""
+    if config.stage_rows_fn is not None:
+        raise ValueError(
+            "stage_rows_fn (linearized state rows) requires condensed=True")
+    data = build_mpc_qp(
+        Aks, Bks, cks, x_current, config.Q, config.R, config.Qf, x_ref,
+        config.x_min, config.x_max, config.u_min, config.u_max)
+    if config.Gx is not None or config.Gu is not None:
+        data = extend_qp(data, *_stage_rows(config))
+    return data
+
+
+def _solve_qp(config, state, Aks, Bks, cks, x_current, z0_XU, y0):
+    """Solve every lane's RTI subproblem in the configured formulation;
+    returns (sol, X_sol, U_sol). ``z0_XU`` is the (X, U) primal warm start."""
+    _check_supported(config)
+    N = config.N
+    X0, U0 = z0_XU
+    Bsz = x_current.shape[0]
+    if config.condensed:
+        with record_function("rti.qp_build"):
+            Gx, gx_l, gx_u = _gx_rows(config, state.X_lin)
+            data, Gs, ds = build_condensed_qp(
+                Aks, Bks, cks, x_current, config.Q, config.R, config.Qf, state.x_ref,
+                config.x_min, config.x_max, config.u_min, config.u_max,
+                Gx, gx_l, gx_u, config.Gu, config.gu_l, config.gu_u,
+                x_bound_mask=config.x_bound_mask)
+        with record_function("rti.admm_solve"):
+            sol = solve(data, U0.reshape(Bsz, -1), y0, _condensed_admm_cfg(config),
+                        rho0=state.rho)
+        return sol, recover_states(Gs, ds, sol.x, x_current), sol.x.reshape(Bsz, N, config.n_u)
+    with record_function("rti.qp_build"):
+        data = _build_rti_qp(config, Aks, Bks, cks, x_current, state.x_ref)
+    with record_function("rti.admm_solve"):
+        sol = solve(data, join_z(X0, U0), y0, config.admm, rho0=state.rho)
+    X_sol, U_sol = split_z(sol.x, N, config.n_x, config.n_u)
+    return sol, X_sol, U_sol
+
+
+@dataclass
+class RTIState:
+    """Controller state carried across control steps, one row per lane."""
+
+    X_lin: Tensor  # (B, N+1, n_x) linearization trajectory
+    U_lin: Tensor  # (B, N, n_u)
+    X_prev: Tensor  # shifted warm start
+    U_prev: Tensor
+    y_prev: Tensor  # (B, m) dual warm start
+    rho: Tensor  # (B,) adapted ADMM penalty
+    x_ref: Tensor  # (B, N+1, n_x) reference
+
+    def replace(self, **kw) -> "RTIState":
+        return replace(self, **kw)
+
+
+class RTISolution(NamedTuple):
+    """Per-step output, one row per lane."""
+
+    u0: Tensor  # (B, n_u)
+    X_opt: Tensor  # (B, N+1, n_x)
+    U_opt: Tensor  # (B, N, n_u)
+    cost: Tensor  # (B,) QP objective; inf on a lane that fell back
+    iterations: Tensor  # (B,)
+    success: Tensor  # (B,)
+
+
+def _n_rows(config: RTIConfig) -> int:
+    N = config.N
+    if config.condensed:
+        # N state-bound blocks + N control-bound blocks + facets
+        return N * (_n_bound_states(config) + config.n_u) + _n_extra_rows(config)
+    # equality rows (N+1)·n_x + n_vars bound rows + facet rows
+    n_vars = (N + 1) * config.n_x + N * config.n_u
+    return (N + 1) * config.n_x + n_vars + _n_extra_rows(config)
+
+
+def rti_init(
+    config: RTIConfig, x0, x_target,
+    X_init: Optional[Tensor] = None, U_init: Optional[Tensor] = None,
+    u_hover: Optional[Tensor] = None,
+    step_fn: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
+) -> RTIState:
+    """Initial state for a batch of lanes, on ``config.device``: x0 (B, n_x),
+    x_target (n_x,). The linearization trajectory interpolates x0 →
+    x_target; the controls start at ``u_hover`` ((n_u,) or (B, n_u); default
+    [m₀, 0, 0], hover thrust in normalized units). ``step_fn`` is taken for
+    the JAX signature's sake: only ``warm_kkt`` reads it."""
+    _check_supported(config)
+    dev = config.device
+    N = config.N
+    x0 = as_f32(x0, dev)
+    xT = as_f32(x_target, dev)
+    Bsz = x0.shape[0]
+    if X_init is None:
+        a = torch.linspace(0.0, 1.0, N + 1, device=dev)[None, :, None]
+        X_lin = (1 - a) * x0[:, None] + a * xT[None, None]
+    else:
+        X_lin = as_f32(X_init, dev)
+    if U_init is None:
+        if u_hover is None:
+            u_hover = torch.zeros(Bsz, config.n_u, device=dev)
+            u_hover[:, 0] = x0[:, 0]
+        U_lin = as_f32(u_hover, dev).expand(Bsz, config.n_u)[:, None].repeat(1, N, 1)
+    else:
+        U_lin = as_f32(U_init, dev)
+    return RTIState(
+        X_lin=X_lin, U_lin=U_lin, X_prev=X_lin, U_prev=U_lin,
+        y_prev=torch.zeros(Bsz, _n_rows(config), device=dev),
+        rho=torch.full((Bsz,), config.admm.rho, device=dev),
+        x_ref=xT.expand(Bsz, N + 1, config.n_x).clone(),
+    )
+
+
+def _rollout(step_fn, x0, U) -> Tensor:
+    """(B, N+1, n_x) forward simulation of the controls U from x0."""
+    xs = [x0]
+    for k in range(U.shape[1]):
+        xs.append(step_fn(xs[-1], U[:, k]))
+    return torch.stack(xs, dim=1)
+
+
+def _shift(T: Tensor) -> Tensor:
+    return torch.cat([T[:, 1:], T[:, -1:]], dim=1)
+
+
+def rti_feedback(config: RTIConfig, state: RTIState, prepared, x_current
+                 ) -> Tuple[RTISolution, RTIState]:
+    """Feedback phase: pin the measured states and solve. Use with
+    :func:`rti_prepare` when the two phases are pipelined around the
+    measurement; :func:`rti_step` runs both."""
+    Aks, Bks, cks = prepared
+    y0 = state.y_prev if config.warm_start_duals else torch.zeros_like(state.y_prev)
+    sol, X_sol, U_sol = _solve_qp(
+        config, state, Aks, Bks, cks, x_current, (state.X_prev, state.U_prev), y0)
+    ok = (sol.status == SOLVED) | (sol.pri_res <= config.accept_pri_tol)
+    # fallback: a lane whose QP failed reuses its shifted previous solution
+    X_opt = torch.where(ok[:, None, None], X_sol, state.X_prev)
+    U_opt = torch.where(ok[:, None, None], U_sol, state.U_prev)
+    new_state = state.replace(
+        X_lin=X_opt, U_lin=U_opt, X_prev=_shift(X_opt), U_prev=_shift(U_opt),
+        y_prev=torch.where(ok[:, None], sol.y, state.y_prev), rho=sol.rho)
+    return (
+        RTISolution(
+            u0=U_opt[:, 0], X_opt=X_opt, U_opt=U_opt,
+            cost=torch.where(ok, sol.obj, torch.full_like(sol.obj, float("inf"))),
+            iterations=sol.iterations, success=ok),
+        new_state,
+    )
+
+
+def rti_prepare(step_fn, config: RTIConfig, state: RTIState):
+    """Preparation phase: linearize along the current trajectory *before*
+    the measurement arrives. Returns the (Aks, Bks, cks) to hand to
+    :func:`rti_feedback`."""
+    with record_function("rti.linearize"):
+        return trajectory_jacobians(step_fn, state.X_lin, state.U_lin)
+
+
+def rti_step(step_fn: Callable[[Tensor, Tensor], Tensor], config: RTIConfig,
+             state: RTIState, x_current) -> Tuple[RTISolution, RTIState]:
+    """One combined prepare + feedback RTI cycle for every lane; x_current
+    is (B, n_x)."""
+    if config.reanchor:
+        # re-simulate the linearization trajectory from the measured state
+        with record_function("rti.rollout"):
+            state = state.replace(X_lin=_rollout(step_fn, x_current, state.U_lin))
+    return rti_feedback(config, state, rti_prepare(step_fn, config, state), x_current)
+
+
+def simple_rti_step(step_fn, config: RTIConfig, state: RTIState, x_current,
+                    gd_steps: int = 15, lr: float = 0.05) -> Tuple[Tensor, RTIState]:
+    """Gradient-descent fallback without the QP: descend the tracking cost
+    of a rollout w.r.t. the control sequence, clipped to the thrust box."""
+
+    def rollout_cost(U):
+        E = _rollout(step_fn, x_current, U) - state.x_ref
+        return (torch.einsum("bki,ij,bkj->", E, config.Q, E)
+                + torch.einsum("bki,ij,bkj->", U, config.R, U))
+
+    U = state.U_lin
+    for _ in range(gd_steps):
+        U = U.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(rollout_cost(U), U)  # lanes do not couple
+        U = torch.minimum(torch.maximum(U.detach() - lr * g, config.u_min), config.u_max)
+    U_shift = _shift(U)
+    return U[:, 0], state.replace(U_lin=U_shift, U_prev=U_shift)
+
+
+def make_rti_controller(step_fn, config: RTIConfig, x_target,
+                        reference_fn: Optional[Callable[[Tensor], Tensor]] = None,
+                        ref_horizon: int = 100) -> Tuple[Callable, Callable]:
+    """(controller_init, controller_step) for a fleet flown in lockstep:
+    ``cinit(x0s (B, n_x)) → cstate`` and ``cstep(cstate, x (B, n_x), k) →
+    (u0 (B, n_u), cstate)`` with the step index k a Python int.
+
+    ``reference_fn(x0s) → (B, T, n_x)`` optionally generates each lane's
+    descent reference at init (e.g. ``cubic_descent_reference``); the step
+    then tracks the receding window at step k. The reference rides in the
+    controller state."""
+
+    def cinit(x0):
+        state = rti_init(config, x0, x_target)
+        if reference_fn is None:
+            return state
+        X_ref_full = reference_fn(as_f32(x0, config.device))
+        need = ref_horizon + config.N + 1
+        pad = X_ref_full[:, -1:].repeat(1, max(need - X_ref_full.shape[1], 1), 1)
+        return state, torch.cat([X_ref_full, pad], dim=1)[:, :need]
+
+    def cstep(cstate, x, k: int):
+        if reference_fn is None:
+            sol, new_state = rti_step(step_fn, config, cstate, x)
+            return sol.u0, new_state
+        state, X_ref_full = cstate
+        kk = min(int(k), ref_horizon - 1)
+        state = state.replace(x_ref=X_ref_full[:, kk : kk + config.N + 1])
+        sol, new_state = rti_step(step_fn, config, state, x)
+        return sol.u0, (new_state, X_ref_full)
+
+    return cinit, cstep
+
+
+def rti_closed_loop(step_fn, config: RTIConfig, x0, x_target, n_steps: int,
+                    landing_altitude: float = 0.1,
+                    sim_step_fn: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
+                    X_ref_full: Optional[Tensor] = None) -> dict:
+    """Closed-loop simulation of every lane: {solve → apply u0 → step →
+    check} with landed lanes frozen. ``sim_step_fn`` lets the plant differ
+    from the controller model; ``X_ref_full`` (B or 1, ≥ n_steps + N + 1,
+    n_x) is an optional time-indexed reference whose receding window each
+    step tracks. Returns X (B, n_steps+1, n_x), U (B, n_steps, n_u),
+    solver_success (B, n_steps), x_final, landed and steps (B,)."""
+    plant = sim_step_fn or step_fn
+    x = as_f32(x0, config.device)
+    Bsz = x.shape[0]
+    state = rti_init(config, x, x_target)
+    landed = torch.zeros(Bsz, dtype=torch.bool, device=x.device)
+    steps = torch.zeros(Bsz, dtype=torch.int32, device=x.device)
+    Xs, Us, succ = [x], [], []
+    for k in range(n_steps):
+        if X_ref_full is not None:
+            window = X_ref_full[:, k : k + config.N + 1]
+            state = state.replace(x_ref=window.expand(Bsz, *window.shape[1:]))
+        sol, state_new = rti_step(step_fn, config, state, x)
+        x_next = plant(x, sol.u0)
+        x = torch.where(landed[:, None], x, x_next)
+        state = RTIState(**{
+            f.name: torch.where(
+                landed.reshape(-1, *([1] * (getattr(state, f.name).dim() - 1))),
+                getattr(state, f.name), getattr(state_new, f.name))
+            for f in fields(RTIState)})
+        steps = steps + (~landed).to(torch.int32)
+        Xs.append(x)
+        Us.append(torch.where(landed[:, None], torch.zeros_like(sol.u0), sol.u0))
+        succ.append(sol.success)
+        landed = landed | (x_next[:, 1] < landing_altitude)
+    return {
+        "X": torch.stack(Xs, dim=1), "U": torch.stack(Us, dim=1), "x_final": x,
+        "landed": landed, "steps": steps, "solver_success": torch.stack(succ, dim=1),
+    }

@@ -8,9 +8,14 @@ chunk. The CUDA source is ``gpmpc_tpu_torch/csrc/admm_chunk.cu``; its header
 says what bounds it on the H100 and what the design does about that.
 
 A's rows may carry the solver's declared structure (``row_structure``, the
-``ADMMConfig`` field): ``("diag", nr)`` segments are applied through their
-diagonal alone, ``("dense", nr)`` segments as dense rows, and rows past the
-declared segments are dense. ``None`` means every row dense.
+``ADMMConfig`` field), a tuple of segments in row order: ``("dense", nr)``,
+``("diag", nr)``, ``("blt", C, h, w)``, ``("blockdiag", nb, h, w)`` and
+``("blockdiag_shared", nb, h, w)``; rows past the declared segments are
+dense and ``None`` means every row dense. The plain version and the solver's
+streamed loop apply each segment through its structural nonzeros alone
+(:func:`compact_structure`, :func:`make_A_ops`). The kernel reads A densely,
+as both TPU kernels do, except for the first ``"diag"`` segment, which it
+applies through its diagonal wherever the segment stands among the rows.
 
 - :func:`admm_chunk` — the wrapper. A CUDA tensor launches the kernel (one
   launch per chunk) or raises; a CPU tensor runs :func:`admm_chunk_plain`.
@@ -51,30 +56,66 @@ def pallas_available(device=None) -> bool:
     return torch.cuda.get_device_capability(dev)[0] == 9
 
 
-def compact_structure(A: torch.Tensor, segs: tuple) -> tuple:
+def _seg_rows(seg: tuple) -> int:
+    """Rows of one declared segment."""
+    kind = seg[0]
+    if kind in ("dense", "diag"):
+        return seg[1]
+    if kind in ("blt", "blockdiag", "blockdiag_shared"):
+        return seg[1] * seg[2]
+    raise ValueError(f"unknown row-structure segment {kind!r}")
+
+
+def compact_structure(A: torch.Tensor, segs: tuple, E: Optional[torch.Tensor] = None,
+                      D: Optional[torch.Tensor] = None) -> tuple:
     """Compact per-segment operands of the batched (scaled) A (B,m,n), in
     row order; rows past the declared segments form a trailing dense one.
-    A "diag" segment of nr rows keeps A[r0+k, k], k < nr ≤ n."""
-    m, n = A.shape[1], A.shape[2]
+    Every operand is a view of A.
+
+    - "dense": the rows. "diag" (nr ≤ n rows): A[r0+k, k].
+    - "blt" (C blocks of h rows, w columns a block column): block row i keeps
+      its first (i+1)·w columns.
+    - "blockdiag" (nb·w = n): the (B,nb,h,w) diagonal blocks.
+    - "blockdiag_shared": one unscaled (h,w) block repeated every stage. The
+      scaled stage-k block is diag(E_k)·B·diag(D_k), so the operand is the
+      scaled stage-0 block and the per-stage ratio vectors r_k = E_k/E_0,
+      c_k = D_k/D_0 from the Ruiz scalings ``E`` (B,m) and ``D`` (B,n); without
+      them (unscaled A) the ratios are 1."""
+    Bsz, m, n = A.shape
     ops = []
     r0 = 0
     for seg in segs:
-        kind = seg[0]
+        kind, nr = seg[0], _seg_rows(seg)
+        rows = A[:, r0 : r0 + nr]
         if kind == "dense":
-            ops.append(("dense", A[:, r0 : r0 + seg[1]]))
-            r0 += seg[1]
+            ops.append(("dense", rows))
         elif kind == "diag":
-            nr = seg[1]
             if nr > n:
                 raise ValueError(f"a diag segment of {nr} rows exceeds A's {n} columns")
-            ops.append(("diag", torch.diagonal(A[:, r0 : r0 + nr, :nr], dim1=1, dim2=2)))
-            r0 += nr
-        elif kind in ("blt", "blockdiag", "blockdiag_shared"):
-            raise NotImplementedError(
-                f"row-structure segment {kind!r} is not ported yet (it arrives "
-                "with the 6-DoF slice); only 'dense' and 'diag'")
+            ops.append(("diag", torch.diagonal(rows[:, :, :nr], dim1=1, dim2=2)))
+        elif kind == "blt":
+            _, C, h, w = seg
+            ops.append(("blt", tuple(rows[:, i * h : (i + 1) * h, : (i + 1) * w]
+                                     for i in range(C))))
         else:
-            raise ValueError(f"unknown row-structure segment {kind!r}")
+            _, nb, h, w = seg
+            if nb * w != n:
+                raise ValueError(f"{kind} segment must tile all columns")
+            if r0 + nr > m:
+                raise ValueError("row structure exceeds A's rows")
+            blocks = rows.reshape(Bsz, nb, h, nb, w)
+            if kind == "blockdiag":
+                ops.append(("blockdiag",
+                            torch.diagonal(blocks, dim1=1, dim2=3).permute(0, 3, 1, 2)))
+            elif E is not None and D is not None:
+                E_seg = E[:, r0 : r0 + nr].reshape(Bsz, nb, h)
+                D_seg = D.reshape(Bsz, nb, w)
+                ops.append(("blockdiag_shared", blocks[:, 0, :, 0],
+                            E_seg / E_seg[:, :1], D_seg / D_seg[:, :1]))
+            else:
+                ops.append(("blockdiag_shared", blocks[:, 0, :, 0],
+                            A.new_ones(Bsz, nb, h), A.new_ones(Bsz, nb, w)))
+        r0 += nr
     if r0 > m:
         raise ValueError("row structure exceeds A's rows")
     if r0 < m:
@@ -82,28 +123,64 @@ def compact_structure(A: torch.Tensor, segs: tuple) -> tuple:
     return tuple(ops)
 
 
+def _bmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.bmm(M, v[:, :, None])[:, :, 0]
+
+
 def make_A_ops(ops: tuple, n: int):
     """(A_apply, AT_apply) on batched vectors from compacted structure ops."""
+    pad = torch.nn.functional.pad
 
     def A_apply(v):
+        Bsz = v.shape[0]
         outs = []
-        for kind, M in ops:
+        for op in ops:
+            kind, M = op[0], op[1]
             if kind == "dense":
-                outs.append(torch.bmm(M, v[:, :, None])[:, :, 0])
-            else:  # diag
+                outs.append(_bmv(M, v))
+            elif kind == "diag":
                 outs.append(M * v[:, : M.shape[1]])
+            elif kind == "blt":
+                outs.extend(_bmv(blk, v[:, : blk.shape[2]]) for blk in M)
+            elif kind == "blockdiag":
+                nb, w = M.shape[1], M.shape[3]
+                outs.append(torch.einsum("bkij,bkj->bki", M, v.reshape(Bsz, nb, w))
+                            .reshape(Bsz, -1))
+            else:  # blockdiag_shared: r_k · (B0 (c_k · v_k))
+                _, B0, r, c = op
+                cV = c * v.reshape(c.shape)
+                outs.append((r * torch.einsum("bij,bkj->bki", B0, cV)).reshape(Bsz, -1))
         return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
     def AT_apply(t):
-        out = torch.zeros(t.shape[0], n, dtype=t.dtype, device=t.device)
+        Bsz = t.shape[0]
+        out = torch.zeros(Bsz, n, dtype=t.dtype, device=t.device)
         r0 = 0
-        for kind, M in ops:
-            nr = M.shape[1]
-            ts = t[:, r0 : r0 + nr]
+        for op in ops:
+            kind, M = op[0], op[1]
             if kind == "dense":
-                out = out + torch.bmm(M.transpose(1, 2), ts[:, :, None])[:, :, 0]
-            else:  # diag
-                out = out + torch.nn.functional.pad(M * ts, (0, n - nr))
+                nr = M.shape[1]
+                out = out + _bmv(M.transpose(1, 2), t[:, r0 : r0 + nr])
+            elif kind == "diag":
+                nr = M.shape[1]
+                out = out + pad(M * t[:, r0 : r0 + nr], (0, n - nr))
+            elif kind == "blt":
+                nr = 0
+                for blk in M:
+                    h, cols = blk.shape[1], blk.shape[2]
+                    ts = t[:, r0 + nr : r0 + nr + h]
+                    out = out + pad(_bmv(blk.transpose(1, 2), ts), (0, n - cols))
+                    nr += h
+            elif kind == "blockdiag":
+                nb, h = M.shape[1], M.shape[2]
+                nr = nb * h
+                ts = t[:, r0 : r0 + nr].reshape(Bsz, nb, h)
+                out = out + torch.einsum("bkij,bki->bkj", M, ts).reshape(Bsz, -1)
+            else:  # blockdiag_shared: c_k · (B0ᵀ (r_k · t_k))
+                _, B0, r, c = op
+                nr = r.shape[1] * r.shape[2]
+                rT = r * t[:, r0 : r0 + nr].reshape(r.shape)
+                out = out + (c * torch.einsum("bij,bki->bkj", B0, rT)).reshape(Bsz, -1)
             r0 += nr
         return out
 
@@ -115,16 +192,20 @@ def _segments(row_structure, m: int) -> tuple:
 
 
 def admm_chunk_plain(Minv, A, q, l, u, rho, x, z, y, iters: int, sigma: float,
-                     alpha: float, row_structure: Optional[tuple] = None) -> _Tensors:
+                     alpha: float, row_structure: Optional[tuple] = None,
+                     E: Optional[torch.Tensor] = None,
+                     D: Optional[torch.Tensor] = None) -> _Tensors:
     """Plain PyTorch chunk. Shapes: Minv (B,n,n), A (B,m,n), q/x (B,n),
-    l/u/rho/z/y (B,m). Returns (x, z, y) after ``iters`` iterations."""
+    l/u/rho/z/y (B,m). Returns (x, z, y) after ``iters`` iterations. ``E``
+    and ``D`` are the Ruiz scalings a "blockdiag_shared" segment needs."""
     n = A.shape[2]
-    A_apply, AT_apply = make_A_ops(compact_structure(A, _segments(row_structure, A.shape[1])), n)
+    A_apply, AT_apply = make_A_ops(
+        compact_structure(A, _segments(row_structure, A.shape[1]), E=E, D=D), n)
     inv_rho = 1.0 / rho
     for _ in range(iters):
         t = rho * z - y
         rhs = sigma * x - q + AT_apply(t)
-        xt = torch.bmm(Minv, rhs[:, :, None])[:, :, 0]
+        xt = _bmv(Minv, rhs)
         zt = A_apply(xt)
         xn = alpha * xt + (1.0 - alpha) * x
         zr = alpha * zt + (1.0 - alpha) * z
@@ -134,25 +215,37 @@ def admm_chunk_plain(Minv, A, q, l, u, rho, x, z, y, iters: int, sigma: float,
     return x, z, y
 
 
-def kernel_rows(A: torch.Tensor, row_structure) -> Tuple[torch.Tensor, int]:
-    """A as the kernel reads it, and mg: the kernel applies the first mg
-    rows (a leading "diag" segment) through their diagonal alone and every
-    other row densely. A later "diag" segment is handed over as dense rows
-    that hold its diagonal alone, which applies the same function."""
-    ops = compact_structure(A, _segments(row_structure, A.shape[1]))
-    mg = ops[0][1].shape[1] if ops[0][0] == "diag" else 0
-    later, r0 = [], 0
-    for i, (kind, M) in enumerate(ops):
-        if kind == "diag" and i > 0:
-            later.append((r0, M))
-        r0 += M.shape[1]
+def kernel_rows(A: torch.Tensor, row_structure) -> Tuple[torch.Tensor, int, int]:
+    """A as the kernel reads it, with (d0, mg): the kernel applies the mg
+    rows from row d0 on (the first "diag" segment, wherever it stands)
+    through their diagonal alone and every other row densely, where it
+    lies: no copy of A is made for it. A further "diag" segment is handed
+    over as dense rows that hold its diagonal alone, which applies the same
+    function and costs a copy of A."""
+    m, n = A.shape[1], A.shape[2]
+    d0 = mg = r0 = 0
+    later = []
+    for seg in _segments(row_structure, m):
+        nr = _seg_rows(seg)
+        if seg[0] == "diag":
+            if nr > n:
+                raise ValueError(f"a diag segment of {nr} rows exceeds A's {n} columns")
+            if mg == 0:
+                d0, mg = r0, nr
+            else:
+                later.append((r0, nr))
+        elif seg[0] in ("blockdiag", "blockdiag_shared") and seg[1] * seg[3] != n:
+            raise ValueError(f"{seg[0]} segment must tile all columns")
+        r0 += nr
+    if r0 > m:
+        raise ValueError("row structure exceeds A's rows")
     if later:
-        A = A.clone()  # the diagonals in `later` still view the caller's A
-        for r0, d in later:
-            nr = d.shape[1]
+        A = A.clone()
+        for r0, nr in later:
+            d = torch.diagonal(A[:, r0 : r0 + nr, :nr], dim1=1, dim2=2).clone()
             A[:, r0 : r0 + nr] = 0.0
             A[:, r0 : r0 + nr, :nr] = torch.diag_embed(d)
-    return A, mg
+    return A, d0, mg
 
 
 def _check(Minv, A, q, l, u, rho, x, z, y) -> Tuple[int, int, int]:
@@ -183,7 +276,7 @@ def _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
         raise RuntimeError(
             f"the ADMM chunk kernel is built for sm_90a; {A.device} is "
             f"capability {torch.cuda.get_device_capability(A.device)}")
-    A, mg = kernel_rows(A, row_structure)
+    A, d0, mg = kernel_rows(A, row_structure)
     ins = [t.contiguous() for t in (Minv, A, q, l, u, rho, x, z, y)]
     xo = torch.empty_like(ins[6])
     zo = torch.empty_like(ins[7])
@@ -193,12 +286,12 @@ def _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = lib.admm_chunk_f32(
             *[t.data_ptr() for t in ins], xo.data_ptr(), zo.data_ptr(),
-            yo.data_ptr(), B, n, m, mg, int(iters), float(sigma), float(alpha),
+            yo.data_ptr(), B, n, m, d0, mg, int(iters), float(sigma), float(alpha),
             A.device.index, stream,
         )
     if err != 0:
         raise RuntimeError(f"admm_chunk_f32 launch failed: CUDA error {err} "
-                           f"(B={B}, n={n}, m={m}, diagonal rows {mg})")
+                           f"(B={B}, n={n}, m={m}, diagonal rows {d0}..{d0 + mg})")
     LAUNCHES += 1
     return xo, zo, yo
 
@@ -209,7 +302,7 @@ def _library() -> ctypes.CDLL:
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        lib.admm_chunk_f32.argtypes = [p] * 12 + [i, i, i, i, i, f, f, i, p]
+        lib.admm_chunk_f32.argtypes = [p] * 12 + [i, i, i, i, i, i, f, f, i, p]
         lib.admm_chunk_f32.restype = i
         lib.admm_chunk_variant.argtypes = [i, i, i, i]
         lib.admm_chunk_variant.restype = i
@@ -217,8 +310,8 @@ def _library() -> ctypes.CDLL:
 
 
 def variant(n: int, m: int, mg: int = 0, device=None) -> str:
-    """The kernel variant a chunk with n columns, m rows and mg leading
-    diagonal rows launches on ``device`` (default: the current CUDA device):
+    """The kernel variant a chunk with n columns, m rows and mg diagonal
+    rows (anywhere among the rows) launches on ``device`` (default: the current CUDA device):
     "register" (matrices in registers), "shared" (in shared memory) or
     "global" (read from global memory). Raises for a shape none takes."""
     dev = torch.device("cuda") if device is None else torch.device(device)
@@ -231,15 +324,19 @@ def variant(n: int, m: int, mg: int = 0, device=None) -> str:
 
 
 def admm_chunk(Minv, A, q, l, u, rho, x, z, y, iters: int, sigma: float,
-               alpha: float, row_structure: Optional[tuple] = None) -> _Tensors:
+               alpha: float, row_structure: Optional[tuple] = None,
+               E: Optional[torch.Tensor] = None,
+               D: Optional[torch.Tensor] = None) -> _Tensors:
     """Run ``iters`` ADMM iterations for every lane; returns (x, z, y).
 
     On CUDA tensors this launches the Hopper kernel once (or raises); on CPU
-    tensors it runs :func:`admm_chunk_plain`."""
+    tensors it runs :func:`admm_chunk_plain`, which takes the Ruiz scalings
+    ``E``, ``D`` for a "blockdiag_shared" segment (the kernel reads those
+    rows densely and needs neither)."""
     _check(Minv, A, q, l, u, rho, x, z, y)
     if A.device.type == "cuda":
         return _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha, row_structure)
     if A.device.type == "cpu":
         return admm_chunk_plain(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
-                                row_structure)
+                                row_structure, E=E, D=D)
     raise ValueError(f"unsupported device {A.device}")

@@ -1,8 +1,23 @@
 """Batched convex-QP solvers (counterpart of ``gpmpc_tpu/ops/qp``)."""
 
 from .admm import ADMMConfig, solve
-from .condensed import build_condensed_qp, prediction_matrices, recover_states
-from .mpc_qp import join_z, split_z
+from .condensed import (
+    build_condensed_qp,
+    n_condensed_constraints,
+    prediction_matrices,
+    recover_states,
+)
+from .mpc_qp import (
+    build_constraints,
+    build_cost,
+    build_mpc_qp,
+    build_stage_rows,
+    extend_qp,
+    join_z,
+    n_constraints,
+    n_vars,
+    split_z,
+)
 from .ruiz import Scaling, ruiz_equilibrate
 from .types import (
     DUAL_INFEASIBLE,
@@ -17,6 +32,8 @@ from .types import (
 __all__ = [
     "ADMMConfig", "DUAL_INFEASIBLE", "MAX_ITER", "PRIMAL_INFEASIBLE",
     "SOLVED", "STATUS_NAMES", "QPData", "QPSolution", "Scaling",
-    "build_condensed_qp", "join_z", "prediction_matrices", "recover_states",
+    "build_condensed_qp", "build_constraints", "build_cost", "build_mpc_qp",
+    "build_stage_rows", "extend_qp", "join_z", "n_condensed_constraints",
+    "n_constraints", "n_vars", "prediction_matrices", "recover_states",
     "ruiz_equilibrate", "solve", "split_z",
 ]

@@ -16,14 +16,17 @@ matrix so each iteration is three batched matvecs. The iterations of one
 check interval (a "chunk") run either through the hand-written chunk kernel
 (``use_pallas`` "on"/"auto"/"lanes": the CUDA kernel on a CUDA tensor, its
 plain version on a CPU tensor) or as the streamed, structure-compacted loop
-(``use_pallas="off"``); both apply A through the declared ``row_structure``
-(a "diag" segment by its diagonal alone). Converged lanes are frozen; the
-chunk loop stops once every lane is done.
+(``use_pallas="off"``); both take the declared ``row_structure`` with every
+segment kind of the JAX solver ("dense", "diag", "blt", "blockdiag",
+"blockdiag_shared"). At every chunk boundary the termination test and, with
+``infeas_certs``, OSQP's δx/δy infeasibility certificates run per lane; a
+lane that is solved or certified infeasible is frozen with its status and
+residuals, and the chunk loop stops once every lane is done. ``polish``
+runs the active-set KKT polish on the unscaled exit point, per lane with
+masks instead of per-lane active sets.
 
-Not in this slice (each raises ``NotImplementedError``): ``polish``,
-``infeas_certs=True``, ``kkt_inv0`` (warm KKT / Newton–Schulz refresh),
-``matvec_dtype="bf16"`` and the ``blt`` / ``blockdiag`` /
-``blockdiag_shared`` row-structure segments.
+Not ported (each raises ``NotImplementedError``): ``kkt_inv0`` (warm KKT /
+Newton–Schulz refresh) and ``matvec_dtype="bf16"`` with its f32 tail.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from torch.profiler import record_function
 from ..kernels import admm_chunk as chunk_kernel
 from ..kernels.admm_chunk import compact_structure, make_A_ops
 from .ruiz import Scaling, ruiz_equilibrate
-from .types import MAX_ITER, SOLVED, QPData, QPSolution
+from .types import DUAL_INFEASIBLE, MAX_ITER, PRIMAL_INFEASIBLE, SOLVED, QPData, QPSolution
 
 _RHO_MIN = 1e-6
 _RHO_MAX = 1e6
@@ -50,7 +53,7 @@ _KERNEL_MODES = ("on", "auto", "lanes", "lanes_interpret")
 class ADMMConfig:
     """Solver settings; field names and defaults are those of the JAX
     ``ADMMConfig`` (see there for the meaning of each). Fields that only
-    tune features outside this slice are left out; the switches of those
+    tune features the port lacks are left out; the switches of those
     features stay, so that turning one on raises."""
 
     max_iter: int = 250
@@ -58,6 +61,7 @@ class ADMMConfig:
     early_exit: bool = True
     eps_abs: float = 1e-4
     eps_rel: float = 1e-4
+    eps_infeas: float = 1e-6
     sigma: float = 1e-6
     alpha: float = 1.6
     rho: float = 0.1
@@ -65,6 +69,8 @@ class ADMMConfig:
     rho_adapt_chunks: int = 4
     scaling: int = 10
     polish: bool = False
+    polish_delta: float = 1e-4
+    polish_refine_iters: int = 6
     # "off": streamed structure-compacted loop; "on"/"auto"/"lanes"/
     # "lanes_interpret": the chunk kernel (CUDA kernel on a CUDA tensor, its
     # plain version on a CPU tensor) — one kernel serves all four names
@@ -80,12 +86,6 @@ class ADMMConfig:
 
 def _check_supported(cfg: ADMMConfig, kkt_inv0) -> None:
     later = "a later slice of the port"
-    if cfg.polish:
-        raise NotImplementedError(f"ADMM polish is not ported yet ({later})")
-    if cfg.infeas_certs:
-        raise NotImplementedError(
-            "infeasibility certificates (infeas_certs=True) are not ported "
-            f"yet ({later}); real-time configs set infeas_certs=False")
     if kkt_inv0 is not None:
         raise NotImplementedError(
             f"warm KKT (kkt_inv0, Newton–Schulz refresh) is not ported yet ({later})")
@@ -114,13 +114,8 @@ def _factor(P: torch.Tensor, A: torch.Tensor, rho_v: torch.Tensor,
     Cholesky and a triangular solve. A lane whose M is not positive definite
     gets a NaN inverse (as ``jnp.linalg.cholesky`` gives NaN): its solve
     then fails the acceptance test instead of stopping the batch."""
-    n = P.shape[-1]
-    eye = torch.eye(n, dtype=P.dtype, device=P.device)
-    M = P + sigma * eye + (A.transpose(1, 2) * rho_v[:, None, :]) @ A
-    L, info = torch.linalg.cholesky_ex(M)
-    L = torch.where((info == 0)[:, None, None], L, torch.full_like(L, float("nan")))
-    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
-    return Linv.transpose(1, 2) @ Linv
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    return _spd_inverse(P + sigma * eye + (A.transpose(1, 2) * rho_v[:, None, :]) @ A)
 
 
 def _amax(v: torch.Tensor) -> torch.Tensor:
@@ -129,6 +124,63 @@ def _amax(v: torch.Tensor) -> torch.Tensor:
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.bmm(M, v[:, :, None])[:, :, 0]
+
+
+def _spd_inverse(S: torch.Tensor) -> torch.Tensor:
+    """S⁻¹ per lane through a Cholesky factor; NaN where S is not positive
+    definite."""
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+    L, info = torch.linalg.cholesky_ex(S)
+    L = torch.where((info == 0)[:, None, None], L, torch.full_like(L, float("nan")))
+    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    return Linv.transpose(1, 2) @ Linv
+
+
+def _polish(data: QPData, x, y, z, cfg: ADMMConfig):
+    """Active-set KKT polish (OSQP §5.2) of every lane: guess the active set
+    from the ADMM duals, solve the equality-constrained KKT system at fixed
+    shape by masking inactive rows to ν_i = 0, and clean f32 error with
+    iterative refinement on the δ-regularized system. A lane whose polished
+    point is not finite keeps (x, y, z)."""
+    P, q, A, l, u = data.P, data.q, data.A, data.l, data.u
+    n = data.n
+    dtype = P.dtype
+
+    # a bound is active when the slack is smaller than the (signed) dual
+    # pushing into it: lower iff z−l < −y, upper iff u−z < y
+    eq = (u - l) <= 1e-9
+    act_low = ((z - l) < -y) | eq
+    act_high = ((u - z) < y) | eq
+    active = act_low | act_high
+    b = torch.where(act_high & ~act_low, u, l)
+    b = torch.where(active, b, torch.zeros_like(b))
+    af = active.to(dtype)
+
+    # K = [[P+δI, Aaᵀ], [Aa, −D]], D = diag(1−a) + δ·diag(a), solved through
+    # the Schur complement S = P + δI + Aaᵀ D⁻¹ Aa (n×n, SPD)
+    delta = cfg.polish_delta
+    Aa = af[:, :, None] * A
+    AaT = Aa.transpose(1, 2)
+    Dinv = 1.0 / (1.0 - af + delta * af)
+    eye = torch.eye(n, dtype=dtype, device=P.device)
+    Sinv = _spd_inverse(P + delta * eye + (AaT * Dinv[:, None, :]) @ Aa)
+
+    def kkt_solve(r1, r2):
+        xs = _mv(Sinv, r1 + _mv(AaT, Dinv * r2))
+        return xs, Dinv * (_mv(Aa, xs) - r2)
+
+    x_p, nu_p = kkt_solve(-q, b)
+    for _ in range(cfg.polish_refine_iters):
+        # residual of the unregularized K₀ = [[P, Aaᵀ], [Aa, −diag(1−a)]]
+        r1 = -q - (_mv(P, x_p) + _mv(AaT, nu_p))
+        r2 = b - (_mv(Aa, x_p) - (1.0 - af) * nu_p)
+        dx, dnu = kkt_solve(r1, r2)
+        x_p, nu_p = x_p + dx, nu_p + dnu
+
+    y_p = torch.where(active, nu_p, torch.zeros_like(nu_p))
+    z_p = torch.minimum(torch.maximum(_mv(A, x_p), l), u)
+    ok = (torch.isfinite(x_p).all(dim=1) & torch.isfinite(nu_p).all(dim=1))[:, None]
+    return torch.where(ok, x_p, x), torch.where(ok, y_p, y), torch.where(ok, z_p, z)
 
 
 def solve(
@@ -183,7 +235,7 @@ def solve(
 
     use_kernel = cfg.use_pallas in _KERNEL_MODES
     segs = cfg.row_structure if cfg.row_structure is not None else (("dense", m),)
-    A_apply, AT_apply = make_A_ops(compact_structure(A, segs), n)
+    A_apply, AT_apply = make_A_ops(compact_structure(A, segs, E=E, D=D), n)
     L = _factor(P, A, rho_v, cfg.sigma)
 
     q_unsc_norm = _amax(Dinv * q) / c
@@ -201,11 +253,40 @@ def solve(
             torch.maximum(_amax(Dinv * Px), _amax(Dinv * ATy)) / c, q_unsc_norm)
         return r_prim, r_dual, prim_norm, dual_norm
 
+    def certificates(dx_s, dy_s):
+        """OSQP's primal / dual infeasibility tests per lane on the unscaled
+        δ sequences; with the scaled differences dy_s, dx_s of one check
+        interval the unscaled ones are δy = (E/c)·dy_s, Aᵀδy = D⁻¹Āᵀdy_s/c,
+        δx = D·dx_s, Pδx = D⁻¹P̄dx_s/c, qᵀδx = q̄·dx_s/c, Aδx = E⁻¹Ādx_s."""
+        eps = cfg.eps_infeas
+        dy = (E / c[:, None]) * dy_s
+        dy_norm = _amax(dy)
+        dx_norm = _amax(D * dx_s)
+        zero = torch.zeros_like(u)
+        uu = torch.where(u >= _INF, zero, Einv * u)
+        ll = torch.where(l <= -_INF, zero, Einv * l)
+        prim_cert = (
+            (dy_norm > 1e-12)
+            & (_amax(Dinv * _mv(AT, dy_s)) / c <= eps * dy_norm)
+            & (((uu * dy.clamp_min(0.0)).sum(-1) + (ll * dy.clamp_max(0.0)).sum(-1))
+               <= eps * dy_norm)
+        )
+        Adx = Einv * _mv(A, dx_s)
+        tol = (eps * dx_norm)[:, None]
+        dual_cert = (
+            (dx_norm > 1e-12)
+            & (_amax(Dinv * _mv(P, dx_s)) / c <= eps * dx_norm)
+            & ((q * dx_s).sum(-1) / c <= eps * dx_norm)
+            & ((u >= _INF) | (Adx <= tol)).all(dim=-1)
+            & ((l <= -_INF) | (Adx >= -tol)).all(dim=-1)
+        )
+        return prim_cert, dual_cert
+
     def run_chunk(x, z, y, rho_v, L):
         if use_kernel:
             return chunk_kernel.admm_chunk(
                 L, A, q, l, u, rho_v, x, z, y, iters=cfg.check_interval,
-                sigma=cfg.sigma, alpha=cfg.alpha, row_structure=segs)
+                sigma=cfg.sigma, alpha=cfg.alpha, row_structure=segs, E=E, D=D)
         for _ in range(cfg.check_interval):
             rhs = cfg.sigma * x - q + AT_apply(rho_v * z - y)
             x_t = _mv(L, rhs)
@@ -243,8 +324,10 @@ def solve(
         # as the fixed schedule). The first chunk needs no host sync.
         if cfg.early_exit and not allow_refactor and k > 0 and bool(done.all()):
             break
+        x_prev, y_prev = x, y
         with record_function("admm.chunk"):
             x_n, z_n, y_n = run_chunk(x, z, y, rho_v, L)
+        # freeze converged / infeasible lanes
         keep = ~done
         x = torch.where(keep[:, None], x_n, x)
         z = torch.where(keep[:, None], z_n, z)
@@ -253,14 +336,20 @@ def solve(
 
         with record_function("admm.residuals"):
             rp, rd, prim_norm, dual_norm = residuals(x, z, y)
-        # frozen lanes keep the residuals they converged at
+            converged = (rp <= cfg.eps_abs + cfg.eps_rel * prim_norm) & (
+                rd <= cfg.eps_abs + cfg.eps_rel * dual_norm)
+            code = torch.where(converged, SOLVED, MAX_ITER)
+            if cfg.infeas_certs:
+                prim_cert, dual_cert = certificates(x - x_prev, y - y_prev)
+                code = torch.where(
+                    converged, code,
+                    torch.where(prim_cert, PRIMAL_INFEASIBLE,
+                                torch.where(dual_cert, DUAL_INFEASIBLE, code)))
+                converged = converged | prim_cert | dual_cert
+        # frozen lanes keep their status and the residuals they stopped at
         r_prim = torch.where(keep, rp, r_prim)
         r_dual = torch.where(keep, rd, r_dual)
-        converged = (rp <= cfg.eps_abs + cfg.eps_rel * prim_norm) & (
-            rd <= cfg.eps_abs + cfg.eps_rel * dual_norm)
-        status = torch.where(
-            done, status,
-            torch.where(converged, SOLVED, MAX_ITER).to(torch.int32))
+        status = torch.where(done, status, code.to(torch.int32))
         done = done | converged
 
         if cfg.adaptive_rho and allow_refactor:
@@ -279,8 +368,45 @@ def solve(
     x_u = D * x
     y_u = (E * y) / c[:, None]
     z_u = Einv * z
+
+    if cfg.polish:
+        with record_function("admm.polish"):
+            x_u, y_u, z_u, r_prim, r_dual, status = _accept_polish(
+                data, cfg, x_u, y_u, z_u, r_prim, r_dual, status)
     obj = 0.5 * (x_u * _mv(data.P, x_u)).sum(-1) + (data.q * x_u).sum(-1)
     return QPSolution(
         x=x_u, y=y_u, z=z_u, obj=obj, pri_res=r_prim, dua_res=r_dual,
         iterations=it, status=status, rho=rho,
     )
+
+
+def _accept_polish(data: QPData, cfg: ADMMConfig, x_u, y_u, z_u, r_prim, r_dual, status):
+    """Polish every lane and keep the polished point where it lowers the KKT
+    error; a lane at MAX_ITER whose polished point passes the termination
+    test becomes SOLVED (OSQP reports ``solved`` likewise)."""
+    P, q, A, l, u = data.P, data.q, data.A, data.l, data.u
+    AT = A.transpose(1, 2)
+    x_p, y_p, z_p = _polish(data, x_u, y_u, z_u, cfg)
+
+    def kkt_err(xx, yy, zz):
+        Ax = _mv(A, xx)
+        r1 = _amax(Ax - zz)
+        r2 = _amax(_mv(P, xx) + q + _mv(AT, yy))
+        viol = torch.maximum((Ax - u).clamp_min(0.0).amax(dim=-1),
+                             (l - Ax).clamp_min(0.0).amax(dim=-1))
+        return torch.maximum(torch.maximum(r1, r2), viol)
+
+    better = kkt_err(x_p, y_p, z_p) < kkt_err(x_u, y_u, z_u)
+    x_u = torch.where(better[:, None], x_p, x_u)
+    y_u = torch.where(better[:, None], y_p, y_u)
+    z_u = torch.where(better[:, None], z_p, z_u)
+    Ax, Px, ATy = _mv(A, x_u), _mv(P, x_u), _mv(AT, y_u)
+    r_prim = torch.where(better, _amax(Ax - z_u), r_prim)
+    r_dual = torch.where(better, _amax(Px + q + ATy), r_dual)
+    pn = torch.maximum(_amax(Ax), _amax(z_u))
+    dn = torch.maximum(torch.maximum(_amax(Px), _amax(ATy)), _amax(q))
+    now_ok = (r_prim <= cfg.eps_abs + cfg.eps_rel * pn) & (
+        r_dual <= cfg.eps_abs + cfg.eps_rel * dn)
+    status = torch.where((status == MAX_ITER) & now_ok,
+                         torch.full_like(status, SOLVED), status)
+    return x_u, y_u, z_u, r_prim, r_dual, status

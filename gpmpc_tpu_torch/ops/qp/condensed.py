@@ -7,9 +7,7 @@ are the controls only.
 so each lane's QP has n = N·n_u variables and no equality rows.
 
 Row order: [ state bounds k=1..N (components selected by x_bound_mask) ;
-             control bounds k=0..N-1 ].
-Facet rows (Gx, Gu) arrive with the 6-DoF slice and raise
-``NotImplementedError`` here.
+             control bounds k=0..N-1 ; Gx facets k=1..N ; Gu facets k=0..N-1 ].
 """
 
 from __future__ import annotations
@@ -54,11 +52,13 @@ def build_condensed_qp(
 ) -> Tuple[QPData, torch.Tensor, torch.Tensor]:
     """Assemble the batched condensed QP; returns (data, Gs, ds) — keep
     (Gs, ds) for :func:`recover_states`. Cost/bound semantics match the JAX
-    builder (objective ½(x−r)ᵀQ(x−r) per stage, Qf at k=N)."""
-    if Gx is not None or Gu is not None:
-        raise NotImplementedError(
-            "condensed facet rows (Gx/Gu) are not ported yet; they arrive "
-            "with the 6-DoF slice")
+    function (objective ½(x−r)ᵀQ(x−r) per stage, Qf at k=N).
+
+    Facet rows: ``Gx`` is one (n_gx, n_x) block tiled over the stages, a
+    per-stage (N, n_gx, n_x) array, or that with a leading lane axis
+    (B, N, n_gx, n_x) — rows linearized per lane around its trajectory; row k
+    applies at x_{k+1}. ``gx_l``/``gx_u`` broadcast to (B, N, n_gx). ``Gu``
+    (n_gu, n_u) with bounds (n_gu,) applies to every u_k."""
     Bsz, N, n_x, n_u = Bks.shape
     nu = N * n_u
     dtype, dev = Aks.dtype, Aks.device
@@ -84,10 +84,10 @@ def build_condensed_qp(
     sel = (list(range(n_x)) if x_bound_mask is None
            else [i for i, keep in enumerate(x_bound_mask) if keep])
     blocks, ls, us = [], [], []
+    # keep genuinely-free rows at ±inf instead of (±inf − d_k), so the
+    # solver's free-row detection (|bound| ≥ 1e20) still fires
+    big = 1e19
     if sel:
-        # keep genuinely-free rows at ±inf instead of (±inf − d_k), so the
-        # solver's free-row detection (|bound| ≥ 1e20) still fires
-        big = 1e19
         Gs_b, ds_b = Gs[:, :, sel, :], ds[:, :, sel]
         Xlo_b, Xhi_b = Xlo[:, :, sel], Xhi[:, :, sel]
         blocks.append(Gs_b.reshape(Bsz, N * len(sel), nu))
@@ -97,6 +97,22 @@ def build_condensed_qp(
     ls.append(Ulo)
     us.append(Uhi)
 
+    if Gx is not None:
+        Gx_s = Gx if Gx.dim() == 2 else Gx.expand(Bsz, *Gx.shape[-3:])
+        eq = "ij,bkjl->bkil" if Gx.dim() == 2 else "bkij,bkjl->bkil"
+        n_gx = Gx.shape[-2]
+        Gd = torch.einsum(eq.replace("l", ""), Gx_s, ds)  # (B,N,n_gx)
+        lo = torch.broadcast_to(gx_l, (Bsz, N, n_gx))
+        hi = torch.broadcast_to(gx_u, (Bsz, N, n_gx))
+        blocks.append(torch.einsum(eq, Gx_s, Gs).reshape(Bsz, N * n_gx, nu))
+        ls.append(torch.where(lo <= -big, lo, lo - Gd).reshape(Bsz, -1))
+        us.append(torch.where(hi >= big, hi, hi - Gd).reshape(Bsz, -1))
+    if Gu is not None:
+        n_gu = Gu.shape[0]
+        blocks.append(torch.block_diag(*([Gu] * N)).expand(Bsz, N * n_gu, nu))
+        ls.append(gu_l.repeat(N).expand(Bsz, N * n_gu))
+        us.append(gu_u.repeat(N).expand(Bsz, N * n_gu))
+
     data = QPData(
         P=P, q=q,
         A=torch.cat(blocks, dim=1),
@@ -105,3 +121,9 @@ def build_condensed_qp(
     )
     return data, Gs, ds
 
+
+
+def n_condensed_constraints(N: int, n_x: int, n_u: int, n_gx: int = 0, n_gu: int = 0,
+                            x_bound_mask: Optional[tuple] = None) -> int:
+    n_b = n_x if x_bound_mask is None else sum(bool(b) for b in x_bound_mask)
+    return N * (n_b + n_u + n_gx + n_gu)

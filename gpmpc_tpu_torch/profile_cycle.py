@@ -1,16 +1,27 @@
-"""Where the main-path cycle's time goes, on the card.
+"""Where a path's cycle time goes, on the card.
 
-Runs the 3-DoF GP-MPC cycle of ``gpmpc_tpu_torch/main_path.py`` (fit the GP,
-warm up, then time cycles of ``gp_mpc_solve`` + the plant step) and reports:
+Runs one of the cycles of ``gpmpc_tpu_torch/main_path.py``:
+
+- ``--path main``: the 3-DoF GP-MPC cycle (fit the exploration GP, then
+  cycles of ``gp_mpc_solve`` + the dispersed plant step), 512 lanes;
+- ``--path rti``: the GP-free RTI cycle (``rti_step`` + the nominal plant
+  step), 512 lanes;
+- ``--path pretrain``: the cycle of the production GP fit's episodes (the
+  default sparse-form RTI controller tracking a cubic descent reference on
+  the dispersed plant), 4 lanes, and the wall time of the whole
+  ``pretrain_gp_3dof`` call;
+
+warms it up and reports:
 
 - ms per cycle from CUDA events, without the profiler;
 - a ``torch.profiler`` trace of a few cycles: for each stage span of the
-  cycle (``gpmpc.*``, ``admm.*``) its host time, and for the whole window
-  the device's busy share (sum of kernel times over wall time), the kernel
-  launches per cycle and the kernels that take the most device time.
+  cycle (``gpmpc.*``, ``rti.*``, ``admm.*``) its host time, and for the
+  whole window the device's busy share (sum of kernel times over wall time),
+  the kernel launches per cycle and the kernels that take the most device
+  time.
 
-Usage: ``python -m gpmpc_tpu_torch.profile_cycle [--batch 512] [--cycles 20]
-[--out build/profile_cycle.json]``. Needs a CUDA device.
+Usage: ``python -m gpmpc_tpu_torch.profile_cycle [--path main] [--batch B]
+[--cycles 20] [--out build/profile_cycle.json]``. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,10 +36,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .learning import explore_gp_3dof
-from .main_path import BATCH, DT, fleet_x0, main_path
-from .mpc import gp_mpc_init, gp_mpc_solve
+from .main_path import BATCH, DT, N, fleet_x0, main_path, pretrain_path, rti_path
+from .mpc import RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti_init, rti_step
+from .reference import cubic_descent_reference
 
-SPAN_PREFIXES = ("gpmpc.", "admm.")
+SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.")
+PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4}  # path → default lanes
 
 
 def _card() -> str:
@@ -38,19 +51,47 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def run(batch: int, cycles: int, prof_cycles: int) -> dict:
-    dev = torch.device("cuda")
-    mp = main_path(dev)
-    gp, mean_fn, var_fn = explore_gp_3dof(
-        torch.Generator(device=dev).manual_seed(0),
-        torch.Generator(device=dev).manual_seed(1), mp.params, mp.F_true, dt=DT, device=dev)
-    state = gp_mpc_init(mp.config, fleet_x0(batch, dev), mp.x_target, device=dev)
+def _cycle_of(path: str, batch: int, dev):
+    """(cycle, state, xs) of a path: ``cycle(state, xs) → (state, xs)``."""
     xs = fleet_x0(batch, dev)
+    if path == "main":
+        mp = main_path(dev)
+        _, mean_fn, var_fn = explore_gp_3dof(
+            torch.Generator(device=dev).manual_seed(0),
+            torch.Generator(device=dev).manual_seed(1), mp.params, mp.F_true, dt=DT, device=dev)
 
-    def cycle(state, xs):
-        sol, state = gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, state, xs)
-        return state, mp.F_true(xs, sol.u0)
+        def cycle(state, xs):
+            sol, state = gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, state, xs)
+            return state, mp.F_true(xs, sol.u0)
 
+        return cycle, gp_mpc_init(mp.config, xs, mp.x_target, device=dev), xs
+    if path == "rti":
+        rp = rti_path(dev)
+
+        def cycle(state, xs):
+            sol, state = rti_step(rp.F, rp.config, state, xs)
+            return state, rp.F(xs, sol.u0)
+
+        return cycle, rti_init(rp.config, xs, rp.x_target), xs
+    # the controller collect_residuals_3dof flies, on the dispersed plant
+    mp = main_path(dev)
+    cinit, cstep = make_rti_controller(
+        mp.F, RTIConfig(N=N, dt=DT, device=dev), mp.x_target,
+        reference_fn=lambda x0: cubic_descent_reference(x0, mp.x_target, 80, DT),
+        ref_horizon=100)
+    step = [0]
+
+    def cycle(cstate, xs):
+        u0, cstate = cstep(cstate, xs, step[0])
+        step[0] += 1
+        return cstate, mp.F_true(xs, u0)
+
+    return cycle, cinit(xs), xs
+
+
+def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
+    dev = torch.device("cuda")
+    cycle, state, xs = _cycle_of(path, batch, dev)
     for _ in range(5):
         state, xs = cycle(state, xs)
     torch.cuda.synchronize()
@@ -94,8 +135,16 @@ def run(batch: int, cycles: int, prof_cycles: int) -> dict:
     top = [{"name": name[:120], "launches_per_cycle": count / prof_cycles,
             "device_ms_per_cycle": us / 1e3 / prof_cycles}
            for name, (count, us) in sorted(per_op.items(), key=lambda kv: -kv[1][1])[:15]]
+    res = {}
+    if path == "pretrain":
+        t0 = time.perf_counter()
+        pretrain_path(torch.Generator(device=dev).manual_seed(2), dev)
+        torch.cuda.synchronize()
+        res["pretrain_gp_3dof_s"] = time.perf_counter() - t0
     return {
+        **res,
         "card": _card(),
+        "path": path,
         "batch": batch,
         "ms_per_cycle": ms_cycle,
         "solves_per_s": batch * 1000.0 / ms_cycle,
@@ -111,18 +160,21 @@ def run(batch: int, cycles: int, prof_cycles: int) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--path", choices=sorted(PATHS), default="main")
+    ap.add_argument("--batch", type=int, default=None, help="lanes (default: the path's)")
     ap.add_argument("--cycles", type=int, default=20)
     ap.add_argument("--prof-cycles", type=int, default=5)
     ap.add_argument("--out", default="build/profile_cycle.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_cycle needs a CUDA device")
-    res = run(args.batch, args.cycles, args.prof_cycles)
+    res = run(args.path, args.batch or PATHS[args.path], args.cycles, args.prof_cycles)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))
-    print(f"{res['card']} | batch {res['batch']}: {res['ms_per_cycle']:.3f} ms/cycle "
+    if "pretrain_gp_3dof_s" in res:
+        print(f"pretrain_gp_3dof: {res['pretrain_gp_3dof_s']:.3f} s")
+    print(f"{res['card']} | path {res['path']} batch {res['batch']}: {res['ms_per_cycle']:.3f} ms/cycle "
           f"(CUDA events), {res['solves_per_s']:.1f} solves/s")
     print(f"profiled {res['profiled_cycles']} cycles: wall {res['profiled_wall_ms_per_cycle']:.3f} "
           f"ms/cycle, device busy {res['device_busy_ms_per_cycle']:.3f} ms/cycle "

@@ -162,11 +162,13 @@ def test_declared_dense_rows_match_pallas_lanes_kernel():
     (("diag", 12), ("dense", 6)),
     (("dense", 6), ("diag", 12)),
     (("diag", 8), ("dense", 2), ("diag", 5)),
+    (("dense", 3), ("diag", 8), ("dense", 2), ("diag", 5)),
 ])
 def test_kernel_layout_applies_the_declared_structure(segs):
-    """The operands the CUDA kernel is handed (kernel_rows: the first mg rows
-    read as their diagonal, every other row dense, a later diagonal segment
-    as dense rows holding its diagonal) give the plain chunk's function."""
+    """The operands the CUDA kernel is handed (kernel_rows: the mg rows from
+    row d0 on read as their diagonal, every other row dense, a further
+    diagonal segment as dense rows holding its diagonal) give the plain
+    chunk's function; the first diagonal segment costs no copy of A."""
     data = _structured_qp(5)
     rho_v = JA._rho_vec(data.l, data.u, jnp.asarray(0.1))
     Minv = JA._factor(data.P, data.A, rho_v, 1e-6)
@@ -175,9 +177,12 @@ def test_kernel_layout_applies_the_declared_structure(segs):
                    (Minv, data.A, data.q, data.l, data.u, rho_v, x, data.A @ x, jnp.zeros(18))])
     kw = dict(iters=5, sigma=1e-6, alpha=1.6)
     want = K.admm_chunk_plain(*args, row_structure=segs, **kw)
-    Ak, mg = K.kernel_rows(args[1], segs)
+    Ak, d0, mg = K.kernel_rows(args[1], segs)
+    n_diag = sum(1 for s in segs or () if s[0] == "diag")
+    assert (Ak is args[1]) == (n_diag <= 1)
     args[1] = Ak
-    got = K.admm_chunk_plain(*args, row_structure=(("diag", mg),) if mg else None, **kw)
+    got = K.admm_chunk_plain(*args, row_structure=(("dense", d0), ("diag", mg)) if mg else None,
+                             **kw)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
@@ -185,7 +190,8 @@ def test_kernel_layout_applies_the_declared_structure(segs):
 @pytest.mark.parametrize("segs,err", [
     ((("diag", 13),), ValueError),            # more diagonal rows than columns
     ((("dense", 19),), ValueError),           # more rows than A has
-    ((("blt", 2, 3, 6),), NotImplementedError),
+    ((("blockdiag", 2, 3, 5),), ValueError),  # blocks do not tile the 12 columns
+    ((("band", 3),), ValueError),             # no such segment kind
 ])
 def test_wrapper_rejects_unsupported_structure(segs, err):
     args = _torch(_batch(range(2)))
@@ -193,3 +199,56 @@ def test_wrapper_rejects_unsupported_structure(segs, err):
         K.admm_chunk(*args, iters=1, sigma=1e-6, alpha=1.6, row_structure=segs)
     with pytest.raises(err):
         K.kernel_rows(args[1], segs)
+
+
+def _condensed_like_qp(seed, C=3, h=2, w=4, n_gu=2):
+    """A QP in the condensed row order [state bounds (blt); control bounds
+    (diag); facets (blockdiag_shared)] with A really of that structure."""
+    rng = np.random.default_rng(seed)
+    n = C * w
+    blt = np.zeros((C * h, n))
+    for i in range(C):
+        blt[i * h:(i + 1) * h, :(i + 1) * w] = rng.normal(size=(h, (i + 1) * w))
+    Gu = rng.normal(size=(n_gu, w))
+    A = np.concatenate([blt, np.eye(n), np.kron(np.eye(C), Gu)])
+    G = rng.normal(size=(n, n))
+    m = A.shape[0]
+    data = JA.QPData(*[jnp.asarray(a, jnp.float32) for a in (
+        G @ G.T + 0.1 * np.eye(n), rng.normal(size=n), A, -1.0 - rng.random(m), 1.0 + rng.random(m))])
+    return data, (("blt", C, h, w), ("diag", n), ("blockdiag_shared", C, n_gu, w))
+
+
+@pytest.mark.parametrize("iters", [1, 10])
+def test_plain_with_diag_after_blt_matches_jax_streamed_solve(iters):
+    """One chunk with the condensed QP's row order, a diagonal segment after
+    a "blt" one and shared facet blocks after it, Ruiz scaling on: the plain
+    chunk on the JAX solver's scaled operands against one chunk of the JAX
+    streamed solve, and against the dense reading of the same rows."""
+    from gpmpc_tpu.ops.qp.ruiz import ruiz_equilibrate
+
+    outs, ins = [], []
+    for seed in range(3):
+        data, segs = _condensed_like_qp(seed)
+        cfg = JA.ADMMConfig(max_iter=iters, check_interval=iters, scaling=3, adaptive_rho=False,
+                            polish=False, infeas_certs=False, use_pallas="off",
+                            row_structure=segs)
+        outs.append(JA.solve(data, config=cfg))
+        sd, sc = ruiz_equilibrate(data, 3)
+        rho_v = JA._rho_vec(sd.l, sd.u, jnp.asarray(cfg.rho))
+        Minv = JA._factor(sd.P, sd.A, rho_v, cfg.sigma)
+        z = jnp.zeros(data.m)
+        ins.append((Minv, sd.A, sd.q, sd.l, sd.u, rho_v, jnp.zeros(data.n), z, z, sc.E, sc.D, sc.c))
+    args = _torch([np.stack([np.asarray(l[i]) for l in ins]) for i in range(12)])
+    E, D, c = args[9:]
+    kw = dict(iters=iters, sigma=cfg.sigma, alpha=cfg.alpha)
+    xt, zt, yt = K.admm_chunk_plain(*args[:9], row_structure=segs, E=E, D=D, **kw)
+    for b, js in enumerate(outs):  # the JAX solve returns unscaled iterates
+        np.testing.assert_allclose((D[b] * xt[b]).numpy(), js.x, atol=ATOL_XZ)
+        np.testing.assert_allclose((zt[b] / E[b]).numpy(), js.z, atol=ATOL_XZ)
+        np.testing.assert_allclose((E[b] * yt[b] / c[b]).numpy(), js.y, atol=ATOL_Y)
+    xd, zd, yd = K.admm_chunk_plain(*args[:9], row_structure=None, **kw)
+    torch.testing.assert_close(xt, xd, rtol=0, atol=ATOL_XZ)
+    torch.testing.assert_close(yt, yd, rtol=0, atol=ATOL_Y)
+    # the kernel takes the diagonal segment where it stands, after the 6 blt rows
+    Ak, d0, mg = K.kernel_rows(args[1], segs)
+    assert Ak is args[1] and (d0, mg) == (6, 12)

@@ -36,7 +36,8 @@ def cuda_device():
 
 def _chunk_args(B, n, m, segs, dev, seed=0):
     """Operands of a scaled random QP whose A follows ``segs``: a declared
-    "diag" segment is a random diagonal, a "dense" segment random rows. M⁻¹
+    "diag" segment is a random diagonal, a "dense" segment random rows, "blt"
+    and "blockdiag" segments random within their blocks and zero outside. M⁻¹
     is factored from that A; then the diag segments get small off-diagonal
     entries, which the chunk must ignore (applied, they would break the
     match between M⁻¹ and the operator and the iteration would diverge)."""
@@ -46,12 +47,22 @@ def _chunk_args(B, n, m, segs, dev, seed=0):
     A = rng.normal(size=(B, m, n))
     off = np.zeros((B, m, n))
     r0 = 0
-    for kind, nr in segs or ():
+    for seg in segs or ():
+        kind, nr = seg[0], K._seg_rows(seg)
         if kind == "diag":
             off[:, r0:r0 + nr] = 0.01 * A[:, r0:r0 + nr]
             off[:, np.arange(nr) + r0, np.arange(nr)] = 0.0
             A[:, r0:r0 + nr] = 0.0
             A[:, np.arange(nr) + r0, np.arange(nr)] = 1.0 + 0.5 * rng.random(size=(B, nr))
+        elif kind == "blt":  # block row i keeps its first (i+1)·w columns
+            _, C, h, w = seg
+            for i in range(C):
+                A[:, r0 + i * h:r0 + (i + 1) * h, (i + 1) * w:] = 0.0
+        elif kind == "blockdiag":  # block row i keeps columns i·w .. (i+1)·w
+            _, nb, h, w = seg
+            for i in range(nb):
+                A[:, r0 + i * h:r0 + (i + 1) * h, :i * w] = 0.0
+                A[:, r0 + i * h:r0 + (i + 1) * h, (i + 1) * w:] = 0.0
         r0 += nr
     lo = -np.abs(rng.normal(size=(B, m))) - 0.5
     hi = np.abs(rng.normal(size=(B, m))) + 0.5
@@ -90,18 +101,27 @@ def _golden_args(dev):
     (8, 57, 57, (("diag", 57),), 50, "register"),               # ragged n
     (8, 57, 70, (("diag", 57),), 50, "register"),               # ragged n, trailing dense rows
     (8, 40, 60, (("dense", 10), ("diag", 30)), 25, "register"),  # diagonal segment not first
+    (8, 40, 70, (("dense", 10), ("diag", 30), ("dense", 30)), 25, "register"),  # ... in the middle
+    (6, 90, 200, (("dense", 70), ("diag", 60), ("dense", 70)), 25, "shared"),
+    (3, 100, 800, (("dense", 350), ("diag", 100), ("dense", 350)), 10, "global"),
+    (64, 60, 200, (("blt", 5, 28, 12), ("diag", 60)), 25, "shared"),  # state bounds kept
+    (8, 24, 64, (("blt", 4, 8, 6), ("diag", 24), ("blockdiag", 4, 2, 6)), 25, "register"),
     (4, 100, 150, (("diag", 100), ("dense", 50)), 25, "shared"),
     (4, 100, 120, None, 25, "shared"),
     (3, 100, 700, None, 10, "global"),                          # too big for shared memory
     (8, 207, 354, "golden", 50, "global"),                      # the sparse-form golden QP
+    (4, 207, 354, "golden", 25, "global"),                      # a pretraining episode's chunk
 ], ids=["random", "main", "dense60", "mixed", "ragged", "ragged-mixed", "diag-later",
-        "shared-mixed", "shared-dense", "global", "golden"])
+        "diag-middle", "diag-middle-shared", "diag-middle-global", "blt-diag",
+        "blt-diag-blockdiag", "shared-mixed", "shared-dense", "global", "golden", "golden-b4"])
 def test_kernel_matches_plain_version(cuda_device, B, n, m, segs, iters, want):
     if segs == "golden":
-        args, segs = _golden_args(cuda_device), None
+        args, segs = [a[:B] for a in _golden_args(cuda_device)], None
     else:
         args = _chunk_args(B, n, m, segs, cuda_device)
-    mg = segs[0][1] if segs and segs[0][0] == "diag" else 0
+    Ak, d0, mg = K.kernel_rows(args[1], segs)
+    assert Ak is args[1]  # one diagonal segment, wherever it stands: no copy of A
+    assert mg == next((s[1] for s in segs or () if s[0] == "diag"), 0)
     assert K.variant(n, m, mg) == want
     kw = dict(iters=iters, sigma=1e-6, alpha=1.6, row_structure=segs)
     before = K.LAUNCHES
@@ -125,6 +145,21 @@ def test_kernel_picks_the_global_variant_when_smem_is_short(cuda_device):
     assert K.variant(207, 354) == "global"
     with pytest.raises(ValueError, match="no variant"):
         K.variant(60, 60, 61)  # more diagonal rows than columns
+
+
+def test_second_diagonal_segment_is_applied_through_a_copy(cuda_device):
+    """Only the first "diag" segment goes through the kernel's diagonal; a
+    further one is handed over as dense rows holding its diagonal, so its
+    off-diagonal entries are still ignored."""
+    segs = (("diag", 20), ("dense", 5), ("diag", 15))
+    args = _chunk_args(8, 20, 40, segs, cuda_device)
+    Ak, d0, mg = K.kernel_rows(args[1], segs)
+    assert Ak is not args[1] and (d0, mg) == (0, 20)
+    kw = dict(iters=25, sigma=1e-6, alpha=1.6, row_structure=segs)
+    kern = K.admm_chunk(*args, **kw)
+    ref = K.admm_chunk_plain(*[a.double() for a in args], **kw)
+    for k, r, atol in zip(kern, ref, (3e-4, 3e-4, 2e-3)):
+        torch.testing.assert_close(k.double(), r, rtol=0, atol=10 * atol)
 
 
 def test_wrapper_leaves_inputs_untouched(cuda_device):

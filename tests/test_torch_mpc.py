@@ -213,3 +213,71 @@ def test_cycle_variants_match_jax(shared_gp, kw):
     np.testing.assert_allclose(st.u0.numpy(), sj.u0, atol=2e-4)
     np.testing.assert_allclose(st.X_opt.numpy(), sj.X_opt, atol=2e-4)
     np.testing.assert_array_equal(st.converged.numpy(), np.asarray(sj.converged))
+
+
+def _cone_rows_jax(X_lin):
+    """A smooth per-stage state row linearized around the trajectory, as an
+    SCP path constraint is: altitude above a paraboloid in the lateral
+    offsets, 0.05·(y² + z²) − h ≤ 1."""
+    Xs = X_lin[1:]
+    G = jnp.zeros((N, 1, 7)).at[:, 0, 1].set(-1.0).at[:, 0, 2].set(0.1 * Xs[:, 2]).at[
+        :, 0, 3].set(0.1 * Xs[:, 3])
+    val = 0.05 * (Xs[:, 2] ** 2 + Xs[:, 3] ** 2) - Xs[:, 1]
+    ub = 1.0 - val + jnp.einsum("ki,ki->k", G[:, 0], Xs)
+    return G, jnp.full((N, 1), -1e20), ub[:, None]
+
+
+def _cone_rows_torch(X_lin):
+    Xs = X_lin[:, 1:]
+    G = torch.zeros(X_lin.shape[0], N, 1, 7)
+    G[:, :, 0, 1] = -1.0
+    G[:, :, 0, 2] = 0.1 * Xs[:, :, 2]
+    G[:, :, 0, 3] = 0.1 * Xs[:, :, 3]
+    val = 0.05 * (Xs[:, :, 2] ** 2 + Xs[:, :, 3] ** 2) - Xs[:, :, 1]
+    ub = 1.0 - val + torch.einsum("bki,bki->bk", G[:, :, 0], Xs)
+    return G, torch.full((X_lin.shape[0], N, 1), -1e20), ub[..., None]
+
+
+@pytest.mark.parametrize("rows", ["facets", "stage_rows_fn"])
+def test_cycle_with_facet_rows_matches_jax(shared_gp, rows):
+    """The condensed GP-MPC cycle with constant Gx/Gu facet rows, and with
+    per-cycle linearized state rows (stage_rows_fn, evaluated per lane in
+    JAX and on the whole batch in the port) plus Gu rows: one cycle. The
+    declared row structure then has a "blt" and a "blockdiag_shared" segment
+    after the diagonal. Tolerance 1e-3: with facet rows active the 50
+    iterations stop well short of convergence (u0 still sits 1.4e-3 outside
+    its thrust bound in both packages), where the iterate is five times more
+    sensitive to f32 differences than in the closed-loop test."""
+    Gu = jnp.asarray([[-1.0, 1.0, 0.0], [-1.0, 0.0, 1.0]])
+    base_kw = dict(Gu=Gu, gu_l=jnp.full(2, -1e20), gu_u=jnp.zeros(2))
+    if rows == "facets":
+        base_kw.update(Gx=jnp.asarray([[0.0, -1, 1, 0, 0, 0, 0]]), gx_l=jnp.full(1, -1e20),
+                       gx_u=jnp.full(1, 1.0))
+    else:
+        base_kw.update(stage_rows_fn=_cone_rows_jax, n_stage_rows=1)
+    jcfg = jax_bench_config()
+    jcfg = jcfg.replace(base=jcfg.base.replace(**base_kw))
+    cfg = port_config(jcfg)
+    if rows == "stage_rows_fn":
+        cfg = cfg.replace(base=cfg.base.replace(stage_rows_fn=_cone_rows_torch))
+    assert _condensed_admm_cfg(cfg.base).row_structure == (
+        ("diag", 60), ("blt", 5, 4, 12), ("blockdiag_shared", 20, 2, 3))
+    gp, tgp = shared_gp
+    jF = lambda x, u: jr.step(JaxParams(), x, u, DT)
+    tp = Rocket3DoFParams(device="cpu")
+    tF = lambda x, u: tr.step(tp, x, u, DT)
+    jmean = lambda x, u: gp.lift_residual(gp.predict_gated(x, u)[0], 7)
+    jvar = lambda x, u: gp.predict(x, u)[1]
+    tmean = lambda x, u: Simple3DoFGP.lift_residual(tgp.predict_gated(x, u)[0], 7)
+    tvar = lambda x, u: tgp.predict(x, u)[1]
+    x0s, xT = _fleet(3)
+    x0s[:, 2] = [0.5, -1.0, 2.0]
+    js = jax.vmap(lambda x: jax_init(jcfg, x, jnp.asarray(xT)))(jnp.asarray(x0s))
+    ts = gp_mpc_init(cfg, x0s, xT, device="cpu")
+    assert ts.y_prev.shape == js.y_prev.shape == (3, 60 + 20 + 40)
+    sj, _ = jax.jit(jax.vmap(lambda s, x: jax_solve(jF, jmean, jvar, jcfg, s, x)))(
+        js, jnp.asarray(x0s))
+    st, _ = gp_mpc_solve(tF, tmean, tvar, cfg, ts, torch.tensor(x0s))
+    np.testing.assert_allclose(st.u0.numpy(), sj.u0, atol=1e-3)
+    np.testing.assert_allclose(st.X_opt.numpy(), sj.X_opt, atol=1e-3)
+    np.testing.assert_array_equal(st.success.numpy(), np.asarray(sj.success))

@@ -1,11 +1,13 @@
 """The port's QP layer (gpmpc_tpu_torch/ops/qp) against the JAX package on
-the CPU: Ruiz scaling, the condensed builder, and the batched ADMM solve on
-random QPs and the golden sparse-form fixtures."""
+the CPU: Ruiz scaling, the condensed and sparse-form QP assembly, and the
+batched ADMM solve (every row segment kind, infeasibility certificates,
+polish) on random QPs and the golden sparse-form fixtures."""
 
 import dataclasses
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,9 +16,10 @@ import torch
 from gpmpc_tpu.ops.qp import admm as JA
 from gpmpc_tpu.ops.qp import condensed as JC
 from gpmpc_tpu.ops.qp import ruiz as JR
+from gpmpc_tpu.ops.qp import mpc_qp as JM
 from gpmpc_tpu.ops.qp.mpc_qp import split_z as jax_split_z
 from gpmpc_tpu_torch import convert
-from gpmpc_tpu_torch.ops.qp import QPData, admm as TA, condensed as TC, ruiz as TR
+from gpmpc_tpu_torch.ops.qp import QPData, admm as TA, condensed as TC, mpc_qp as TM, ruiz as TR
 from gpmpc_tpu_torch.ops.qp import join_z, split_z
 
 sys.path.insert(0, "tests")
@@ -126,27 +129,24 @@ def test_fixed_scaling_matches_jax():
 
 @pytest.mark.parametrize("mode", ["off", "auto"])
 def test_golden_fixtures_match_certified_optimum(mode):
-    """The four sparse-form golden QPs (n=207, m=354) solved in one batch.
-    Polish is not in this slice, and without it ADMM closes the gap to the
-    certified optimum x_star slowly on this badly scaled QP (at 400
-    iterations both packages still sit 0.026 off in u0, on the same row), so
-    the budget is 1000 iterations. Both packages then land within 2e-3 of
-    x_star's u0, and within 2e-3 of each other (f32 reordering over 1000
-    iterations)."""
+    """The four sparse-form golden QPs (n=207, m=354) solved in one batch at
+    the JAX test's settings (tests/test_qp.py: 400 iterations, polish on).
+    The polish lands both packages within 1e-3 of the certified optimum
+    x_star's u0, the JAX test's bound, and so within 2e-3 of each other."""
     fx = np.load(FIXTURE)
     data = QPData(*[torch.tensor(np.stack([fx[f"{s}/{p}"] for s in SCENARIOS]),
                                  dtype=torch.float32) for p in ("P", "q", "A", "l", "u")])
-    cfg = TA.ADMMConfig(max_iter=1000, infeas_certs=False, use_pallas=mode)
+    cfg = TA.ADMMConfig(max_iter=400, polish=True, use_pallas=mode)
     sol = TA.solve(data, config=cfg)
     _, U = split_z(sol.x, 20, 7, 3)
     for b, s in enumerate(SCENARIOS):
         jd = JA.QPData(*[jnp.asarray(fx[f"{s}/{p}"], jnp.float32) for p in ("P", "q", "A", "l", "u")])
-        jsol = JA.solve(jd, config=JA.ADMMConfig(max_iter=1000, infeas_certs=False, use_pallas="off"))
+        jsol = JA.solve(jd, config=JA.ADMMConfig(max_iter=400, polish=True, use_pallas="off"))
         _, U_j = jax_split_z(jsol.x, 20, 7, 3)
         _, U_star = jax_split_z(jnp.asarray(fx[f"{s}/x_star"], jnp.float32), 20, 7, 3)
-        assert float(sol.pri_res[b]) < 2e-3
-        np.testing.assert_allclose(U[b, 0].numpy(), U_star[0], atol=2e-3)
-        np.testing.assert_allclose(np.asarray(U_j[0]), U_star[0], atol=2e-3)
+        assert int(sol.status[b]) == TA.SOLVED or float(sol.pri_res[b]) < 1e-2
+        np.testing.assert_allclose(U[b, 0].numpy(), U_star[0], atol=1e-3)
+        np.testing.assert_allclose(np.asarray(U_j[0]), U_star[0], atol=1e-3)
         np.testing.assert_allclose(U[b, 0].numpy(), U_j[0], atol=2e-3)
 
 
@@ -159,9 +159,8 @@ def test_chunk_guard_is_two_sided():
 
 
 @pytest.mark.parametrize("kw", [
-    {"polish": True}, {"infeas_certs": True}, {"matvec_dtype": "bf16"},
-    {"row_structure": (("blt", 2, 3, 6),)},
-    {"row_structure": (("blockdiag", 2, 1, 6),)},
+    {"matvec_dtype": "bf16"}, {"tail_f32_iters": 25},
+    {"matvec_dtype": "bf16", "tail_f32_iters": 25},
 ])
 def test_features_outside_the_slice_raise(kw):
     data = _stack([random_qp(np.random.default_rng(0))])
@@ -227,12 +226,104 @@ def test_condensed_qp_matches_jax():
                                        rtol=1e-5, atol=1e-5)
 
 
-def test_condensed_facets_raise():
-    z = torch.zeros
-    with pytest.raises(NotImplementedError):
-        TC.build_condensed_qp(z(1, 2, 7, 7), z(1, 2, 7, 3), z(1, 2, 7), z(1, 7),
-                              torch.eye(7), torch.eye(3), torch.eye(7), z(1, 3, 7),
-                              z(7), z(7), z(3), z(3), Gu=torch.eye(3))
+def _ltv(rng, B, N, n_x=7, n_u=3):
+    Aks = (np.eye(n_x) + 0.05 * rng.normal(size=(B, N, n_x, n_x))).astype(np.float32)
+    Bks = (0.1 * rng.normal(size=(B, N, n_x, n_u))).astype(np.float32)
+    cks = (0.1 * rng.normal(size=(B, N, n_x))).astype(np.float32)
+    x0 = rng.normal(size=(B, n_x)).astype(np.float32)
+    xr = rng.normal(size=(B, N + 1, n_x)).astype(np.float32)
+    return Aks, Bks, cks, x0, xr
+
+
+_Q = np.diag([0.0, 10, 10, 10, 1, 1, 1]).astype(np.float32)
+_R = (np.eye(3) * 0.01).astype(np.float32)
+_XMIN = np.array([-1e20, -100, -100, -100, -50, -50, -50], np.float32)
+
+
+def _assert_qp_equal(td, b, jd):
+    for k in ("P", "q", "A", "l", "u"):
+        ref = np.asarray(getattr(jd, k))
+        # f32 matmul chains of a few stages; relative to the entry scale
+        np.testing.assert_allclose(
+            getattr(td, k)[b].numpy(), ref, rtol=1e-5,
+            atol=1e-5 * max(1.0, np.abs(ref[np.abs(ref) < 1e19]).max()), err_msg=k)
+
+
+@pytest.mark.parametrize("gx", ["constant", "per_stage", "per_lane", None])
+def test_condensed_facets_match_jax(gx):
+    """Gx facet rows (one block, per stage, and per lane and stage as a
+    batched stage_rows_fn gives them) and Gu facet rows, matrix for matrix."""
+    rng = np.random.default_rng(1)
+    B, N = 3, 5
+    Aks, Bks, cks, x0, xr = _ltv(rng, B, N)
+    shape = {"constant": (2, 7), "per_stage": (N, 2, 7), "per_lane": (B, N, 2, 7), None: None}[gx]
+    Gx = None if gx is None else rng.normal(size=shape).astype(np.float32)
+    gx_l = np.array([-1.0, -1e20], np.float32)
+    gx_u = np.array([2.0, 0.5], np.float32)
+    Gu = rng.normal(size=(4, 3)).astype(np.float32)
+    gu_l, gu_u = -np.ones(4, np.float32), np.full(4, 1e20, np.float32)
+    T = lambda a: None if a is None else torch.tensor(a)
+    mask = (False, True, False, True, False, False, False)
+    td, _, _ = TC.build_condensed_qp(
+        T(Aks), T(Bks), T(cks), T(x0), T(_Q), T(_R), T(_Q * 10), T(xr), T(_XMIN), T(-_XMIN),
+        T(np.array([0.3, -5, -5], np.float32)), T(np.full(3, 5, np.float32)),
+        T(Gx), T(gx_l) if gx else None, T(gx_u) if gx else None, T(Gu), T(gu_l), T(gu_u),
+        x_bound_mask=mask)
+    n_gx = 2 if gx else 0
+    assert td.m == TC.n_condensed_constraints(N, 7, 3, n_gx, 4, mask) == JC.n_condensed_constraints(
+        N, 7, 3, n_gx, 4, mask)
+    for b in range(B):
+        Gx_b = Gx[b] if gx == "per_lane" else Gx
+        jd, _, _ = JC.build_condensed_qp(
+            Aks[b], Bks[b], cks[b], x0[b], _Q, _R, _Q * 10, xr[b], _XMIN, -_XMIN,
+            jnp.array([0.3, -5, -5]), jnp.full(3, 5.0),
+            None if gx is None else jnp.asarray(Gx_b), gx_l if gx else None,
+            gx_u if gx else None, jnp.asarray(Gu), gu_l, gu_u, x_bound_mask=mask)
+        _assert_qp_equal(td, b, jd)
+
+
+@pytest.mark.parametrize("facets", [False, True])
+def test_sparse_form_qp_matches_jax(facets):
+    """build_mpc_qp (with per-stage and per-lane bounds, as an SCP loop hands
+    them over), build_stage_rows and extend_qp, matrix for matrix."""
+    rng = np.random.default_rng(2)
+    B, N = 3, 5
+    Aks, Bks, cks, x0, xr = _ltv(rng, B, N)
+    Xlo = (_XMIN + rng.random(size=(B, N + 1, 7))).astype(np.float32)
+    Ulo = (0.3 + 0.1 * rng.random(size=(B, N, 3))).astype(np.float32)
+    T = torch.tensor
+    td = TM.build_mpc_qp(T(Aks), T(Bks), T(cks), T(x0), T(_Q), T(_R), T(_Q * 10), T(xr),
+                         T(Xlo), T(-_XMIN), T(Ulo), T(Ulo + 4.0))
+    assert td.n == TM.n_vars(N, 7, 3) == JM.n_vars(N, 7, 3)
+    assert td.m == TM.n_constraints(N, 7, 3) == JM.n_constraints(N, 7, 3)
+    Gx = rng.normal(size=(2, 7)).astype(np.float32)
+    Gu = rng.normal(size=(4, 3)).astype(np.float32)
+    rows = (Gx, np.array([-1.0, -1e20], np.float32), np.array([2.0, 0.5], np.float32),
+            Gu, -np.ones(4, np.float32), np.full(4, 1e20, np.float32))
+    if facets:
+        ext = TM.build_stage_rows(N, 7, 3, *[T(a) for a in rows])
+        jext = JM.build_stage_rows(N, 7, 3, *[jnp.asarray(a) for a in rows])
+        for a, b in zip(ext, jext):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        td = TM.extend_qp(td, *ext)
+    for b in range(B):
+        jd = JM.build_mpc_qp(Aks[b], Bks[b], cks[b], x0[b], _Q, _R, _Q * 10, xr[b],
+                             Xlo[b], -_XMIN, Ulo[b], Ulo[b] + 4.0)
+        if facets:
+            jd = JM.extend_qp(jd, *jext)
+        _assert_qp_equal(td, b, jd)
+
+
+def test_build_cost_with_control_reference_matches_jax():
+    rng = np.random.default_rng(3)
+    xr = rng.normal(size=(2, 5, 7)).astype(np.float32)
+    ur = rng.normal(size=(2, 4, 3)).astype(np.float32)
+    P, q = TM.build_cost(4, torch.tensor(_Q), torch.tensor(_R), torch.tensor(_Q * 10),
+                         torch.tensor(xr), torch.tensor(ur))
+    for b in range(2):
+        jP, jq = JM.build_cost(4, _Q, _R, _Q * 10, xr[b], ur[b])
+        np.testing.assert_array_equal(P.numpy(), np.asarray(jP))
+        np.testing.assert_allclose(q[b].numpy(), jq, rtol=1e-6, atol=1e-6)
 
 
 def test_join_split_roundtrip():
@@ -300,3 +391,168 @@ def test_solve_hands_the_declared_structure_to_the_chunk(monkeypatch):
     assert len(calls) == cfg.max_iter // cfg.check_interval
     assert all(kw["row_structure"] == (("diag", 60),) for kw in calls)
     assert bool(torch.isfinite(sol.x).all())
+
+
+# -- every row-segment kind ---------------------------------------------------
+
+_SEGS = {
+    "blt": (("blt", 3, 2, 4),),
+    "blockdiag": (("blockdiag", 3, 2, 4),),
+    "blockdiag_shared": (("blockdiag_shared", 3, 2, 4),),
+    "diag_after_blt": (("blt", 3, 2, 4), ("diag", 12)),
+    "condensed_order": (("blt", 3, 2, 4), ("diag", 12), ("blt", 3, 1, 4),
+                        ("blockdiag_shared", 3, 2, 4)),
+}
+
+
+def _segment_rows(rng, seg, n):
+    kind = seg[0]
+    if kind == "diag":
+        return np.diag(1.0 + 0.5 * rng.random(seg[1]))[:, :n]
+    _, nb, h, w = seg
+    A = np.zeros((nb * h, n))
+    shared = rng.normal(size=(h, w))
+    for i in range(nb):
+        if kind == "blt":
+            A[i * h:(i + 1) * h, :(i + 1) * w] = rng.normal(size=(h, (i + 1) * w))
+        else:
+            A[i * h:(i + 1) * h, i * w:(i + 1) * w] = (
+                shared if kind == "blockdiag_shared" else rng.normal(size=(h, w)))
+    return A
+
+
+def _structured(seed, segs, n=12, extra=3):
+    """A QP whose A really has the declared structure, plus ``extra``
+    undeclared dense rows."""
+    rng = np.random.default_rng(seed)
+    A = np.concatenate([_segment_rows(rng, s, n) for s in segs] + [rng.normal(size=(extra, n))])
+    m = A.shape[0]
+    G = rng.normal(size=(n, n))
+    x_feas = rng.normal(size=n)
+    lo = A @ x_feas - rng.random(m) - 0.1
+    hi = A @ x_feas + rng.random(m) + 0.1
+    hi[-1] = lo[-1]  # one equality row
+    return JA.QPData(*[jnp.asarray(a, jnp.float32) for a in
+                       (G @ G.T + 0.1 * np.eye(n), rng.normal(size=n), A, lo, hi)])
+
+
+@pytest.mark.parametrize("mode,jax_mode", [("off", "off"), ("auto", "lanes_interpret")])
+@pytest.mark.parametrize("name", list(_SEGS))
+def test_row_segments_match_jax(name, mode, jax_mode):
+    """Every row-segment kind, alone and in the condensed QP's row order,
+    Ruiz scaling on: the port's streamed loop against the JAX streamed solve
+    with the same declaration, and the port's chunk (its plain version here)
+    against the JAX lanes kernel in interpret mode, which reads A densely.
+    Tolerance: the full-solve bound of test_solve_matches_jax_off; the
+    termination test is put out of reach so that no lane freezes a chunk
+    earlier in one package than in the other."""
+    segs = _SEGS[name]
+    datas = [_structured(s, segs) for s in range(3)]
+    jcfg = JA.ADMMConfig(max_iter=100, use_pallas=jax_mode, infeas_certs=False,
+                         adaptive_rho=False, row_structure=segs, eps_abs=1e-9, eps_rel=1e-9)
+    tcfg = convert.admm_config_from_fields(_fields(jcfg)).replace(use_pallas=mode)
+    ts = TA.solve(_stack(datas), config=tcfg)
+    batch = jax.tree.map(lambda *xs: jnp.stack(xs), *datas)
+    js = jax.vmap(lambda d: JA.solve(d, config=jcfg))(batch)
+    np.testing.assert_allclose(ts.x.numpy(), js.x, atol=5e-4)
+    np.testing.assert_allclose(ts.z.numpy(), js.z, atol=5e-4)
+    # and the structure is the dense operator: same answer with none declared
+    dense = TA.solve(_stack(datas), config=tcfg.replace(row_structure=None))
+    torch.testing.assert_close(ts.x, dense.x, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("name", list(_SEGS))
+def test_compacted_ops_apply_the_dense_operator(name):
+    """A_apply / AT_apply of the compacted operands against the dense
+    products, with Ruiz scalings E, D (which "blockdiag_shared" needs)."""
+    segs = _SEGS[name]
+    data = _stack([_structured(s, segs) for s in range(2)])
+    sd, sc = TR.ruiz_equilibrate(data, 5)
+    ops = TA.compact_structure(sd.A, segs, E=sc.E, D=sc.D)
+    A_apply, AT_apply = TA.make_A_ops(ops, data.n)
+    rng = np.random.default_rng(0)
+    v = torch.tensor(rng.normal(size=(2, data.n)), dtype=torch.float32)
+    t = torch.tensor(rng.normal(size=(2, data.m)), dtype=torch.float32)
+    torch.testing.assert_close(A_apply(v), TA._mv(sd.A, v), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(AT_apply(t), TA._mv(sd.A.transpose(1, 2), t), rtol=1e-5, atol=1e-5)
+
+
+# -- infeasibility certificates -----------------------------------------------
+
+def _cert_qps():
+    inf = 1e20
+    f = lambda *a: JA.QPData(*[jnp.asarray(x, jnp.float32) for x in a])
+    return {
+        # x ≥ 1 and x ≤ −1 at once
+        "primal_infeasible": f(np.eye(2), np.zeros(2), [[1.0, 0.0], [1.0, 0.0], [0.0, 1.0]],
+                               [1.0, -inf, -1.0], [inf, -1.0, 1.0]),
+        # no curvature along x₁, cost falling, only a lower bound on it
+        "dual_infeasible": f(np.diag([1.0, 0.0]), [0.0, -1.0], np.eye(2)[[0, 1, 1]],
+                             [-1.0, 0.0, 0.0], [1.0, inf, inf]),
+        "feasible": f(np.eye(2), [1.0, -1.0], np.eye(2)[[0, 1, 1]],
+                      [-1.0, 0.0, 0.0], [1.0, 2.0, 2.0]),
+    }
+
+
+@pytest.mark.parametrize("mode", ["off", "auto"])
+def test_infeasibility_certificates_match_jax(mode):
+    """An infeasible, an unbounded and a solvable QP in one batch: the status
+    codes equal the JAX solver's lane by lane (and are the certificates'),
+    and frozen lanes keep the iteration count and residuals they stopped at."""
+    qps = _cert_qps()
+    jcfg = JA.ADMMConfig(max_iter=500, use_pallas="off", infeas_certs=True)
+    tcfg = convert.admm_config_from_fields(_fields(jcfg)).replace(use_pallas=mode)
+    ts = TA.solve(_stack(list(qps.values())), config=tcfg)
+    js = [JA.solve(d, config=jcfg) for d in qps.values()]
+    np.testing.assert_array_equal(ts.status.numpy(), [int(s.status) for s in js])
+    np.testing.assert_array_equal(ts.iterations.numpy(), [int(s.iterations) for s in js])
+    assert ts.status.tolist() == [TA.PRIMAL_INFEASIBLE, TA.DUAL_INFEASIBLE, TA.SOLVED]
+    assert int(ts.iterations.max()) < 500  # every lane froze before the budget
+    np.testing.assert_allclose(ts.x[2].numpy(), js[2].x, atol=5e-4)
+    # without the certificates the same lanes run out of iterations
+    off = TA.solve(_stack(list(qps.values())), config=tcfg.replace(infeas_certs=False))
+    assert off.status.tolist() == [TA.MAX_ITER, TA.MAX_ITER, TA.SOLVED]
+
+
+# -- polish ---------------------------------------------------------------------
+
+def test_polish_matches_jax():
+    """_polish on the same unscaled ADMM exit point, lane by lane. Tolerance:
+    both solve the same f32 KKT system by Cholesky plus six refinement steps."""
+    datas = [random_qp(np.random.default_rng(s)) for s in range(4)]
+    jcfg = JA.ADMMConfig(max_iter=50, use_pallas="off", infeas_certs=False)
+    js = [JA.solve(d, config=jcfg) for d in datas]
+    T = lambda k: torch.tensor(np.stack([np.asarray(getattr(s, k)) for s in js]))
+    xp, yp, zp = TA._polish(_stack(datas), T("x"), T("y"), T("z"), TA.ADMMConfig())
+    for b, (d, s) in enumerate(zip(datas, js)):
+        jx, jy, jz = JA._polish(d, s.x, s.y, s.z, JA.ADMMConfig())
+        np.testing.assert_allclose(xp[b].numpy(), jx, atol=1e-4)
+        np.testing.assert_allclose(zp[b].numpy(), jz, atol=1e-4)
+        np.testing.assert_allclose(yp[b].numpy(), jy, atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["off", "auto"])
+def test_polished_solve_matches_jax_and_upgrades_status(mode):
+    """A budget too short to converge: polish lands on the optimum anyway
+    and turns MAX_ITER into SOLVED, in both packages."""
+    datas = [random_qp(np.random.default_rng(s)) for s in range(4)]
+    jcfg = JA.ADMMConfig(max_iter=50, use_pallas="off", polish=True)
+    tcfg = convert.admm_config_from_fields(_fields(jcfg)).replace(use_pallas=mode)
+    ts = TA.solve(_stack(datas), config=tcfg)
+    raw = TA.solve(_stack(datas), config=tcfg.replace(polish=False))
+    js = [JA.solve(d, config=jcfg) for d in datas]
+    np.testing.assert_allclose(ts.x.numpy(), np.stack([s.x for s in js]), atol=2e-4)
+    np.testing.assert_array_equal(ts.status.numpy(), [int(s.status) for s in js])
+    assert bool((ts.status == TA.SOLVED).all()) and bool((raw.status == TA.MAX_ITER).any())
+    assert float(ts.dua_res.max()) < float(raw.dua_res.max())
+
+
+def test_polish_keeps_the_admm_point_on_a_lane_it_cannot_improve():
+    """A lane whose polished KKT system is singular (NaN) keeps its ADMM
+    iterate; the other lane is still polished."""
+    datas = [random_qp(np.random.default_rng(s)) for s in range(2)]
+    data = _stack(datas)
+    data.P[1] = float("nan")
+    x = torch.zeros(2, 12)
+    xp, yp, zp = TA._polish(data, x, torch.zeros(2, 18), torch.zeros(2, 18), TA.ADMMConfig())
+    assert bool(torch.isfinite(xp).all()) and bool((xp[1] == 0).all()) and bool((xp[0] != 0).any())
