@@ -8,12 +8,13 @@ entry points a user calls, and checks the hand-written kernel on the way:
 2. build every kernel of the paths from ``gpmpc_tpu_torch/csrc`` (nvcc);
 3. each kernel against its plain PyTorch version on the card at every shape
    the paths give it — the main path's (60 rows declared diagonal, 50
-   iterations), a dense QP of that size, the sparse-form golden shape, the
-   RTI path's (25 iterations), a condensed QP that keeps its state-bound
-   rows (140 dense rows before the 60 diagonal ones) and the golden shape at
-   4 and 512 lanes — with the variant each launches, its registers and
-   spills, and its time beside its bound, the plain version and a cuBLAS
-   chain;
+   iterations), a dense QP of that size, the sparse-form golden shape at 8
+   and 5 lanes, the RTI path's (25 iterations), a condensed QP that keeps
+   its state-bound rows (140 dense rows before the 60 diagonal ones) at 25
+   and at the calibration path's 50 iterations, the 6-DoF QP with cone
+   facets (380 rows) and the golden shape at 4 and 512 lanes — with the
+   variant each launches, its CTAs a lane, its registers and spills, and its
+   time beside its bound, the plain version and a cuBLAS chain;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
    steps with the launch counters reset just before and read just after,
    and hold one cycle on the card against the same cycle on the CPU;
@@ -23,8 +24,12 @@ entry points a user calls, and checks the hand-written kernel on the way:
    counted the same way, held against the CPU, then a closed-loop landing
    of the fleet along per-lane descent references;
 7. the production GP fit: ``pretrain_gp_3dof`` on the card (sparse-form RTI
-   episodes through the kernel's global variant, FITC fit, Adam tuning),
-   then the GP-MPC landing of the fleet with that GP.
+   episodes through the kernel's cluster variant, FITC fit, Adam tuning),
+   then the GP-MPC landing of the fleet with that GP;
+8. the calibration path: the bound-riding GP-MPC cycle with the state bounds
+   kept in the QP (the shared variant, one launch a cycle), timed, counted
+   and held against the CPU, then the 90-step flight under a gust of known
+   σ, judged by the calibration campaign's own gate.
 
 Everything worth reporting is printed before the last two lines: a JSON
 object with one entry per kernel, the card's name and power limit, and last
@@ -98,9 +103,9 @@ def phase_kernels():
     kernel's device time from a CUDA-graph replay, ``eager_ms`` the time of
     eager back-to-back calls (it reads the wrapper's host time wherever that
     exceeds the kernel's), ``wrapper_us`` the host time of one wrapper call."""
-    from gpmpc_tpu_torch.chunk_bench import (BOUNDED_SEGS, bmm_chain_graph, bound_ms,
-                                             chunk_inputs, cuda_ms, graph_ms, host_us,
-                                             kernel_entry, ptxas_report)
+    from gpmpc_tpu_torch.chunk_bench import (BOUNDED_SEGS, FACETS_SEGS, bmm_chain_graph,
+                                             bound_ms, chunk_inputs, cuda_ms, graph_ms,
+                                             host_us, kernel_entry, ptxas_report)
     from gpmpc_tpu_torch.ops.kernels import _build
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
@@ -112,11 +117,17 @@ def phase_kernels():
     # The condensed paths declare their 60 identity control rows as "diag"
     # (mpc/rti.py::_condensed_admm_cfg): alone on the main and RTI paths,
     # after the block-lower-triangular state-bound rows where those are kept.
-    # The sparse-form golden shape is what the pretraining episodes solve.
+    # The sparse-form golden shape is what the pretraining episodes solve
+    # (5 lanes: a count that is a multiple of nothing); bounded50 is the
+    # calibration path's chunk, facets the 6-DoF QP with cone facets at its
+    # bench's chunk of 30.
     shapes = (("main", "main", 0, diag, ITERS, True), ("dense", "dense", 0, None, ITERS, True),
               ("golden", "golden", 8, None, ITERS, False),
+              ("golden_b5", "golden", 5, None, RTI_CHUNK, False),
               ("rti", "main", 0, diag, RTI_CHUNK, True),
               ("bounded", "bounded", 0, BOUNDED_SEGS, RTI_CHUNK, True),
+              ("bounded50", "bounded", 0, BOUNDED_SEGS, ITERS, True),
+              ("facets", "facets", 0, FACETS_SEGS, 30, True),
               ("golden_b4", "golden", 4, None, RTI_CHUNK, True),
               ("golden_b512", "golden", BATCH, None, RTI_CHUNK, True))
     for kind, inputs, lanes, segs, iters, timed in shapes:
@@ -133,11 +144,11 @@ def phase_kernels():
         Ak, d0, mg = K.kernel_rows(args[1], segs)
         if Ak is not args[1]:
             raise RuntimeError(f"the wrapper copied A for the {kind} shape")
-        variant = K.variant(n, m, mg)
+        variant, ctas = K.variant(n, m, mg, B), K.cluster_size(n, m, mg, B)
         regs, spill_st, spill_ld = ptxas_report(_build.build_log("admm_chunk"),
                                                 kernel_entry(variant, n, m, mg))
         log(f"[kernel] {kind}: B={B} n={n} m={m} diagonal rows {d0}..{d0 + mg} iters={iters} "
-            f"variant={variant} ({regs} registers, spill stores {spill_st} B, loads {spill_ld} B) "
+            f"variant={variant} ({ctas or 1} CTAs a lane, {regs} registers, spill stores {spill_st} B, loads {spill_ld} B) "
             f"max|dx|={err[0]:.3e} max|dz|={err[1]:.3e} max|dy|={err[2]:.3e}; "
             f"over max(1,|plain|): {rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e} "
             f"(atol {ATOL_XZ}/{ATOL_XZ}/{ATOL_Y})")
@@ -154,7 +165,7 @@ def phase_kernels():
         eager_ms, wrap_us = cuda_ms(chunk, 50), host_us(chunk, 200)
         bnd, by, nbytes, flops = bound_ms(args, iters, segs)
         timings.append(dict(shape=kind, lanes=B, n=n, m=m, iters=iters, variant=variant,
-                            registers=regs, max_abs_err=max(err),
+                            ctas_per_lane=ctas or 1, registers=regs, max_abs_err=max(err),
                             ms=ms, ms_repeat=ms2, eager_ms=eager_ms, wrapper_us=wrap_us,
                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by))
         log(f"[kernel] {kind} chunk: kernel {ms:.4f} ms (repeat {ms2:.4f}; CUDA graph of {reps} "
@@ -179,6 +190,12 @@ def _to(obj, dev):
             kw["device"] = dev
         return type(obj)(**kw)
     return obj
+
+
+def _first_lanes(state, lanes):
+    """The GP-MPC state of the first ``lanes`` lanes."""
+    return type(state)(**{f: getattr(state, f)[:lanes] for f in
+                          ("X_lin", "U_lin", "x_ref", "rho", "y_prev")})
 
 
 def _time_cycles(cycle, state, xs, cycles, dev, what):
@@ -245,9 +262,7 @@ def phase_main_path(dev=torch.device("cuda")):
     # the same cycle on the CPU from the same state: the plain path as reference
     lanes = 8
     cpu = torch.device("cpu")
-    sub = lambda s: type(s)(**{f: getattr(s, f)[:lanes] for f in
-                               ("X_lin", "U_lin", "x_ref", "rho", "y_prev")})
-    st_gpu, x_gpu = sub(state), xs[:lanes]
+    st_gpu, x_gpu = _first_lanes(state, lanes), xs[:lanes]
     sol_g, _ = gp_mpc_solve(mp.F, mean_fn, var_fn, cfg, st_gpu, x_gpu)
     mp_c = main_path(cpu)
     mean_c, var_c = gp_fns(_to(gp, cpu))
@@ -371,17 +386,17 @@ def phase_pretrain(dev=torch.device("cuda")):
     launches = K.LAUNCHES
     # the episodes' QP is the sparse form, n = 207, m = 354, all rows dense:
     # four chunks of 25 a cycle, every one an adapt chunk (no early exit)
-    variant = K.variant(207, 354, 0)
-    if variant != "global" or launches != 4 * episode_len:
+    variant = K.variant(207, 354, 0, episodes)
+    if variant != "cluster" or launches != 4 * episode_len:
         raise RuntimeError(f"pretraining launched the {variant} variant {launches} times, "
-                           f"expected the global one {4 * episode_len} times")
+                           f"expected the cluster one {4 * episode_len} times")
     g = gp.gp
     k0, ln0 = gp.initial_hyperparameters()
     lml = sparse_lml(g.kernels, g.Z, g.X, g.Y, g.mask, g.log_noise, g.method)
     lml0 = sparse_lml(k0, g.Z, g.X, g.Y, g.mask, ln0, g.method)
     log(f"[pretrain] {episodes} episodes x {episode_len} cycles + fit + tuning in {seconds:.2f} s: "
         f"{int(gp.buffer.count)} points, {g.Z.shape[0]} inducing, admm_chunk launches {launches} "
-        f"({variant} variant); LML per output untuned {[round(v, 2) for v in lml0.tolist()]} "
+        f"({variant} variant, {K.cluster_size(207, 354, 0, episodes)} CTAs a lane); LML per output untuned {[round(v, 2) for v in lml0.tolist()]} "
         f"tuned {[round(v, 2) for v in lml.tolist()]}")
     if not bool(torch.isfinite(lml).all()) or bool((lml < lml0).any()):
         raise RuntimeError("the tuned marginal likelihood is worse than the untuned one")
@@ -390,7 +405,73 @@ def phase_pretrain(dev=torch.device("cuda")):
     if K.LAUNCHES < land["steps"]:
         raise RuntimeError("the pretrained landing did not go through the kernel")
     return dict(launches=launches, seconds=seconds, landing=land,
-                landing_launches=K.LAUNCHES)
+                landing_launches=K.LAUNCHES), gp
+
+
+def phase_calibration(gp, dev=torch.device("cuda")):
+    """Path C: the bound-riding GP-MPC cycle of the chance-constraint
+    calibration campaign, with the production GP as the campaign flies it."""
+    from gpmpc_tpu_torch.main_path import (calibration_cycle, calibration_path, calibration_x0,
+                                           fly_calibration, gp_fns, with_gust_variance)
+    from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
+    from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg, _n_rows
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    cp = calibration_path(dev)
+    cfg = cp.config
+    mean_fn, var_raw = gp_fns(gp)
+    var_fn = with_gust_variance(var_raw, cp.gust_sigma)
+    segs, m = _condensed_admm_cfg(cfg.base).row_structure, _n_rows(cfg.base)
+    variant = K.variant(N * 3, m, N * 3, BATCH)
+    if segs != (("blt", 5, 28, 12), ("diag", 60)) or m != 200 or variant != "shared":
+        raise RuntimeError(f"the calibration QP is {segs}, m = {m}, variant {variant}")
+    x0s = calibration_x0(torch.Generator(device=dev).manual_seed(7), BATCH, dev)
+    cycle = calibration_cycle(cp, mean_fn, var_fn, x0s,
+                              torch.Generator(device=dev).manual_seed(11))
+
+    cycles = 15
+    state = gp_mpc_init(cfg, x0s, cp.x_target, device=dev)
+    sol, state, xs, dev_ms, host_ms, launches = _time_cycles(
+        cycle, state, x0s, cycles, dev, "the calibration path")
+    if launches != cycles:
+        raise RuntimeError(f"admm_chunk launched {launches} times in {cycles} calibration "
+                           f"cycles, expected {cycles}")
+    log(f"[calibration] {cycles} cycles x {BATCH} lanes: {dev_ms:.3f} ms/cycle (CUDA events), "
+        f"{host_ms:.3f} ms/cycle (host clock), {BATCH * 1000.0 / host_ms:.1f} solves/s; "
+        f"admm_chunk launches {launches} (1/cycle, {variant} variant); "
+        f"accepted {float(sol.success.float().mean()):.4f}")
+
+    lanes = 8
+    cpu = torch.device("cpu")
+    st_gpu, x_gpu = _first_lanes(state, lanes), xs[:lanes]
+    sol_g, _ = gp_mpc_solve(cp.F, mean_fn, var_fn, cfg, st_gpu, x_gpu)
+    cp_c = calibration_path(cpu)
+    mean_c, var_c = gp_fns(_to(gp, cpu))
+    sol_c, _ = gp_mpc_solve(cp_c.F, mean_c, with_gust_variance(var_c, cp.gust_sigma),
+                            cp_c.config, _to(st_gpu, cpu), x_gpu.cpu())
+    du = (sol_g.u0.cpu() - sol_c.u0).abs().max().item()
+    dX = (sol_g.X_opt.cpu() - sol_c.X_opt).abs().max().item()
+    log(f"[calibration] card vs CPU, one cycle at {lanes} lanes: max|du0|={du:.3e} "
+        f"max|dX_opt|={dX:.3e} (atol 1e-3)")
+    if du > 1e-3 or dX > 1e-3:
+        raise RuntimeError("the card's calibration cycle disagrees with the CPU reference")
+
+    K.LAUNCHES = 0
+    t0 = time.time()
+    obs = fly_calibration(cp, mean_fn, var_fn, x0s, torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize(dev)
+    log(f"[calibration] flight of {BATCH} lanes in {time.time() - t0:.1f} s "
+        f"({K.LAUNCHES} launches): {json.dumps(obs)}")
+    if not obs["finite"]:
+        raise RuntimeError("non-finite iterate in the calibration flight")
+    if not (obs["calibrated"] and obs["coverage_calibrated"]):
+        raise RuntimeError(
+            f"the calibration flight misses the campaign's gate at confidence "
+            f"{obs['confidence']}: violation upper bound {obs['realized_upper95']:.5f} "
+            f"(limit {1 - obs['confidence'] + 0.01:.2f}), one-step coverage "
+            f"{obs['one_step_coverage']:.4f} (target {2 * obs['confidence'] - 1:.2f} +- 0.05)")
+    return dict(launches=launches, ms_per_cycle=dev_ms, host_ms_per_cycle=host_ms,
+                solves_per_s=BATCH * 1000.0 / host_ms, flight=obs, flight_launches=K.LAUNCHES)
 
 
 def main():
@@ -400,12 +481,16 @@ def main():
     main_res, fns = phase_main_path()
     land = phase_landing(fns)
     rti_res = phase_rti()
-    pre_res = phase_pretrain()
+    pre_res, production_gp = phase_pretrain()
+    cal_res = phase_calibration(production_gp)
     log(f"[summary] main path {main_res['ms_per_cycle']:.3f} ms/cycle, "
         f"{main_res['solves_per_s']:.1f} solves/s, landing success {land['success_share']:.4f}; "
         f"RTI path {rti_res['ms_per_cycle']:.3f} ms/cycle, landing success "
         f"{rti_res['landing']['success_share']:.4f}; pretraining {pre_res['seconds']:.2f} s, "
-        f"landing success with its GP {pre_res['landing']['success_share']:.4f}")
+        f"landing success with its GP {pre_res['landing']['success_share']:.4f}; "
+        f"calibration path {cal_res['ms_per_cycle']:.3f} ms/cycle, violation upper bound "
+        f"{cal_res['flight']['realized_upper95']:.5f}, one-step coverage "
+        f"{cal_res['flight']['one_step_coverage']:.4f}, landed {cal_res['flight']['landed_rate']:.4f}")
     main_t = timings[0]
     kernels = [{
         "name": "admm_chunk",
@@ -415,7 +500,9 @@ def main():
         "launches": main_res["launches"],
         "launches_by_path": {"main": main_res["launches"], "rti": rti_res["launches"],
                              "pretrain": pre_res["launches"],
-                             "pretrained_landing": pre_res["landing_launches"]},
+                             "pretrained_landing": pre_res["landing_launches"],
+                             "calibration": cal_res["launches"],
+                             "calibration_flight": cal_res["flight_launches"]},
         "max_abs_err": main_t["max_abs_err"],
         "ms": main_t["ms"],
         "eager_ms": main_t["eager_ms"],
@@ -426,7 +513,7 @@ def main():
         "library_ms": main_t["library_ms"],
         "variant": main_t["variant"],
         "shapes": [{k: t[k] for k in ("shape", "lanes", "n", "m", "iters", "variant",
-                                       "registers", "max_abs_err", "ms", "eager_ms",
+                                       "ctas_per_lane", "registers", "max_abs_err", "ms", "eager_ms",
                                        "wrapper_us", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")}
                    for t in timings],

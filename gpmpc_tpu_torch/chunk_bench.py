@@ -1,16 +1,31 @@
 """Measurements of the ADMM chunk kernel on the card, and its tile sweep.
 
 ``chip_smoke.py`` times the kernel with these helpers. Run alone, the module
-sweeps the register variant's threads per row (K, fixed at 2 in
-``csrc/admm_chunk.cu``) through ``csrc/admm_chunk_tiles.cu``, a build of the
-same kernel that takes K per call. For K = 1, 2 and 4 it reports the
-registers and spills ``ptxas`` gives the register kernels, the agreement with
-the plain version, and the device time at the main-path shape (512 lanes,
-n = m = 60, every row declared diagonal, 50 iterations) and at the dense
-60×60 shape, beside the time of a chunk of 0 iterations (launch, operand
-loads, stores):
+sweeps the kernel's tilings through ``csrc/admm_chunk_tiles.cu``, a build of
+the same kernels that takes the tiling per call:
 
-    python -m gpmpc_tpu_torch.chunk_bench [--out FILE.json]
+- ``register``: the register variant's threads per row (K, fixed at 2 in
+  ``csrc/admm_chunk.cu``), K = 1, 2 and 4, at the main-path shape (512 lanes,
+  n = m = 60, every row declared diagonal, 50 iterations) and at the dense
+  60×60 shape, beside the time of a chunk of 0 iterations (launch, operand
+  loads, stores);
+- ``cluster``: the cluster variant's CTAs a lane (C = 4, 8, 16), threads a
+  CTA (T = 256, 512) and threads per row dot product (K = 8, 16) at the
+  sparse-form golden shape (n = 207, m = 354, 25 iterations), 4 and 512 lanes;
+- ``shared``: the shared variant's T = 128, 256, 512 and K = 4, 8, 16 at the
+  condensed QP with state bounds (n = 60, m = 200) at 25, 30 and 50
+  iterations and at the 6-DoF QP with cone facets (n = 60, m = 380) at 30.
+
+- ``stages``: what the stages of the shared and cluster variants cost, by
+  leaving them out one at a time (``csrc/admm_chunk_probe.cu``, a build with
+  the kernel's stage probe on): the column walk for Aᵀt, the M⁻¹ dot
+  products, the row dot products, the row updates, the cluster's remote sum
+  and its cluster barriers, at the bounded, facets and golden shapes.
+
+Each tiling row reports the registers and spills ``ptxas`` gives the instance, the
+agreement with the plain version and the device time from a CUDA-graph replay:
+
+    python -m gpmpc_tpu_torch.chunk_bench [--sweep register cluster shared stages] [--out FILE.json]
 
 Needs a Hopper card; there is no CPU path.
 """
@@ -77,6 +92,28 @@ def host_us(fn, reps):
 
 
 BOUNDED_SEGS = (("blt", 5, 28, 12), ("diag", N_VARS))  # 140 state-bound rows, then controls
+# the 6-DoF condensed QP at N = 20 with 8 cone facets and the linearized
+# glideslope row, translation bounds dropped: 7 × 20 state-bound rows, the
+# controls, 20 glideslope rows, 20 blocks of 8 cone rows on a stage's 3 controls
+FACETS_SEGS = BOUNDED_SEGS + (("blt", 5, 4, 12), ("blockdiag", 20, 8, 3))
+
+
+def _structured_rows(segs, B, n, gen, dev):
+    """Random A (B,m,n) with the declared segments' zero pattern; a "diag"
+    segment is the identity, as build_condensed_qp makes the control rows."""
+    cols = torch.arange(n, device=dev)[None, :]
+    blocks = []
+    for seg in segs:
+        if seg[0] == "diag":
+            blocks.append(torch.eye(seg[1], n, device=dev).expand(B, seg[1], n))
+            continue
+        _, C, h, w = seg
+        block = torch.arange(C * h, device=dev)[:, None] // h
+        keep = cols < (block + 1) * w
+        if seg[0] == "blockdiag":
+            keep = keep & (cols >= block * w)
+        blocks.append(torch.randn(B, C * h, n, generator=gen, device=dev) * keep)
+    return torch.cat(blocks, dim=1)
 
 
 def chunk_inputs(kind, gen, golden_path=None, lanes=8):
@@ -85,6 +122,8 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     build_condensed_qp makes them; "dense": the same size with a random A;
     "bounded": n = 60, m = 200, the condensed QP that keeps its state-bound
     rows: 140 block-lower-triangular rows (BOUNDED_SEGS), then the identity;
+    "facets": n = 60, m = 380, the same with 20 glideslope and 160 cone-facet
+    rows behind the identity (FACETS_SEGS);
     "golden": ``lanes`` sparse-form golden QPs (n = 207, m = 354), the four of
     ``golden_path`` repeated."""
     from .ops.qp import QPData, ruiz_equilibrate
@@ -103,12 +142,9 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
         P = G @ G.transpose(1, 2) / n + 0.1 * torch.eye(n, device=dev)
         if kind == "main":
             A = torch.eye(n, device=dev).expand(B, n, n).contiguous()
-        elif kind == "bounded":
-            _, C, h, w = BOUNDED_SEGS[0]
-            keep = (torch.arange(n, device=dev)[None, :]
-                    < (torch.arange(C * h, device=dev)[:, None] // h + 1) * w)
-            blt = torch.randn(B, C * h, n, generator=gen, device=dev) * keep
-            A = torch.cat([blt, torch.eye(n, device=dev).expand(B, n, n)], dim=1)
+        elif kind in ("bounded", "facets"):
+            A = _structured_rows(BOUNDED_SEGS if kind == "bounded" else FACETS_SEGS,
+                                 B, n, gen, dev)
         else:
             A = torch.randn(B, n, n, generator=gen, device=dev)
         m = A.shape[1]
@@ -184,16 +220,21 @@ def bound_ms(args, iters, row_structure):
             bytes_moved, flops)
 
 
-def kernel_entry(variant, n, m, mg, row_threads=None):
+def kernel_entry(variant, n, m, mg, row_threads=None, threads=None):
     """A pattern of the mangled name of the kernel instance a chunk launches
-    (any threads per row when ``row_threads`` is None)."""
+    (the register tile with any threads per row when ``row_threads`` is None;
+    the row-split kernel with the port's threads a CTA when ``threads`` is)."""
+    from .ops.kernels.admm_chunk import ROWS_THREADS
+
     md = m - mg
     k = r"\d+" if row_threads is None else str(row_threads)
+    t = ROWS_THREADS if threads is None else threads
     return {
         "register": (f"admm_chunk_regILi{32 if n <= 32 and md <= 32 else 64}"
                      f"ELi{k}ELb{int(md > 0)}E"),
-        "shared": "admm_chunk_kernelILb1E",
-        "global": "admm_chunk_kernelILb0E",
+        "shared": f"admm_chunk_rowsILi{t}ELb{int(n <= 64)}ELb0E",  # M⁻¹ in registers, n ≤ 64
+        "cluster": f"admm_chunk_rowsILi{t}ELb0ELb1E",
+        "global": "admm_chunk_global",
     }[variant]
 
 
@@ -229,15 +270,140 @@ def tile_chunk(lib, row_threads, args, row_structure, iters=ITERS):
     return outs
 
 
-def sweep(row_threads=(1, 2, 4)):
-    """Each threads-per-row value timed at both shapes."""
+def rows_chunk(lib, threads, row_threads, cluster, args, row_structure, iters):
+    """One chunk through the sweep's build of the row-split kernel with
+    ``threads`` a CTA, ``row_threads`` a row dot product and ``cluster`` CTAs
+    a lane (1: the shared variant); returns (x, z, y)."""
+    from .ops.kernels import admm_chunk as K
+
+    Minv, A, *vecs = args
+    A, d0, mg = K.kernel_rows(A, row_structure)
+    B, m, n = A.shape
+    outs = [torch.empty(B, k, device=A.device) for k in (n, m, m)]
+    err = lib.admm_chunk_rows_f32(
+        *[t.data_ptr() for t in (Minv, A, *vecs, *outs)], B, n, m, d0, mg, iters,
+        KERNEL_ARGS["sigma"], KERNEL_ARGS["alpha"], threads, row_threads, cluster,
+        A.device.index, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"admm_chunk_rows_f32 failed: CUDA error {err} (B={B}, n={n}, "
+                           f"m={m}, T={threads}, K={row_threads}, C={cluster})")
+    return outs
+
+
+def _tiles_library():
+    from .ops.kernels import _build
+
+    lib = _build.load(TILES)
+    if lib.admm_chunk_tile_f32.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.admm_chunk_tile_f32.argtypes = [p] * 12 + [i] * 6 + [f, f, i, i, p]
+        lib.admm_chunk_tile_f32.restype = i
+        lib.admm_chunk_rows_f32.argtypes = [p] * 12 + [i] * 6 + [f, f, i, i, i, i, p]
+        lib.admm_chunk_rows_f32.restype = i
+    return lib
+
+
+def sweep_rows(which, golden_path):
+    """The row-split kernel's tilings: "cluster" at the golden shape, 4 and
+    512 lanes; "shared" at the bounded shape (25, 30, 50 iterations) and the
+    facets shape (30, the 6-DoF bench's chunk)."""
     from .ops.kernels import _build
     from .ops.kernels import admm_chunk as K
 
-    lib = _build.load(TILES)
+    lib = _tiles_library()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if which == "cluster":
+        cases = [("golden", lanes, None, 25) for lanes in (4, BATCH)]
+        tilings = [(t, k, c) for c in (4, 8, 16) for t in (256, 512) for k in (8, 16)]
+    else:
+        cases = [("bounded", BATCH, BOUNDED_SEGS, it) for it in (25, 30, 50)]
+        cases.append(("facets", BATCH, FACETS_SEGS, 30))
+        tilings = [(t, k, 1) for t in (128, 256, 512) for k in (4, 8, 16)]
+    rows, inputs = [], {}
+    for kind, lanes, segs, iters in cases:
+        if (kind, lanes) not in inputs:
+            inputs[kind, lanes] = chunk_inputs(kind, gen, golden_path, lanes)
+        args = inputs[kind, lanes]
+        B, m, n = args[1].shape
+        mg = K.kernel_rows(args[1], segs)[2]
+        ref = K.admm_chunk_plain(*args, row_structure=segs, **{**KERNEL_ARGS, "iters": iters})
+        scale = [max(1.0, r.abs().max().item()) for r in ref]
+        reps = 20 if B * n * m < 1e7 else 4
+        for t, k, c in tilings:
+            regs, st, ld = ptxas_report(
+                _build.build_log(TILES),
+                kernel_entry("shared" if c == 1 else "cluster", n, m, mg, threads=t))
+            run = lambda: rows_chunk(lib, t, k, c, args, segs, iters)
+            out = run()
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() / s for a, b, s in zip(out, ref, scale))
+            rows.append(dict(sweep=which, shape=kind, lanes=B, n=n, m=m, iters=iters,
+                             threads=t, row_threads=k, cluster=c, registers=regs,
+                             spill_stores=st, spill_loads=ld, max_rel_err=err,
+                             ms=graph_ms(run, reps), ms_repeat=graph_ms(run, reps),
+                             ms_0_iters=graph_ms(
+                                 lambda: rows_chunk(lib, t, k, c, args, segs, 0), reps),
+                             bound_ms=bound_ms(args, iters, segs)[0]))
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+PROBE = "admm_chunk_probe"
+# Stage bits of csrc/admm_chunk.cu, and the sets the probe leaves out
+STAGES = {"column_walk": 1, "minv_dots": 2, "row_dots": 4, "row_updates": 8,
+          "remote_sum": 16, "cluster_sync": 32}
+
+
+def sweep_stages(golden_path):
+    """The port's own tiling with stages left out: per shape the whole
+    chunk, each stage out alone, the arithmetic out (what is left is load,
+    barriers, exchange and loop control), and everything out."""
+    from .ops.kernels import _build
+    from .ops.kernels import admm_chunk as K
+
+    lib = _build.load(PROBE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.admm_chunk_tile_f32.argtypes = [p] * 12 + [i] * 6 + [f, f, i, i, p]
-    lib.admm_chunk_tile_f32.restype = i
+    lib.admm_chunk_probe_f32.argtypes = [p] * 12 + [i] * 6 + [f, f, i, i, p]
+    lib.admm_chunk_probe_f32.restype = i
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    arithmetic = sum(STAGES[k] for k in ("column_walk", "minv_dots", "row_dots", "row_updates"))
+    masks = [("none", 0)] + list(STAGES.items()) + [("arithmetic", arithmetic), ("all", 63)]
+    rows = []
+    for kind, lanes, segs, iters in (("bounded", BATCH, BOUNDED_SEGS, 25),
+                                     ("facets", BATCH, FACETS_SEGS, 30),
+                                     ("golden", 4, None, 25), ("golden", BATCH, None, 25)):
+        Minv, A, *vecs = chunk_inputs(kind, gen, golden_path, lanes)
+        A, d0, mg = K.kernel_rows(A, segs)
+        B, m, n = A.shape
+        outs = [torch.empty(B, k, device=A.device) for k in (n, m, m)]
+        ptrs = [t.data_ptr() for t in (Minv, A, *vecs, *outs)]
+        reps = 20 if B * n * m < 1e7 else 4
+
+        def run(skip, its):
+            err = lib.admm_chunk_probe_f32(
+                *ptrs, B, n, m, d0, mg, its, KERNEL_ARGS["sigma"], KERNEL_ARGS["alpha"], skip,
+                A.device.index, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"admm_chunk_probe_f32 failed: CUDA error {err}")
+
+        variant, ctas = K.variant(n, m, mg, B), K.cluster_size(n, m, mg, B)
+        for name, skip in masks:
+            if variant == "shared" and skip in (16, 32):
+                continue
+            rows.append(dict(sweep="stages", shape=kind, lanes=B, n=n, m=m, iters=iters,
+                             variant=variant, ctas_per_lane=ctas, left_out=name,
+                             ms=graph_ms(lambda: run(skip, iters), reps),
+                             ms_0_iters=graph_ms(lambda: run(skip, 0), reps)))
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def sweep(row_threads=(1, 2, 4)):
+    """Each threads-per-row value of the register tile timed at both shapes."""
+    from .ops.kernels import _build
+    from .ops.kernels import admm_chunk as K
+
+    lib = _tiles_library()
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {kind: chunk_inputs(kind, gen) for kind, _ in SHAPES}
     rows = []
@@ -264,6 +430,11 @@ def sweep(row_threads=(1, 2, 4)):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the rows as JSON here")
+    ap.add_argument("--sweep", nargs="+", default=["register", "cluster", "shared"],
+                    choices=["register", "cluster", "shared", "stages"])
+    ap.add_argument("--golden", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "fixtures",
+        "qp_golden.npz"), help="the golden QP fixtures")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chunk_bench: needs a CUDA card")
@@ -271,7 +442,14 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
-    rows = sweep()
+    rows = []
+    for which in args.sweep:
+        if which == "register":
+            rows += sweep()
+        elif which == "stages":
+            rows += sweep_stages(args.golden)
+        else:
+            rows += sweep_rows(which, args.golden)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

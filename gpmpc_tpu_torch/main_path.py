@@ -6,22 +6,30 @@ kernel selected (``use_pallas="auto"``):
 - :func:`rti_path` — the GP-free RTI cycle on the nominal plant, its
   secondary metric (``bench.py:110-115``, ``:186-201``);
 - :func:`pretrain_path` — the production GP fit, ``pretrain_gp_3dof`` under
-  the dispersed plant, whose GP then serves the GP-MPC cycle.
+  the dispersed plant, whose GP then serves the GP-MPC cycle;
+- :func:`calibration_path` — the bound-riding GP-MPC cycle of the
+  chance-constraint calibration campaign (``scripts/run_calibration_tpu.py``):
+  the state bounds stay in the condensed QP (n = 60, m = 200), a fleet rides
+  the tightened descent-speed bound under a gust of known σ, and
+  :func:`fly_calibration` returns the campaign's observables.
 
 ``chip_smoke.py`` and ``gpmpc_tpu_torch/profile_cycle.py`` drive them.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, Dict, NamedTuple
 
 import torch
 
 from ._device import DeviceLike, resolve_device
 from .dynamics import Rocket3DoFParams, rocket3dof as r3
 from .learning.pretrain import gp_fns, pretrain_gp_3dof  # noqa: F401  (gp_fns: re-exported for chip_smoke.py)
-from .mpc import GPMPCConfig, RTIConfig
+from .experiments import SimulationConfig, sample_initial_conditions, wilson_interval
+from .mpc import GPMPCConfig, RTIConfig, gp_mpc_solve, make_gp_mpc_controller
+from .mpc.constraints import normal_quantile
 from .ops.qp import ADMMConfig
+from .reference import cubic_descent_reference, pad_reference
 
 N = 20
 BATCH = 512
@@ -105,3 +113,150 @@ def fleet_x0(batch: int = BATCH, device: DeviceLike = "cuda") -> torch.Tensor:
     x0s = torch.tensor([2.0, 30.0, 0.0, 0.0, -3.0, 0.0, 0.0], device=dev).repeat(batch, 1)
     x0s[:, 1] += torch.linspace(0.0, 5.0, batch, device=dev)
     return x0s
+
+
+V_LIM = -2.2  # the descent-speed floor on x[4] that the calibration fleet rides
+GUST_SIGMA = 0.35  # std of the injected per-step velocity gust (v += dt·N(0, σ²))
+CALIBRATION_STEPS = 90
+
+
+class CalibrationPath(NamedTuple):
+    params: Rocket3DoFParams
+    F: Callable  # nominal step
+    F_true: Callable  # drag plant (the gust rides on top of it)
+    config: GPMPCConfig
+    x_target: torch.Tensor
+    reference_fn: Callable  # x0s (B, 7) → each lane's fast descent reference
+    v_lim: float
+    gust_sigma: float
+
+
+def calibration_path(device: DeviceLike = "cuda", confidence: float = 0.95) -> CalibrationPath:
+    """The configuration the chance constraints are certified on
+    (``scripts/run_calibration_tpu.py:90-132``): condensed, every state bound
+    kept, x[4] ≥ -2.2 the bound under test, 50 iterations in one chunk. The
+    QP is n = 60, m = 200, declared ``("blt", 5, 28, 12), ("diag", 60)``. The
+    reference descends 16 m in 4.2 s, faster than the bound allows, so the
+    plan rides the tightened bound."""
+    dev = resolve_device(device)
+    mp = main_path(dev)
+    cfg = GPMPCConfig(
+        base=RTIConfig(
+            N=N, dt=DT, accept_pri_tol=1e-2, condensed=True,
+            x_min=torch.tensor([-1e20, -100.0, -100.0, -100.0, V_LIM, -50.0, -50.0]),
+            admm=ADMMConfig(max_iter=ADMM_ITERS, check_interval=ADMM_ITERS, scaling=2,
+                            polish=False, adaptive_rho=False, infeas_certs=False,
+                            use_pallas="auto"),
+            device=dev,
+        ),
+        scp_iterations=1, tighten=True, confidence=confidence, rollout_gp_tape=True,
+    )
+    xT = mp.x_target
+    return CalibrationPath(
+        params=mp.params, F=mp.F, F_true=mp.F_true, config=cfg, x_target=xT,
+        reference_fn=lambda x0: cubic_descent_reference(x0, xT, 42, DT),
+        v_lim=V_LIM, gust_sigma=GUST_SIGMA)
+
+
+def calibration_x0(generator: torch.Generator, batch: int = BATCH,
+                   device: DeviceLike = "cuda") -> torch.Tensor:
+    """Initial states of the calibration fleet: Gaussian around 16 m, every
+    lane at least 1 m/s above the bound (a lane sampled past it would spend
+    its transient in violation through no fault of the tightening)."""
+    x0s = sample_initial_conditions(
+        generator, SimulationConfig(max_steps=CALIBRATION_STEPS, altitude_mean=16.0,
+                                    altitude_std=1.0), batch, n_x=7, device=device)
+    x0s[:, 4] = x0s[:, 4].clamp_min(V_LIM + 1.0)
+    return x0s
+
+
+def with_gust_variance(var_fn: Callable, gust_sigma: float = GUST_SIGMA) -> Callable:
+    """The total one-step velocity uncertainty: GP posterior variance plus
+    the known gust power."""
+    return lambda x, u: var_fn(x, u) + gust_sigma**2
+
+
+def calibration_cycle(cp: CalibrationPath, mean_fn: Callable, var_fn: Callable,
+                      x0s: torch.Tensor, generator: torch.Generator) -> Callable:
+    """``cycle(state, xs) → (sol, state, xs⁺)`` for timing and profiling the
+    path: the k-th call tracks the window at step k of each lane's reference
+    (held at its last row past its end), solves, and steps the drag plant
+    plus a gust drawn from ``generator``."""
+    n_win = cp.config.base.N + 1
+    ref = pad_reference(cp.reference_fn(x0s), n_win)
+    step = [0]
+
+    def cycle(state, xs):
+        k = min(step[0], ref.shape[1] - n_win)
+        step[0] += 1
+        state = state.replace(x_ref=ref[:, k:k + n_win])
+        sol, state = gp_mpc_solve(cp.F, mean_fn, var_fn, cp.config, state, xs)
+        gust = cp.gust_sigma * torch.randn(xs.shape[0], 3, generator=generator,
+                                           device=generator.device).to(xs.device)
+        xn = cp.F_true(xs, sol.u0)
+        return sol, state, torch.cat([xn[:, :4], xn[:, 4:] + DT * gust], dim=1)
+
+    return cycle
+
+
+def fly_calibration(cp: CalibrationPath, mean_fn: Callable, var_fn: Callable,
+                    x0s: torch.Tensor, generator: torch.Generator,
+                    steps: int = CALIBRATION_STEPS) -> Dict[str, float]:
+    """Fly the fleet for ``steps`` cycles under the drag plant plus the gust
+    (drawn from ``generator``, (B, 3) a step) and return the campaign's
+    observables. ``var_fn`` is the total variance (:func:`with_gust_variance`).
+
+    The bound counts as live above 1 m after the first 8 steps; a lane
+    freezes at touchdown. ``calibrated`` and ``coverage_calibrated`` are the
+    campaign's own gates: the Wilson upper bound of the realized violation
+    rate of v ≥ v_lim within 0.01 of 1 − confidence, and the one-step
+    coverage |v⁺ − v_pred| ≤ κ·dt·σ within 0.05 of the two-sided Gaussian
+    target 2·confidence − 1."""
+    cfg = cp.config
+    dev = x0s.device
+    conf = cfg.confidence
+    kappa = float(normal_quantile(torch.tensor(conf)))
+    cinit, cstep = make_gp_mpc_controller(
+        cp.F, mean_fn, var_fn, cfg, cp.x_target, reference_fn=cp.reference_fn,
+        ref_horizon=steps)
+    x = x0s
+    cs = cinit(x0s)
+    n_active = n_viol = n_near = n_inside = airborne = 0.0
+    finite = True
+    for k in range(steps):
+        u, cs = cstep(cs, x, k)
+        gust = cp.gust_sigma * torch.randn(x.shape[0], 3, generator=generator,
+                                           device=generator.device).to(dev)
+        x_next = cp.F_true(x, u)
+        x_next = torch.cat([x_next[:, :4], x_next[:, 4:7] + DT * gust], dim=1)
+        # the one-step prediction the tightening prices: nominal + GP mean,
+        # σ² = dt²·(GP variance + gust variance)
+        pred = cp.F(x, u)[:, 4:7] + DT * mean_fn(x, u)[:, 4:7]
+        inside = (x_next[:, 4:7] - pred).abs() <= kappa * DT * torch.sqrt(var_fn(x, u))
+        frozen = x[:, 1] <= 0.1
+        live = (x[:, 1] > 1.0) & (k >= 8) & ~frozen
+        x_next = torch.where(frozen[:, None], x, x_next)
+        finite = finite and bool(torch.isfinite(u).all() & torch.isfinite(x_next).all())
+        n_active += float(live.sum())
+        n_viol += float((live & (x_next[:, 4] < cp.v_lim)).sum())
+        n_near += float((live & (x_next[:, 4] < cp.v_lim + 0.3)).sum())
+        n_inside += float((inside & live[:, None]).sum())
+        airborne += float((~frozen).sum())
+        x = x_next
+    rate = n_viol / max(n_active, 1.0)
+    upper = float(wilson_interval(n_viol, max(n_active, 1.0))[1])
+    cover = n_inside / max(3.0 * n_active, 1.0)
+    return {
+        "confidence": conf,
+        "kappa": kappa,
+        "finite": finite,
+        "active_steps": int(n_active),
+        "realized_violation": rate,
+        "realized_upper95": upper,
+        "calibrated": upper <= (1.0 - conf) + 0.01,
+        "binding_rate": n_near / max(n_active, 1.0),
+        "one_step_coverage": cover,
+        "coverage_calibrated": abs(cover - (2.0 * conf - 1.0)) < 0.05,
+        "landed_rate": float((x[:, 1] <= 0.1).float().mean()),
+        "steps_to_land_mean": airborne / x.shape[0],
+    }

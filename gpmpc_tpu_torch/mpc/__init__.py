@@ -1,6 +1,14 @@
 """Model-predictive control layer: the RTI cycle and the GP-MPC cycle."""
 
-from .gp_mpc import GPMPCConfig, GPMPCSolution, GPMPCState, gp_mpc_init, gp_mpc_solve
+from .gp_mpc import (
+    GPMPCConfig,
+    GPMPCSolution,
+    GPMPCState,
+    SimpleGPPredictor,
+    gp_mpc_init,
+    gp_mpc_solve,
+    make_gp_mpc_controller,
+)
 from .rti import (
     RTIConfig,
     RTISolution,
@@ -15,6 +23,7 @@ from .rti import (
 )
 
 __all__ = ["GPMPCConfig", "GPMPCSolution", "GPMPCState", "RTIConfig", "RTISolution",
-           "RTIState", "gp_mpc_init", "gp_mpc_solve", "make_rti_controller",
+           "RTIState", "SimpleGPPredictor", "gp_mpc_init", "gp_mpc_solve",
+           "make_gp_mpc_controller", "make_rti_controller",
            "rti_closed_loop", "rti_feedback", "rti_init", "rti_prepare", "rti_step",
            "simple_rti_step"]

@@ -284,3 +284,54 @@ def gp_mpc_init(
         rho=torch.full((Bsz,), cfg.admm.rho, device=dev),
         y_prev=torch.zeros(Bsz, _n_rows(cfg), device=dev),
     )
+
+
+def make_gp_mpc_controller(
+    step_fn, gp_mean_fn, gp_var_fn, config: GPMPCConfig, x_target,
+    reference_fn: Optional[Callable[[Tensor], Tensor]] = None, ref_horizon: int = 100,
+) -> Tuple[Callable, Callable]:
+    """(controller_init, controller_step) for a fleet flown in lockstep, the
+    Monte-Carlo protocol: ``cinit(x0s (B, n_x)) → cstate`` and
+    ``cstep(cstate, x (B, n_x), k) → (u0 (B, n_u), cstate)`` with the step
+    index k a Python int.
+
+    ``reference_fn(x0s) → (B, T, n_x)`` optionally generates each lane's
+    descent reference at init; the step then tracks the receding window at
+    step min(k, ref_horizon − 1). The reference, padded with its last row
+    to ref_horizon + N + 1 rows, rides in the controller state."""
+    dev = config.base.device
+
+    def cinit(x0):
+        state = gp_mpc_init(config, x0, x_target, device=dev)
+        if reference_fn is None:
+            return state
+        X_ref_full = reference_fn(as_f32(x0, dev))
+        need = ref_horizon + config.base.N + 1
+        pad = X_ref_full[:, -1:].repeat(1, max(need - X_ref_full.shape[1], 1), 1)
+        return state, torch.cat([X_ref_full, pad], dim=1)[:, :need]
+
+    def cstep(cstate, x, k: int):
+        if reference_fn is None:
+            sol, new_state = gp_mpc_solve(step_fn, gp_mean_fn, gp_var_fn, config, cstate, x)
+            return sol.u0, new_state
+        state, X_ref_full = cstate
+        kk = min(int(k), ref_horizon - 1)
+        state = state.replace(x_ref=X_ref_full[:, kk : kk + config.base.N + 1])
+        sol, new_state = gp_mpc_solve(step_fn, gp_mean_fn, gp_var_fn, config, state, x)
+        return sol.u0, (new_state, X_ref_full)
+
+    return cinit, cstep
+
+
+class SimpleGPPredictor:
+    """Augmented-dynamics rollout helper: x⁺ = F(x, u) + dt·gp_mean(x, u)."""
+
+    def __init__(self, step_fn, gp_mean_fn, dt: float = 0.1):
+        self.step_fn = step_fn
+        self.gp_mean_fn = gp_mean_fn
+        self.dt = dt
+
+    def rollout(self, x0: Tensor, U: Tensor) -> Tensor:
+        """x0 (B, n_x), U (B, T, n_u) → X (B, T+1, n_x)."""
+        return _rollout(self.step_fn, x0, U, self.dt,
+                        lambda k, x, u: self.gp_mean_fn(x, u))

@@ -4,8 +4,29 @@ and the wrapper that picks between them by device.
 Counterpart of ``gpmpc_tpu/ops/pallas/admm_kernel.py`` (``admm_chunk`` and
 ``make_admm_chunk_lanes``): ``iters`` ADMM iterations per lane with the
 lane's KKT inverse M⁻¹ and constraint matrix A held on chip for the whole
-chunk. The CUDA source is ``gpmpc_tpu_torch/csrc/admm_chunk.cu``; its header
-says what bounds it on the H100 and what the design does about that.
+chunk. The CUDA source is ``gpmpc_tpu_torch/csrc/admm_chunk.cu``.
+
+One launch runs one of four variants, picked by shape and lane count
+(:func:`variant`); the source's header has the measurements behind each
+(NVIDIA H100 80GB HBM3, 700 W):
+
+- "register" (n ≤ 64 and at most 64 dense rows: the main and RTI paths):
+  M⁻¹ and the dense rows in registers, one CTA a lane; bound by the latency
+  chain of an iteration (~0.30 µs), which one barrier and split dot
+  products keep short.
+- "shared" (a lane that fits one block's shared memory: the condensed QP
+  with its state bounds, n = 60, m = 200; the 6-DoF QP with cone facets,
+  m = 380): M⁻¹ in registers where n ≤ 64, A's dense rows once in shared
+  memory for both directions, every dot product split over several threads;
+  bound by shared-memory bandwidth, four lanes an SM.
+- "cluster" (a larger lane: the sparse-form QP, n = 207, m = 354): the
+  lane's rows split over a thread-block cluster of 4, 8 or 16 CTAs
+  (:func:`cluster_size`), every matrix entry in shared memory for the whole
+  chunk, partial sums and x̃ exchanged through distributed shared memory;
+  bound by barrier latency for few lanes and by shared-memory bandwidth for
+  many.
+- "global" (a lane no cluster holds): matrices read from global memory
+  every iteration; bound by L2 and device-memory traffic.
 
 A's rows may carry the solver's declared structure (``row_structure``, the
 ``ADMMConfig`` field), a tuple of segments in row order: ``("dense", nr)``,
@@ -18,13 +39,16 @@ as both TPU kernels do, except for the first ``"diag"`` segment, which it
 applies through its diagonal wherever the segment stands among the rows.
 
 - :func:`admm_chunk` — the wrapper. A CUDA tensor launches the kernel (one
-  launch per chunk) or raises; a CPU tensor runs :func:`admm_chunk_plain`.
-  There is no fallback from the kernel to the plain version.
+  launch per chunk) or raises, also when the card refuses the launch (a
+  cluster it cannot place, shared memory beyond the opt-in); a CPU tensor
+  runs :func:`admm_chunk_plain`. There is no fallback from the kernel to the
+  plain version.
 - :func:`admm_chunk_plain` — the same function in plain PyTorch (batched
   body of ``make_admm_chunk_lanes``'s unbatched path, with A applied as
   the JAX solver's streamed path applies a row structure). The CPU tests use
   it and the chip smoke test holds the kernel against it.
-- :func:`variant` — which of the kernel's variants a shape launches.
+- :func:`variant`, :func:`cluster_size` — which variant a shape and lane
+  count launch, and over how many CTAs a lane.
 - ``LAUNCHES`` — incremented once per kernel launch, and nowhere else.
 """
 
@@ -39,7 +63,8 @@ from . import _build
 
 KERNEL = "admm_chunk"
 LAUNCHES = 0
-VARIANTS = {2: "register", 1: "shared", 0: "global"}
+VARIANTS = {3: "cluster", 2: "register", 1: "shared", 0: "global"}
+ROWS_THREADS = 256  # threads a CTA of the shared and cluster variants (kRowsThreads)
 
 _Tensors = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -290,8 +315,10 @@ def _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
             A.device.index, stream,
         )
     if err != 0:
-        raise RuntimeError(f"admm_chunk_f32 launch failed: CUDA error {err} "
-                           f"(B={B}, n={n}, m={m}, diagonal rows {d0}..{d0 + mg})")
+        raise RuntimeError(
+            f"admm_chunk_f32 launch failed: CUDA error {err} (B={B}, n={n}, m={m}, "
+            f"diagonal rows {d0}..{d0 + mg}, variant {variant(n, m, mg, B, A.device)}, "
+            f"{cluster_size(n, m, mg, B, A.device)} CTAs a lane)")
     LAUNCHES += 1
     return xo, zo, yo
 
@@ -304,23 +331,37 @@ def _library() -> ctypes.CDLL:
         f = ctypes.c_float
         lib.admm_chunk_f32.argtypes = [p] * 12 + [i, i, i, i, i, i, f, f, i, p]
         lib.admm_chunk_f32.restype = i
-        lib.admm_chunk_variant.argtypes = [i, i, i, i]
+        lib.admm_chunk_variant.argtypes = [i, i, i, i, i]
         lib.admm_chunk_variant.restype = i
+        lib.admm_chunk_cluster_size.argtypes = [i, i, i, i, i]
+        lib.admm_chunk_cluster_size.restype = i
     return lib
 
 
-def variant(n: int, m: int, mg: int = 0, device=None) -> str:
-    """The kernel variant a chunk with n columns, m rows and mg diagonal
-    rows (anywhere among the rows) launches on ``device`` (default: the current CUDA device):
-    "register" (matrices in registers), "shared" (in shared memory) or
-    "global" (read from global memory). Raises for a shape none takes."""
+def _device_index(device) -> int:
     dev = torch.device("cuda") if device is None else torch.device(device)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    v = _library().admm_chunk_variant(n, m, mg, index)
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def variant(n: int, m: int, mg: int = 0, lanes: int = 1, device=None) -> str:
+    """The kernel variant a chunk of ``lanes`` lanes with n columns, m rows
+    and mg diagonal rows (anywhere among the rows) launches on ``device``
+    (default: the current CUDA device): "register" (matrices in registers),
+    "shared" (in one block's shared memory), "cluster" (a lane's rows split
+    over the shared memory of a thread-block cluster) or "global" (read from
+    global memory: a lane no cluster holds). Raises for a shape none takes."""
+    v = _library().admm_chunk_variant(n, m, mg, lanes, _device_index(device))
     if v not in VARIANTS:
         raise ValueError(f"no variant of the chunk kernel takes n={n}, m={m}, "
                          f"diagonal rows {mg}")
     return VARIANTS[v]
+
+
+def cluster_size(n: int, m: int, mg: int = 0, lanes: int = 1, device=None) -> int:
+    """CTAs a lane of the launch :func:`variant` names: 1 for the shared
+    variant, the cluster size (2 to 16, by shape and lane count) for the
+    cluster variant, 0 for the others."""
+    return _library().admm_chunk_cluster_size(n, m, mg, lanes, _device_index(device))
 
 
 def admm_chunk(Minv, A, q, l, u, rho, x, z, y, iters: int, sigma: float,

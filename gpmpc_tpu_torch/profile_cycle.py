@@ -10,6 +10,9 @@ Runs one of the cycles of ``gpmpc_tpu_torch/main_path.py``:
   default sparse-form RTI controller tracking a cubic descent reference on
   the dispersed plant), 4 lanes, and the wall time of the whole
   ``pretrain_gp_3dof`` call;
+- ``--path calibration``: the bound-riding GP-MPC cycle of the calibration
+  campaign (state bounds kept in the QP, production GP, gust on the plant),
+  512 lanes;
 
 warms it up and reports:
 
@@ -36,12 +39,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .learning import explore_gp_3dof
-from .main_path import BATCH, DT, N, fleet_x0, main_path, pretrain_path, rti_path
+from .main_path import (BATCH, DT, N, calibration_cycle, calibration_path, calibration_x0,
+                        fleet_x0, main_path, pretrain_path, rti_path, with_gust_variance)
 from .mpc import RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti_init, rti_step
 from .reference import cubic_descent_reference
 
 SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.")
-PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4}  # path → default lanes
+PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4, "calibration": BATCH}  # path → default lanes
 
 
 def _card() -> str:
@@ -73,6 +77,15 @@ def _cycle_of(path: str, batch: int, dev):
             return state, rp.F(xs, sol.u0)
 
         return cycle, rti_init(rp.config, xs, rp.x_target), xs
+    if path == "calibration":
+        cp = calibration_path(dev)
+        _, mean_fn, var_raw = pretrain_path(torch.Generator(device=dev).manual_seed(2), dev)
+        var_fn = with_gust_variance(var_raw, cp.gust_sigma)
+        xs = calibration_x0(torch.Generator(device=dev).manual_seed(7), batch, dev)
+        solve_and_step = calibration_cycle(cp, mean_fn, var_fn, xs,
+                                           torch.Generator(device=dev).manual_seed(11))
+        cycle = lambda state, xs: solve_and_step(state, xs)[1:]
+        return cycle, gp_mpc_init(cp.config, xs, cp.x_target, device=dev), xs
     # the controller collect_residuals_3dof flies, on the dispersed plant
     mp = main_path(dev)
     cinit, cstep = make_rti_controller(

@@ -93,36 +93,17 @@ def _golden_args(dev):
     return _scaled(QPData(*[t(p) for p in ("P", "q", "A", "l", "u")]), np.random.default_rng(0))
 
 
-@pytest.mark.parametrize("B,n,m,segs,iters,want", [
-    (4, 12, 18, None, 25, "register"),                          # test_pallas.py's random QP
-    (512, 60, 60, (("diag", 60),), 50, "register"),             # the main path
-    (16, 60, 60, None, 50, "register"),                         # dense at the main-path size
-    (8, 60, 100, (("diag", 60), ("dense", 40)), 50, "register"),  # diagonal + dense rows
-    (8, 57, 57, (("diag", 57),), 50, "register"),               # ragged n
-    (8, 57, 70, (("diag", 57),), 50, "register"),               # ragged n, trailing dense rows
-    (8, 40, 60, (("dense", 10), ("diag", 30)), 25, "register"),  # diagonal segment not first
-    (8, 40, 70, (("dense", 10), ("diag", 30), ("dense", 30)), 25, "register"),  # ... in the middle
-    (6, 90, 200, (("dense", 70), ("diag", 60), ("dense", 70)), 25, "shared"),
-    (3, 100, 800, (("dense", 350), ("diag", 100), ("dense", 350)), 10, "global"),
-    (64, 60, 200, (("blt", 5, 28, 12), ("diag", 60)), 25, "shared"),  # state bounds kept
-    (8, 24, 64, (("blt", 4, 8, 6), ("diag", 24), ("blockdiag", 4, 2, 6)), 25, "register"),
-    (4, 100, 150, (("diag", 100), ("dense", 50)), 25, "shared"),
-    (4, 100, 120, None, 25, "shared"),
-    (3, 100, 700, None, 10, "global"),                          # too big for shared memory
-    (8, 207, 354, "golden", 50, "global"),                      # the sparse-form golden QP
-    (4, 207, 354, "golden", 25, "global"),                      # a pretraining episode's chunk
-], ids=["random", "main", "dense60", "mixed", "ragged", "ragged-mixed", "diag-later",
-        "diag-middle", "diag-middle-shared", "diag-middle-global", "blt-diag",
-        "blt-diag-blockdiag", "shared-mixed", "shared-dense", "global", "golden", "golden-b4"])
-def test_kernel_matches_plain_version(cuda_device, B, n, m, segs, iters, want):
-    if segs == "golden":
-        args, segs = [a[:B] for a in _golden_args(cuda_device)], None
-    else:
-        args = _chunk_args(B, n, m, segs, cuda_device)
-    Ak, d0, mg = K.kernel_rows(args[1], segs)
-    assert Ak is args[1]  # one diagonal segment, wherever it stands: no copy of A
-    assert mg == next((s[1] for s in segs or () if s[0] == "diag"), 0)
-    assert K.variant(n, m, mg) == want
+def _golden_lanes(B, dev):
+    reps = (B + 7) // 8
+    return [torch.cat([a] * reps)[:B].contiguous() for a in _golden_args(dev)]
+
+
+def _assert_matches_plain(args, segs, iters, scaled=False):
+    """One launch of the wrapper against the plain version, around a float64
+    run of it (see the module docstring). ``scaled`` takes the tolerances
+    over max(1, max|reference|), as the smoke test does: a statement about
+    f32 reordering for iterates far above 1 (the golden QP's reach 1.4e2 in
+    x and 6.9e3 in y)."""
     kw = dict(iters=iters, sigma=1e-6, alpha=1.6, row_structure=segs)
     before = K.LAUNCHES
     kern = K.admm_chunk(*args, **kw)
@@ -134,17 +115,131 @@ def test_kernel_matches_plain_version(cuda_device, B, n, m, segs, iters, want):
         f32_noise = (p.double() - r).abs().max().item()
         # the widening stays far below the iterates: a diverging iteration,
         # whose f32 noise grows with it, fails here instead of passing
+        if scaled:
+            atol *= max(1.0, r.abs().max().item())
         assert bool(torch.isfinite(r).all()) and f32_noise <= 10 * atol, f32_noise
         torch.testing.assert_close(k.double(), r, rtol=0, atol=atol + f32_noise)
+
+
+@pytest.mark.parametrize("B,n,m,segs,iters,want", [
+    (4, 12, 18, None, 25, "register"),                          # test_pallas.py's random QP
+    (512, 60, 60, (("diag", 60),), 50, "register"),             # the main path
+    (16, 60, 60, None, 50, "register"),                         # dense at the main-path size
+    (8, 60, 100, (("diag", 60), ("dense", 40)), 50, "register"),  # diagonal + dense rows
+    (8, 57, 57, (("diag", 57),), 50, "register"),               # ragged n
+    (8, 57, 70, (("diag", 57),), 50, "register"),               # ragged n, trailing dense rows
+    (8, 40, 60, (("dense", 10), ("diag", 30)), 25, "register"),  # diagonal segment not first
+    (8, 40, 70, (("dense", 10), ("diag", 30), ("dense", 30)), 25, "register"),  # ... in the middle
+    (6, 90, 200, (("dense", 70), ("diag", 60), ("dense", 70)), 25, "shared"),
+    (3, 300, 3100, (("dense", 1400), ("diag", 300), ("dense", 1400)), 5, "global"),
+    (64, 60, 200, (("blt", 5, 28, 12), ("diag", 60)), 25, "shared"),  # state bounds kept
+    (8, 24, 64, (("blt", 4, 8, 6), ("diag", 24), ("blockdiag", 4, 2, 6)), 25, "register"),
+    (4, 100, 150, (("diag", 100), ("dense", 50)), 25, "shared"),
+    (4, 100, 120, None, 25, "shared"),
+    (2, 300, 3000, None, 5, "global"),                          # a lane no cluster can hold
+    (8, 207, 354, "golden", 50, "cluster"),                     # the sparse-form golden QP
+    (4, 207, 354, "golden", 25, "cluster"),                     # a pretraining episode's chunk
+], ids=["random", "main", "dense60", "mixed", "ragged", "ragged-mixed", "diag-later",
+        "diag-middle", "diag-middle-shared", "diag-middle-global", "blt-diag",
+        "blt-diag-blockdiag", "shared-mixed", "shared-dense", "global", "golden", "golden-b4"])
+def test_kernel_matches_plain_version(cuda_device, B, n, m, segs, iters, want):
+    if segs == "golden":
+        args, segs = [a[:B] for a in _golden_args(cuda_device)], None
+    else:
+        args = _chunk_args(B, n, m, segs, cuda_device)
+    Ak, d0, mg = K.kernel_rows(args[1], segs)
+    assert Ak is args[1]  # one diagonal segment, wherever it stands: no copy of A
+    assert mg == next((s[1] for s in segs or () if s[0] == "diag"), 0)
+    assert K.variant(n, m, mg, B) == want
+    _assert_matches_plain(args, segs, iters)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 25])
+@pytest.mark.parametrize("B", [1, 4, 5, 64])
+def test_cluster_variant_on_the_golden_set(cuda_device, B, iters):
+    """A lane's rows split over a cluster, at lane counts that change the
+    cluster size (16 CTAs a lane for few lanes, the smallest that holds the
+    lane for many) and at one that is a multiple of nothing."""
+    args = _golden_lanes(B, cuda_device)
+    assert K.variant(207, 354, 0, B) == "cluster"
+    assert K.cluster_size(207, 354, 0, B) in (4, 8, 16)
+    _assert_matches_plain(args, None, iters, scaled=True)
+
+
+def test_cluster_size_may_change_between_calls(cuda_device):
+    """Many lanes take the smallest cluster that holds a lane, few lanes a
+    larger, non-portable one: the second launch must not inherit the first
+    one's attributes."""
+    small, large = K.cluster_size(207, 354, 0, 64), K.cluster_size(207, 354, 0, 4)
+    assert small < large and large > 8
+    _assert_matches_plain(_golden_lanes(64, cuda_device), None, 5, scaled=True)
+    _assert_matches_plain(_golden_lanes(4, cuda_device), None, 5, scaled=True)
+    _assert_matches_plain(_golden_lanes(64, cuda_device), None, 5, scaled=True)
+
+
+@pytest.mark.parametrize("segs", [
+    (("diag", 150), ("dense", 500)),
+    (("dense", 237), ("diag", 150), ("dense", 263)),
+    (("dense", 650),),
+], ids=["diag-first", "diag-middle", "no-diag"])
+@pytest.mark.parametrize("iters", [0, 1, 25])
+def test_cluster_variant_with_a_diagonal_segment(cuda_device, segs, iters):
+    """Ragged slices (150 columns, 500 or 650 dense rows over 4, 8 or 16
+    CTAs) with the diagonal segment first, in the middle and absent."""
+    args = _chunk_args(5, 150, 650, segs, cuda_device)
+    mg = K.kernel_rows(args[1], segs)[2]
+    assert K.variant(150, 650, mg, 5) == "cluster"
+    _assert_matches_plain(args, segs, iters)
+
+
+@pytest.mark.parametrize("n,m", [(300, 340), (600, 640)], ids=["n300", "n600"])
+def test_cluster_variant_with_long_rows(cuda_device, n, m):
+    """Rows beyond 256 columns are shared by 16 threads, beyond 512 by 32
+    (a thread meets at most 8 float4 chunks of a row). Five iterations and
+    scaled tolerances: at these sizes the plain f32 version itself moves
+    away from the float64 run by more than the absolute tolerances within
+    ten iterations."""
+    segs = (("dense", 20), ("diag", n), ("dense", m - n - 20))
+    args = _chunk_args(3, n, m, segs, cuda_device)
+    assert K.variant(n, m, n, 3) == "cluster"
+    _assert_matches_plain(args, segs, 5, scaled=True)
+
+
+@pytest.mark.parametrize("declared", [True, False], ids=["blt-declared", "undeclared"])
+@pytest.mark.parametrize("m,facet_rows", [(200, 0), (380, 36)], ids=["m200", "m380"])
+def test_shared_variant_at_the_condensed_shapes(cuda_device, m, facet_rows, declared):
+    """n = 60 with the state-bound rows kept (m = 200) and with facet rows
+    behind the control rows (m = 380): the kernel agrees with the plain
+    version whether or not the block-lower-triangular rows are declared."""
+    full = (("blt", 5, 28, 12), ("diag", 60)) + ((("blt", 5, facet_rows, 12),) if facet_rows else ())
+    args = _chunk_args(16, 60, m, full, cuda_device)
+    segs = full if declared else (("dense", 140), ("diag", 60))
+    assert K.variant(60, m, 60, 16) == "shared" and K.cluster_size(60, m, 60, 16) == 1
+    _assert_matches_plain(args, segs, 25)
+
+
+@pytest.mark.parametrize("md,want", [(64, "register"), (65, "shared")])
+def test_variants_meet_at_the_register_limit(cuda_device, md, want):
+    """64 dense rows are the register variant's last shape; one more row
+    takes the shared variant."""
+    segs = (("dense", md - 30), ("diag", 60), ("dense", 30))
+    args = _chunk_args(8, 60, 60 + md, segs, cuda_device)
+    assert K.variant(60, 60 + md, 60, 8) == want
+    _assert_matches_plain(args, segs, 25)
 
 
 def test_kernel_picks_the_global_variant_when_smem_is_short(cuda_device):
     assert K.variant(60, 60, 60) == "register"
     assert K.variant(60, 124, 60) == "register"
     assert K.variant(60, 125, 60) == "shared"
-    assert K.variant(207, 354) == "global"
+    assert K.variant(60, 200, 60, 512) == "shared"
+    assert K.variant(207, 354, 0, 4) == "cluster" and K.variant(207, 354, 0, 512) == "cluster"
+    assert K.cluster_size(207, 354, 0, 4) > K.cluster_size(207, 354, 0, 512) >= 4
+    assert K.variant(300, 3000) == "global"  # 3.9 MB a lane: beyond 16 blocks
     with pytest.raises(ValueError, match="no variant"):
         K.variant(60, 60, 61)  # more diagonal rows than columns
+    with pytest.raises(ValueError, match="no variant"):
+        K.variant(60, 20000)  # the vectors alone exceed a block's shared memory
 
 
 def test_second_diagonal_segment_is_applied_through_a_copy(cuda_device):

@@ -25,6 +25,7 @@ def test_import_with_jax_blocked():
         "import gpmpc_tpu_torch.learning, gpmpc_tpu_torch.ops.kernels.admm_chunk\n"
         "import gpmpc_tpu_torch.reference, gpmpc_tpu_torch.main_path\n"
         "import gpmpc_tpu_torch.learning.hyperparameter_tuner, gpmpc_tpu_torch.profile_cycle\n"
+        "import gpmpc_tpu_torch.experiments.monte_carlo, gpmpc_tpu_torch.chunk_bench\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
