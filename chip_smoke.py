@@ -29,7 +29,13 @@ entry points a user calls, and checks the hand-written kernel on the way:
 8. the calibration path: the bound-riding GP-MPC cycle with the state bounds
    kept in the QP (the shared variant, one launch a cycle), timed, counted
    and held against the CPU, then the 90-step flight under a gust of known
-   σ, judged by the calibration campaign's own gate.
+   σ, judged by the calibration campaign's own gate;
+9. Path D, the 6-DoF quaternion GP-MPC cycle: ``pretrain_gp_6dof`` on the
+   card (sparse-form 6-DoF RTI episodes through the cluster variant, two
+   FITC fits, Adam tuning), the 512-lane cycle (the shared variant, one or
+   two launches a cycle) timed, counted and held against the CPU, then the
+   150-step landing campaign through ``run_campaign``, judged by its success
+   share.
 
 Everything worth reporting is printed before the last two lines: a JSON
 object with one entry per kernel, the card's name and power limit, and last
@@ -55,6 +61,7 @@ BATCH = 512
 ITERS = 50
 RTI_CHUNK = 25  # the default check interval: the RTI and pretraining paths' chunk
 DT = 0.1
+SIXDOF_SUCCESS = 0.98  # the 6-DoF campaign's success share floor
 # the TPU kernels this path's kernel replaces (gpmpc_tpu/ops/pallas)
 REPLACES = ("gpmpc_tpu/ops/pallas/admm_kernel.py:29 (_chunk_kernel via admm_chunk:75), "
             "gpmpc_tpu/ops/pallas/admm_kernel.py:137 (_lanes_kernel via make_admm_chunk_lanes:227)")
@@ -120,7 +127,9 @@ def phase_kernels():
     # The sparse-form golden shape is what the pretraining episodes solve
     # (5 lanes: a count that is a multiple of nothing); bounded50 is the
     # calibration path's chunk, facets the 6-DoF QP with cone facets at its
-    # bench's chunk of 30.
+    # bench's chunk of 30. sixdof and sparse6dof are Path D's two QPs at their
+    # real data: the cycle's condensed one (30 iterations a chunk) and the
+    # pretraining episodes' sparse one (n = 269, m = 493, every row dense).
     shapes = (("main", "main", 0, diag, ITERS, True), ("dense", "dense", 0, None, ITERS, True),
               ("golden", "golden", 8, None, ITERS, False),
               ("golden_b5", "golden", 5, None, RTI_CHUNK, False),
@@ -129,7 +138,10 @@ def phase_kernels():
               ("bounded50", "bounded", 0, BOUNDED_SEGS, ITERS, True),
               ("facets", "facets", 0, FACETS_SEGS, 30, True),
               ("golden_b4", "golden", 4, None, RTI_CHUNK, True),
-              ("golden_b512", "golden", BATCH, None, RTI_CHUNK, True))
+              ("golden_b512", "golden", BATCH, None, RTI_CHUNK, True),
+              ("sixdof", "sixdof", BATCH, BOUNDED_SEGS, 30, True),
+              ("sparse6dof", "sparse6dof", 4, None, RTI_CHUNK, True),
+              ("sparse6dof_b5", "sparse6dof", 5, None, RTI_CHUNK, False))
     for kind, inputs, lanes, segs, iters, timed in shapes:
         args = chunk_inputs(inputs, gen, golden, lanes)
         B, m, n = args[1].shape
@@ -474,6 +486,121 @@ def phase_calibration(gp, dev=torch.device("cuda")):
                 solves_per_s=BATCH * 1000.0 / host_ms, flight=obs, flight_launches=K.LAUNCHES)
 
 
+def phase_sixdof(dev=torch.device("cuda")):
+    """Path D: the 6-DoF GP fit on the card, the 512-lane 6-DoF GP-MPC cycle,
+    and the 150-step landing campaign with that GP."""
+    from gpmpc_tpu_torch.experiments import OUTCOME_NAMES
+    from gpmpc_tpu_torch.gp import sparse_lml
+    from gpmpc_tpu_torch.main_path import (SIXDOF_CHUNK, SIXDOF_ITERS, fly_sixdof, gp_fns,
+                                           sixdof_fleet_x0, sixdof_flight_x0, sixdof_path,
+                                           sixdof_pretrain_path)
+    from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
+    from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg, _n_rows
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    # the GP fit: four 64-step episodes of the sparse-form 6-DoF RTI
+    # controller, n = 269, m = 493, no row declared: the cluster variant
+    episodes, episode_len = 4, 64
+    K.LAUNCHES = 0  # counts from here on are this path's
+    t0 = time.time()
+    gp, mean_fn, var_fn = sixdof_pretrain_path(torch.Generator(device=dev).manual_seed(2), dev,
+                                               n_episodes=episodes, episode_len=episode_len)
+    torch.cuda.synchronize(dev)
+    seconds = time.time() - t0
+    pre_launches = K.LAUNCHES
+    variant, ctas = K.variant(269, 493, 0, episodes), K.cluster_size(269, 493, 0, episodes)
+    if variant != "cluster" or not episode_len <= pre_launches <= 4 * episode_len:
+        raise RuntimeError(f"the 6-DoF pretraining launched the {variant} variant {pre_launches} "
+                           f"times, expected the cluster one {episode_len} to {4 * episode_len} times")
+    (kt0, lnt0), (kr0, lnr0) = gp.initial_hyperparameters()
+    lml, lml0 = [], []
+    for g, k0, ln0 in ((gp.trans_gp, kt0, lnt0), (gp.rot_gp, kr0, lnr0)):
+        lml += sparse_lml(g.kernels, g.Z, g.X, g.Y, g.mask, g.log_noise, g.method).tolist()
+        lml0 += sparse_lml(k0, g.Z, g.X, g.Y, g.mask, ln0, g.method).tolist()
+    log(f"[sixdof] pretrain_gp_6dof: {episodes} episodes x {episode_len} cycles + 2 fits + tuning "
+        f"in {seconds:.2f} s: {int(gp.buffer_count)} points, {gp.trans_gp.Z.shape[0]} inducing, "
+        f"admm_chunk launches {pre_launches} ({variant} variant, {ctas} CTAs a lane); LML per "
+        f"output [d_v; d_w] untuned {[round(v, 2) for v in lml0]} tuned {[round(v, 2) for v in lml]}")
+    if not all(np.isfinite(lml)) or any(a < b for a, b in zip(lml, lml0)):
+        raise RuntimeError("a tuned 6-DoF marginal likelihood is non-finite or worse than untuned")
+
+    # the timed cycle: bench.py's 6-DoF fleet and configuration
+    sp = sixdof_path(dev)
+    cfg = sp.config
+    segs, m = _condensed_admm_cfg(cfg.base).row_structure, _n_rows(cfg.base)
+    cyc_variant = K.variant(N * 3, m, N * 3, BATCH)
+    if segs != (("blt", 5, 28, 12), ("diag", 60)) or m != 200 or cyc_variant != "shared":
+        raise RuntimeError(f"the 6-DoF QP is {segs}, m = {m}, variant {cyc_variant}")
+    xs = sixdof_fleet_x0(torch.Generator(device=dev).manual_seed(7), BATCH, dev)
+    state = gp_mpc_init(cfg, xs, sp.x_target, device=dev)
+
+    def cycle(state, xs):
+        sol, state = gp_mpc_solve(sp.F, mean_fn, var_fn, cfg, state, xs)
+        return sol, state, sp.F_true(xs, sol.u0)
+
+    cycles = 20
+    sol, state, xs, dev_ms, host_ms, launches = _time_cycles(
+        cycle, state, xs, cycles, dev, "the 6-DoF path")
+    chunks = SIXDOF_ITERS // SIXDOF_CHUNK
+    if not cycles <= launches <= chunks * cycles:  # the second chunk is skipped when all converge
+        raise RuntimeError(f"admm_chunk launched {launches} times in {cycles} 6-DoF cycles, "
+                           f"expected {cycles} to {chunks * cycles}")
+    log(f"[sixdof] {cycles} cycles x {BATCH} lanes: {dev_ms:.3f} ms/cycle (CUDA events), "
+        f"{host_ms:.3f} ms/cycle (host clock), {BATCH * 1000.0 / host_ms:.1f} solves/s; "
+        f"admm_chunk launches {launches} ({launches / cycles:.2f}/cycle, {cyc_variant} variant); "
+        f"accepted {float(sol.success.float().mean()):.4f}")
+
+    lanes = 8
+    cpu = torch.device("cpu")
+    st_gpu, x_gpu = _first_lanes(state, lanes), xs[:lanes]
+    sol_g, _ = gp_mpc_solve(sp.F, mean_fn, var_fn, cfg, st_gpu, x_gpu)
+    sp_c = sixdof_path(cpu)
+    mean_c, var_c = gp_fns(_to(gp, cpu))
+    sol_c, _ = gp_mpc_solve(sp_c.F, mean_c, var_c, sp_c.config, _to(st_gpu, cpu), x_gpu.cpu())
+    du = (sol_g.u0.cpu() - sol_c.u0).abs().max().item()
+    dX = (sol_g.X_opt.cpu() - sol_c.X_opt).abs().max().item()
+    log(f"[sixdof] card vs CPU, one cycle at {lanes} lanes: max|du0|={du:.3e} "
+        f"max|dX_opt|={dX:.3e} (atol 1e-3)")
+    if du > 1e-3 or dX > 1e-3:
+        raise RuntimeError("the card's 6-DoF cycle disagrees with the CPU reference")
+
+    # the landing campaign as scripts/run_campaign_tpu.py --model 6dof
+    # --controller gp_mpc --rt flies it, with the bench's elided rows
+    x0s = sixdof_flight_x0(torch.Generator(device=dev).manual_seed(0), BATCH, dev)
+    K.LAUNCHES = 0
+    t0 = time.time()
+    res, stats = fly_sixdof(sp, mean_fn, var_fn, x0s)
+    torch.cuda.synchronize(dev)
+    flight_s, flight_launches = time.time() - t0, K.LAUNCHES
+    ok = res["outcome"] == 0
+    v, err = res["landing_speed"], res["landing_error"]
+    counts = {k: int(c) for k, c in stats["outcome_counts"].items()}
+    flight = dict(success_share=float(stats["success_rate"]),
+                  landing_speed_mean=float(stats["landing_speed_mean"]),
+                  landing_speed_worst=float(v[ok].max()) if bool(ok.any()) else float("nan"),
+                  landing_error_mean=float(stats["landing_error_mean"]),
+                  fuel_used_mean=float(stats["fuel_used_mean"]),
+                  steps_mean=float(stats["steps_mean"]), outcome_counts=counts,
+                  seconds=flight_s, launches=flight_launches)
+    log(f"[sixdof] campaign of {BATCH} lanes, up to 150 steps, in {flight_s:.1f} s "
+        f"({flight_launches} launches): {json.dumps(flight)}")
+    bad = (~ok).nonzero()[:, 0][:8].tolist()
+    for i in bad:  # the lanes that did not land, for a rehearsal in both packages
+        xf = res["x_final"][i]
+        log(f"[sixdof] lane {i}: {OUTCOME_NAMES[int(res['outcome'][i])]} after "
+            f"{int(res['steps'][i])} steps, x0 {[round(v, 6) for v in x0s[i].tolist()]}, "
+            f"touchdown |v| {float(v[i]):.4f} m/s, error {float(err[i]):.4f} m, "
+            f"|w| {float(xf[11:].norm()):.4f} rad/s, q {[round(v, 4) for v in xf[7:11].tolist()]}")
+    if not all(np.isfinite([flight["landing_speed_mean"], flight["landing_error_mean"]])):
+        raise RuntimeError("non-finite 6-DoF campaign statistics")
+    if flight["success_share"] < SIXDOF_SUCCESS:
+        raise RuntimeError(f"the 6-DoF campaign's success share {flight['success_share']:.4f} "
+                           f"is under {SIXDOF_SUCCESS} (failing lanes above)")
+    return dict(pretrain_s=seconds, pretrain_launches=pre_launches, lml=lml, launches=launches,
+                ms_per_cycle=dev_ms, host_ms_per_cycle=host_ms,
+                solves_per_s=BATCH * 1000.0 / host_ms, du0=du, flight=flight)
+
+
 def main():
     smi = phase_card()
     phase_build()
@@ -483,6 +610,7 @@ def main():
     rti_res = phase_rti()
     pre_res, production_gp = phase_pretrain()
     cal_res = phase_calibration(production_gp)
+    six_res = phase_sixdof()
     log(f"[summary] main path {main_res['ms_per_cycle']:.3f} ms/cycle, "
         f"{main_res['solves_per_s']:.1f} solves/s, landing success {land['success_share']:.4f}; "
         f"RTI path {rti_res['ms_per_cycle']:.3f} ms/cycle, landing success "
@@ -490,7 +618,11 @@ def main():
         f"landing success with its GP {pre_res['landing']['success_share']:.4f}; "
         f"calibration path {cal_res['ms_per_cycle']:.3f} ms/cycle, violation upper bound "
         f"{cal_res['flight']['realized_upper95']:.5f}, one-step coverage "
-        f"{cal_res['flight']['one_step_coverage']:.4f}, landed {cal_res['flight']['landed_rate']:.4f}")
+        f"{cal_res['flight']['one_step_coverage']:.4f}, landed {cal_res['flight']['landed_rate']:.4f}; "
+        f"6-DoF path {six_res['ms_per_cycle']:.3f} ms/cycle, pretraining {six_res['pretrain_s']:.2f} s, "
+        f"campaign success {six_res['flight']['success_share']:.4f}, touchdown "
+        f"{six_res['flight']['landing_speed_mean']:.4f} m/s, error "
+        f"{six_res['flight']['landing_error_mean']:.4f} m")
     main_t = timings[0]
     kernels = [{
         "name": "admm_chunk",
@@ -502,7 +634,10 @@ def main():
                              "pretrain": pre_res["launches"],
                              "pretrained_landing": pre_res["landing_launches"],
                              "calibration": cal_res["launches"],
-                             "calibration_flight": cal_res["flight_launches"]},
+                             "calibration_flight": cal_res["flight_launches"],
+                             "sixdof": six_res["launches"],
+                             "sixdof_pretrain": six_res["pretrain_launches"],
+                             "sixdof_flight": six_res["flight"]["launches"]},
         "max_abs_err": main_t["max_abs_err"],
         "ms": main_t["ms"],
         "eager_ms": main_t["eager_ms"],

@@ -116,6 +116,44 @@ def _structured_rows(segs, B, n, gen, dev):
     return torch.cat(blocks, dim=1)
 
 
+def sixdof_qp(kind, lanes, gen, dev):
+    """The first-cycle QP of a 6-DoF path at its real data, ``lanes`` lanes:
+    "sixdof", Path D's condensed QP (``main_path.sixdof_path``: n = 60,
+    m = 200, translation bounds elided, rows BOUNDED_SEGS) for a fleet at
+    15 ± 2 m; "sparse6dof", the sparse-form QP of the 6-DoF pretraining
+    episodes (``rti_config_6dof(N=15)``: n = 269, m = 224 equality rows then
+    269 bound rows, every row dense) for initial states drawn as
+    ``collect_residuals_6dof`` draws them. The linearization trajectory is
+    the re-anchored rollout of hover thrust, as the controllers' first cycle
+    makes it."""
+    from .dynamics import trajectory_jacobians
+    from .main_path import sixdof_fleet_x0, sixdof_path
+    from .mpc import rti_config_6dof, rti_init
+    from .mpc.rti import _build_rti_qp, _rollout
+    from .ops.qp import build_condensed_qp
+
+    sp = sixdof_path(dev)
+    if kind == "sixdof":
+        cfg = sp.config.base
+        x0s = sixdof_fleet_x0(gen, lanes, dev)
+    else:
+        cfg = rti_config_6dof(sp.params, N=15)
+        u = torch.rand(lanes, 3, generator=gen, device=dev)
+        x0s = sp.x_target.repeat(lanes, 1)
+        x0s[:, 1] = 17.0 + 6.0 * u[:, 0]
+        x0s[:, 4] = -3.5 + 1.5 * u[:, 1]
+        x0s[:, 5] = 0.6 * (u[:, 2] - 0.5)
+    st = rti_init(cfg, x0s, sp.x_target)
+    X = _rollout(sp.F, x0s, st.U_lin)
+    Aks, Bks, cks = trajectory_jacobians(sp.F, X, st.U_lin)
+    if kind == "sparse6dof":
+        return _build_rti_qp(cfg, Aks, Bks, cks, x0s, st.x_ref)
+    ref = sp.reference_fn(x0s)[:, :cfg.N + 1]
+    return build_condensed_qp(Aks, Bks, cks, x0s, cfg.Q, cfg.R, cfg.Qf, ref, cfg.x_min,
+                              cfg.x_max, cfg.u_min, cfg.u_max,
+                              x_bound_mask=cfg.x_bound_mask)[0]
+
+
 def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     """Chunk operands on the card: (Minv, A, q, l, u, rho_v, x, z, y).
     "main": 512 lanes, n = m = 60, A the identity control-bound rows as
@@ -125,12 +163,15 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     "facets": n = 60, m = 380, the same with 20 glideslope and 160 cone-facet
     rows behind the identity (FACETS_SEGS);
     "golden": ``lanes`` sparse-form golden QPs (n = 207, m = 354), the four of
-    ``golden_path`` repeated."""
+    ``golden_path`` repeated; "sixdof" and "sparse6dof": ``lanes`` lanes of
+    the 6-DoF paths' QPs (:func:`sixdof_qp`)."""
     from .ops.qp import QPData, ruiz_equilibrate
     from .ops.qp.admm import _factor, _rho_vec
 
     dev = torch.device("cuda")
-    if kind == "golden":
+    if kind in ("sixdof", "sparse6dof"):
+        data = sixdof_qp(kind, lanes, gen, dev)
+    elif kind == "golden":
         fx = np.load(golden_path)
         names = (("canonical", "high_fast", "low_slow", "lateral") * ((lanes + 3) // 4))[:lanes]
         stack = lambda p: torch.tensor(np.stack([fx[f"{s}/{p}"] for s in names]),

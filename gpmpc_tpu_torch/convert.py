@@ -19,6 +19,14 @@ factors):
 - ``buffer_X``, ``buffer_Y``, ``buffer_head``, ``buffer_count`` — the store;
 - optionally ``method`` (default "fitc") and ``config`` (a dict of
   ``StructuredGPConfig`` fields).
+
+``structured_rocket_gp_from_numpy`` expects the same keys for each of a
+fitted ``StructuredRocketGP``'s two GPs and stores, prefixed ``trans_`` and
+``rot_`` (``trans_Z``, …, ``rot_buffer_count``), plus the optional
+unprefixed ``config``.
+
+``rocket6dof_params_from_fields`` expects the fields of a
+``Rocket6DoFParams`` (the vectors and matrices as NumPy arrays).
 """
 
 from __future__ import annotations
@@ -30,7 +38,15 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, as_f32, resolve_device
-from .gp import Simple3DoFFeatureExtractor, Simple3DoFGP, StructuredGPConfig
+from .dynamics import Rocket6DoFParams
+from .gp import (
+    RotationalFeatureExtractor,
+    Simple3DoFFeatureExtractor,
+    Simple3DoFGP,
+    StructuredGPConfig,
+    StructuredRocketGP,
+    TranslationalFeatureExtractor,
+)
 from .gp.kernels import SquaredExponentialARD
 from .gp.sparse_gp import MultiOutputSparseGPState
 from .gp.structured_gp import RingBuffer
@@ -38,23 +54,47 @@ from .mpc import GPMPCConfig, RTIConfig, RTIState
 from .ops.qp import ADMMConfig
 
 
-def simple3dof_gp_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda") -> Simple3DoFGP:
-    dev = resolve_device(device)
-    f = lambda k: as_f32(np.array(d[k]), dev)
-    i32 = lambda k: torch.as_tensor(np.array(d[k]), dtype=torch.int32, device=dev)
+def _sparse_gp(d: Dict[str, Any], prefix: str, dev: torch.device):
+    """(MultiOutputSparseGPState, RingBuffer) from the ``prefix``-ed keys."""
+    f = lambda k: as_f32(np.array(d[prefix + k]), dev)
+    i32 = lambda k: torch.as_tensor(np.array(d[prefix + k]), dtype=torch.int32, device=dev)
     kernels = SquaredExponentialARD(log_variance=f("log_variance"),
                                     log_lengthscales=f("log_lengthscales"))
     gp = MultiOutputSparseGPState(
         kernels=kernels, Z=f("Z"), X=f("X"), Y=f("Y"),
-        mask=torch.as_tensor(np.array(d["mask"]), dtype=torch.bool, device=dev),
-        log_noise=f("log_noise"), method=str(d.get("method", "fitc")),
+        mask=torch.as_tensor(np.array(d[prefix + "mask"]), dtype=torch.bool, device=dev),
+        log_noise=f("log_noise"), method=str(d.get(prefix + "method", "fitc")),
         Luu_inv=f("Luu_inv"), LB_inv=f("LB_inv"), c=f("c"),
     )
     buf = RingBuffer(X=f("buffer_X"), Y=f("buffer_Y"),
                      head=i32("buffer_head"), count=i32("buffer_count"))
+    return gp, buf
+
+
+def simple3dof_gp_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda") -> Simple3DoFGP:
+    gp, buf = _sparse_gp(d, "", resolve_device(device))
     cfg = _dataclass_from(StructuredGPConfig, d.get("config", {}))
     return Simple3DoFGP(config=cfg, extractor=Simple3DoFFeatureExtractor(),
                         buffer=buf, gp=gp, is_fitted=True)
+
+
+def structured_rocket_gp_from_numpy(d: Dict[str, Any],
+                                    device: DeviceLike = "cuda") -> StructuredRocketGP:
+    dev = resolve_device(device)
+    trans_gp, trans_buf = _sparse_gp(d, "trans_", dev)
+    rot_gp, rot_buf = _sparse_gp(d, "rot_", dev)
+    return StructuredRocketGP(
+        config=_dataclass_from(StructuredGPConfig, d.get("config", {})),
+        trans_extractor=TranslationalFeatureExtractor(),
+        rot_extractor=RotationalFeatureExtractor(),
+        trans_buffer=trans_buf, rot_buffer=rot_buf, trans_gp=trans_gp, rot_gp=rot_gp,
+        is_fitted=True)
+
+
+def rocket6dof_params_from_fields(d: Dict[str, Any],
+                                  device: DeviceLike = "cuda") -> Rocket6DoFParams:
+    """The port's ``Rocket6DoFParams`` from the JAX params' field values."""
+    return _dataclass_from(Rocket6DoFParams, d, device=resolve_device(device))
 
 
 def rti_state_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda") -> RTIState:

@@ -1,6 +1,7 @@
 """Experiments layer, as far as the port's paths reach: the landing criteria,
 the campaign scenario, the initial-condition sampler, the touchdown
-classifier and the Wilson interval of ``monte_carlo``."""
+classifier, the episode loop, the campaign and its statistics, and the
+Wilson interval of ``monte_carlo``."""
 
 from .monte_carlo import (
     CONSTRAINT_VIOLATION,
@@ -13,11 +14,15 @@ from .monte_carlo import (
     TIMEOUT,
     LandingCriteria,
     SimulationConfig,
+    campaign_statistics,
     classify_touchdown,
+    run_campaign,
+    run_episode,
     sample_initial_conditions,
     wilson_interval,
 )
 
 __all__ = ["CONSTRAINT_VIOLATION", "CRASH", "DIVERGENCE", "FUEL_EXHAUSTED", "OUTCOME_NAMES",
            "RUNNING", "SUCCESS", "TIMEOUT", "LandingCriteria", "SimulationConfig",
-           "classify_touchdown", "sample_initial_conditions", "wilson_interval"]
+           "campaign_statistics", "classify_touchdown", "run_campaign", "run_episode",
+           "sample_initial_conditions", "wilson_interval"]

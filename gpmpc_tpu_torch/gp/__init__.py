@@ -1,7 +1,18 @@
-"""Gaussian-process layer of the 3-DoF slice."""
+"""Gaussian-process layer: features, kernels, sparse GPs and the structured
+residual models of both rockets."""
 
 from .exact_gp import GPPrediction
-from .features import AtmosphereModel, Simple3DoFFeatureExtractor, simple_3dof_features
+from .features import (
+    AtmosphereModel,
+    CombinedFeatureExtractor,
+    RotationalFeatureExtractor,
+    Simple3DoFFeatureExtractor,
+    TranslationalFeatureExtractor,
+    combined_features,
+    rotational_features,
+    simple_3dof_features,
+    translational_features,
+)
 from .kernels import SquaredExponentialARD, create_kernel
 from .online_update import ResidualCollector
 from .sparse_gp import (
@@ -12,13 +23,14 @@ from .sparse_gp import (
     refit_sparse_multi,
     sparse_lml,
 )
-from .structured_gp import RingBuffer, Simple3DoFGP, StructuredGPConfig
+from .structured_gp import RingBuffer, Simple3DoFGP, StructuredGPConfig, StructuredRocketGP
 
 __all__ = [
-    "AtmosphereModel", "GPPrediction", "MultiOutputSparseGPState",
-    "ResidualCollector", "RingBuffer", "Simple3DoFFeatureExtractor",
-    "Simple3DoFGP", "SquaredExponentialARD", "StructuredGPConfig",
-    "create_kernel", "fit_sparse_multi", "init_inducing_points",
-    "predict_sparse_multi", "refit_sparse_multi", "simple_3dof_features",
-    "sparse_lml",
+    "AtmosphereModel", "CombinedFeatureExtractor", "GPPrediction", "MultiOutputSparseGPState",
+    "ResidualCollector", "RingBuffer", "RotationalFeatureExtractor",
+    "Simple3DoFFeatureExtractor", "Simple3DoFGP", "SquaredExponentialARD",
+    "StructuredGPConfig", "StructuredRocketGP", "TranslationalFeatureExtractor",
+    "combined_features", "create_kernel", "fit_sparse_multi", "init_inducing_points",
+    "predict_sparse_multi", "refit_sparse_multi", "rotational_features",
+    "simple_3dof_features", "sparse_lml", "translational_features",
 ]

@@ -1,7 +1,13 @@
-"""The 3-DoF residual GP (counterpart of ``Simple3DoFGP`` and its helpers in
-``gpmpc_tpu/gp/structured_gp.py``): a three-output sparse GP on the 11-dim
-3-DoF features, learning the velocity residual, with a fixed-capacity FIFO
-data store."""
+"""Structured residual GPs (counterpart of ``gpmpc_tpu/gp/structured_gp.py``):
+
+- :class:`StructuredRocketGP`, the 6-DoF model: separate three-output sparse
+  GPs for the translational (d_v) and rotational (d_ω) acceleration
+  residuals, on the 13-dim translational and 12-dim rotational features;
+- :class:`Simple3DoFGP`, the 3-DoF model: one three-output sparse GP on the
+  11-dim 3-DoF features, learning the velocity residual;
+
+each with fixed-capacity FIFO data stores. Not ported yet: the masked batch
+insert, the novelty test and persistence."""
 
 from __future__ import annotations
 
@@ -12,13 +18,18 @@ from typing import Optional, Tuple
 import torch
 
 from .._device import DeviceLike, resolve_device
-from .features import Simple3DoFFeatureExtractor
+from .features import (
+    RotationalFeatureExtractor,
+    Simple3DoFFeatureExtractor,
+    TranslationalFeatureExtractor,
+)
 from .kernels import create_kernel, stack_kernels
 from .sparse_gp import (
     MultiOutputSparseGPState,
     fit_sparse_multi,
     init_inducing_points,
     predict_sparse_multi,
+    refit_sparse_multi,
 )
 
 
@@ -29,6 +40,10 @@ class StructuredGPConfig:
     kernel: str = "se_ard"
     method: str = "fitc"
     noise: float = 1e-4
+    # fixed ARD lengthscale inits per feature group (tuples); None: data-driven
+    trans_lengthscales: Optional[tuple] = None
+    rot_lengthscales: Optional[tuple] = None
+    signal_variance: float = 1.0
 
 
 @dataclass
@@ -95,6 +110,141 @@ def _data_lengthscales(X: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (torch.sqrt(var) * math.sqrt(float(d))).clamp_min(0.1)
 
 
+def _initial_hyperparameters(cfg: StructuredGPConfig, buf: RingBuffer, d: int,
+                             fixed_ls=None, variance: float = 1.0):
+    """(kernels, log_noise) a three-output fit on ``buf`` starts from: the
+    fixed or data-driven ARD lengthscales and the configured noise."""
+    dev = buf.X.device
+    ls = (torch.as_tensor(fixed_ls, dtype=torch.float32, device=dev) if fixed_ls is not None
+          else _data_lengthscales(buf.X, buf.mask))
+    kernels = _stacked_kernels(cfg.kernel, d, 3, ls, variance=variance, device=dev)
+    return kernels, torch.full((3,), math.log(cfg.noise), device=dev)
+
+
+def _fit_buffer(cfg: StructuredGPConfig, buf: RingBuffer, kernels, generator, init_idx
+                ) -> MultiOutputSparseGPState:
+    Z = init_inducing_points(buf.X, min(cfg.n_inducing, buf.capacity), mask=buf.mask,
+                             generator=generator, init_idx=init_idx)
+    return fit_sparse_multi(kernels, buf.X, buf.Y, Z, noise=cfg.noise, mask=buf.mask,
+                            method=cfg.method)
+
+
+def _refit(g: MultiOutputSparseGPState, buf: RingBuffer) -> MultiOutputSparseGPState:
+    return refit_sparse_multi(g.kernels, g.Z, buf.X, buf.Y.T.contiguous(), buf.mask,
+                              g.log_noise, g.method)
+
+
+def _predict(g: MultiOutputSparseGPState, F: torch.Tensor):
+    """(mean, var), each (..., n_out), at features F with any leading dims."""
+    lead = F.shape[:-1]
+    pr = predict_sparse_multi(g, F.reshape(-1, F.shape[-1]))
+    n_out = pr.mean.shape[-1]
+    return pr.mean.reshape(*lead, n_out), pr.variance.reshape(*lead, n_out)
+
+
+@dataclass
+class StructuredRocketGP:
+    """Six-output residual model of the 6-DoF rocket: d_v from translational
+    features, d_ω from rotational features, each a three-output sparse GP
+    with its own data store (both stores fill in lockstep)."""
+
+    config: StructuredGPConfig
+    trans_extractor: TranslationalFeatureExtractor
+    rot_extractor: RotationalFeatureExtractor
+    trans_buffer: RingBuffer
+    rot_buffer: RingBuffer
+    trans_gp: Optional[MultiOutputSparseGPState] = None
+    rot_gp: Optional[MultiOutputSparseGPState] = None
+    is_fitted: bool = False
+
+    @classmethod
+    def create(cls, config: Optional[StructuredGPConfig] = None,
+               device: DeviceLike = "cuda") -> "StructuredRocketGP":
+        cfg = config or StructuredGPConfig()
+        te, re = TranslationalFeatureExtractor(), RotationalFeatureExtractor()
+        return cls(config=cfg, trans_extractor=te, rot_extractor=re,
+                   trans_buffer=RingBuffer.create(cfg.max_data_points, te.n_features, 3,
+                                                  device=device),
+                   rot_buffer=RingBuffer.create(cfg.max_data_points, re.n_features, 3,
+                                                device=device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.trans_buffer.X.device
+
+    @property
+    def buffer_count(self) -> torch.Tensor:
+        return self.trans_buffer.count
+
+    def add_data_batch(self, X, U, residuals) -> "StructuredRocketGP":
+        """Store a batch of transitions; ``residuals`` is (n, 6) = [d_v, d_ω]."""
+        return replace(
+            self,
+            trans_buffer=self.trans_buffer.add_batch(self.trans_extractor.extract(X, U),
+                                                     residuals[:, :3]),
+            rot_buffer=self.rot_buffer.add_batch(self.rot_extractor.extract(X, U),
+                                                 residuals[:, 3:6]))
+
+    def initial_hyperparameters(self):
+        """((kernels, log_noise) translational, (kernels, log_noise)
+        rotational) a fit starts from."""
+        cfg = self.config
+        return (_initial_hyperparameters(cfg, self.trans_buffer, self.trans_extractor.n_features,
+                                         cfg.trans_lengthscales, cfg.signal_variance),
+                _initial_hyperparameters(cfg, self.rot_buffer, self.rot_extractor.n_features,
+                                         cfg.rot_lengthscales, cfg.signal_variance))
+
+    def fit(self, generator: Optional[torch.Generator] = None,
+            init_idx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+            ) -> "StructuredRocketGP":
+        """Fit both sparse GPs on the stored data. ``generator`` draws the
+        translational, then the rotational k-means start; ``init_idx`` (a
+        pair) fixes them instead."""
+        (kt, _), (kr, _) = self.initial_hyperparameters()
+        it, ir = (None, None) if init_idx is None else init_idx
+        return replace(
+            self,
+            trans_gp=_fit_buffer(self.config, self.trans_buffer, kt, generator, it),
+            rot_gp=_fit_buffer(self.config, self.rot_buffer, kr, generator, ir),
+            is_fitted=True)
+
+    def refit(self) -> "StructuredRocketGP":
+        """Refit on the current stores, keeping kernels and inducing points."""
+        return replace(self, trans_gp=_refit(self.trans_gp, self.trans_buffer),
+                       rot_gp=_refit(self.rot_gp, self.rot_buffer))
+
+    def predict(self, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, var), each (..., 6) = [d_v, d_ω], at states/controls with any
+        leading dims."""
+        mt, vt = _predict(self.trans_gp, self.trans_extractor.extract(x, u))
+        mr, vr = _predict(self.rot_gp, self.rot_extractor.extract(x, u))
+        return torch.cat([mt, mr], dim=-1), torch.cat([vt, vr], dim=-1)
+
+    predict_batch = predict
+
+    def prior_variance(self) -> torch.Tensor:
+        """(6,) prior variances of the outputs."""
+        return torch.exp(torch.cat([self.trans_gp.kernels.log_variance,
+                                    self.rot_gp.kernels.log_variance]))
+
+    def predict_gated(self, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Variance-gated mean: scaled by w = clip(1 − σ²/σ²_prior, 0, 1) per
+        output, so the correction fades to zero where the GP has no data."""
+        mean, var = self.predict(x, u)
+        w = (1.0 - var / self.prior_variance().clamp_min(1e-12)).clamp(0.0, 1.0)
+        return mean * w, var
+
+    @staticmethod
+    def lift_residual(residual6: torch.Tensor, n_x: int = 14) -> torch.Tensor:
+        """[d_v, d_ω] (..., 6) → full-state residual (..., n_x): d_v into the
+        velocity slice [4:7], d_ω into the rate slice [11:14]."""
+        z = lambda k: residual6.new_zeros(*residual6.shape[:-1], k)
+        if n_x < 14:
+            return torch.cat([z(4), residual6[..., :3], z(n_x - 7)], dim=-1)
+        return torch.cat([z(4), residual6[..., :3], z(4), residual6[..., 3:6], z(n_x - 14)],
+                         dim=-1)
+
+
 @dataclass
 class Simple3DoFGP:
     """Three-output velocity-residual GP on 11-dim features."""
@@ -125,34 +275,20 @@ class Simple3DoFGP:
     def initial_hyperparameters(self):
         """(kernels, log_noise) a fit starts from: data-driven ARD
         lengthscales on the buffered features and the configured noise."""
-        b = self.buffer
-        kernels = _stacked_kernels(
-            self.config.kernel, self.extractor.n_features, 3,
-            _data_lengthscales(b.X, b.mask), device=self.device)
-        log_noise = torch.full((3,), math.log(self.config.noise), device=self.device)
-        return kernels, log_noise
+        return _initial_hyperparameters(self.config, self.buffer, self.extractor.n_features)
 
     def fit(self, generator: Optional[torch.Generator] = None,
             init_idx: Optional[torch.Tensor] = None) -> "Simple3DoFGP":
         """Fit the sparse GP on the buffered data. ``generator`` draws the
         k-means start (``init_idx`` fixes it instead)."""
-        cfg = self.config
-        b = self.buffer
         kernels, _ = self.initial_hyperparameters()
-        Z = init_inducing_points(b.X, min(cfg.n_inducing, b.capacity),
-                                 mask=b.mask, generator=generator,
-                                 init_idx=init_idx)
-        gp = fit_sparse_multi(kernels, b.X, b.Y, Z, noise=cfg.noise,
-                              mask=b.mask, method=cfg.method)
-        return replace(self, gp=gp, is_fitted=True)
+        return replace(self, gp=_fit_buffer(self.config, self.buffer, kernels, generator,
+                                            init_idx), is_fitted=True)
 
     def predict(self, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, var), each (..., 3), at states/controls with any leading
         dims."""
-        lead = x.shape[:-1]
-        F = self.extractor.extract(x, u).reshape(-1, self.extractor.n_features)
-        pr = predict_sparse_multi(self.gp, F)
-        return pr.mean.reshape(*lead, 3), pr.variance.reshape(*lead, 3)
+        return _predict(self.gp, self.extractor.extract(x, u))
 
     def predict_gated(self, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
         """Variance-gated mean: scaled by w = clip(1 − σ²/σ²_prior, 0, 1) per

@@ -11,7 +11,12 @@ kernel selected (``use_pallas="auto"``):
   chance-constraint calibration campaign (``scripts/run_calibration_tpu.py``):
   the state bounds stay in the condensed QP (n = 60, m = 200), a fleet rides
   the tightened descent-speed bound under a gust of known σ, and
-  :func:`fly_calibration` returns the campaign's observables.
+  :func:`fly_calibration` returns the campaign's observables;
+- :func:`sixdof_path` — Path D, the 6-DoF quaternion GP-MPC cycle the bench
+  times as ``gp_mpc_6dof_*`` (``bench.py:324-381``), and the 6-DoF landing
+  campaign ``scripts/run_campaign_tpu.py --model 6dof --controller gp_mpc
+  --rt`` flies with it (:func:`fly_sixdof`); :func:`sixdof_pretrain_path`
+  fits its GP.
 
 ``chip_smoke.py`` and ``gpmpc_tpu_torch/profile_cycle.py`` drive them.
 """
@@ -23,10 +28,11 @@ from typing import Callable, Dict, NamedTuple
 import torch
 
 from ._device import DeviceLike, resolve_device
-from .dynamics import Rocket3DoFParams, rocket3dof as r3
-from .learning.pretrain import gp_fns, pretrain_gp_3dof  # noqa: F401  (gp_fns: re-exported for chip_smoke.py)
-from .experiments import SimulationConfig, sample_initial_conditions, wilson_interval
-from .mpc import GPMPCConfig, RTIConfig, gp_mpc_solve, make_gp_mpc_controller
+from .dynamics import Rocket3DoFParams, Rocket6DoFParams, rocket3dof as r3, rocket6dof as r6
+from .learning.pretrain import gp_fns, pretrain_gp_3dof, pretrain_gp_6dof  # noqa: F401  (gp_fns: re-exported for chip_smoke.py)
+from .experiments import (SimulationConfig, campaign_statistics, run_campaign,
+                          sample_initial_conditions, wilson_interval)
+from .mpc import GPMPCConfig, RTIConfig, gp_mpc_solve, make_gp_mpc_controller, rti_config_6dof
 from .mpc.constraints import normal_quantile
 from .ops.qp import ADMMConfig
 from .reference import cubic_descent_reference, pad_reference
@@ -260,3 +266,92 @@ def fly_calibration(cp: CalibrationPath, mean_fn: Callable, var_fn: Callable,
         "landed_rate": float((x[:, 1] <= 0.1).float().mean()),
         "steps_to_land_mean": airborne / x.shape[0],
     }
+
+
+SIXDOF_ITERS = 60  # the 6-DoF real-time ADMM budget, in chunks of 30 (bench.py:347)
+SIXDOF_CHUNK = 30
+SIXDOF_STEPS = 150  # the campaign's episode length
+SIXDOF_REF_STEPS = 100  # its cubic reference's length (run_campaign_tpu.py --ref-steps)
+
+
+class SixDoFPath(NamedTuple):
+    params: Rocket6DoFParams  # the controller's nominal model
+    F: Callable  # nominal step
+    F_true: Callable  # dispersed plant: light aero and a steady wind
+    config: GPMPCConfig
+    x_target: torch.Tensor
+    reference_fn: Callable  # x0s (B, 14) → each lane's cubic descent reference
+
+
+def sixdof_path(device: DeviceLike = "cuda") -> SixDoFPath:
+    """Path D: the bench's 6-DoF configuration (``bench.py:337-353``). The
+    nominal model is the Szmuk rocket; the plant adds aero (ρ = 0.8, C_A =
+    0.05·I) and dt·wind with wind 0.10 on x[5] and 0.06 on x[6]. The QP is
+    condensed with the translation bound rows elided: n = 60, m = 200
+    (7 × 20 attitude and rate bound rows, then the controls), declared
+    ``("blt", 5, 28, 12), ("diag", 60)``; 60 ADMM iterations in two chunks of
+    30, no polish, no adaptive ρ, no certificates; one SCP iteration with
+    the GP tape and the chance tightening."""
+    dev = resolve_device(device)
+    p = Rocket6DoFParams(device=dev)
+    p_true = p.replace(rho=0.8, C_A=0.05 * torch.eye(3))
+    wind = torch.zeros(14, device=dev)
+    wind[5], wind[6] = 0.10, 0.06
+    base = rti_config_6dof(
+        p, N=N, bound_translation=False,
+        admm=ADMMConfig(max_iter=SIXDOF_ITERS, check_interval=SIXDOF_CHUNK, polish=False,
+                        adaptive_rho=False, scaling=2, infeas_certs=False, use_pallas="auto"),
+    ).replace(accept_pri_tol=1e-2, condensed=True)
+    xT = r6.create_initial_state(p, altitude=0.0)
+    return SixDoFPath(
+        params=p,
+        F=lambda x, u: r6.step(p, x, u, DT),
+        F_true=lambda x, u: r6.step(p_true, x, u, DT) + DT * wind,
+        config=GPMPCConfig(base=base, scp_iterations=1, tighten=True, rollout_gp_tape=True),
+        x_target=xT,
+        reference_fn=lambda x0: cubic_descent_reference(x0, xT, SIXDOF_REF_STEPS, DT),
+    )
+
+
+def sixdof_pretrain_path(generator: torch.Generator, device: DeviceLike = "cuda", **kw):
+    """Path D's GP: ``pretrain_gp_6dof`` with its nominal model and dispersed
+    plant (``bench.py:343-344``: four 64-step episodes of the sparse-form
+    ``rti_config_6dof(N=15)``, n = 269, m = 493; FITC fits; 150 Adam steps).
+    Returns (gp, mean_fn, var_fn); ``kw`` goes to ``pretrain_gp_6dof``."""
+    sp = sixdof_path(device)
+    return pretrain_gp_6dof(generator, sp.params, sp.F_true, dt=DT,
+                            device=resolve_device(device), **kw)
+
+
+def sixdof_fleet_x0(generator: torch.Generator, batch: int = BATCH,
+                    device: DeviceLike = "cuda") -> torch.Tensor:
+    """The timed cycle's fleet (``bench.py:357-363``): wet mass, altitude
+    15 + 2·N(0, 1) drawn from ``generator``, velocity (−2, 0.1, 0), upright,
+    at rest in attitude."""
+    dev = resolve_device(device)
+    alt = 15.0 + 2.0 * torch.randn(batch, generator=generator, device=generator.device).to(dev)
+    x0 = r6.create_initial_state(Rocket6DoFParams(device=dev), altitude=0.0,
+                                 velocity=(-2.0, 0.1, 0.0)).repeat(batch, 1)
+    return torch.cat([x0[:, :1], alt[:, None], x0[:, 2:]], dim=1)
+
+
+def sixdof_flight_x0(generator: torch.Generator, batch: int = BATCH,
+                     device: DeviceLike = "cuda") -> torch.Tensor:
+    """The campaign's initial states (``run_campaign_tpu.py:517-520``):
+    ``sample_initial_conditions`` around 20 m (σ 2 m), identity attitude."""
+    return sample_initial_conditions(
+        generator, SimulationConfig(max_steps=SIXDOF_STEPS, altitude_mean=20.0, altitude_std=2.0),
+        batch, n_x=14, device=device)
+
+
+def fly_sixdof(sp: SixDoFPath, mean_fn: Callable, var_fn: Callable, x0s: torch.Tensor,
+               steps: int = SIXDOF_STEPS) -> Dict:
+    """The 6-DoF GP-MPC landing campaign: every lane tracks its cubic descent
+    reference under the dispersed plant for up to ``steps`` cycles, judged by
+    the campaign's outcome state machine. Returns (per-lane results,
+    ``campaign_statistics`` of them)."""
+    cinit, cstep = make_gp_mpc_controller(sp.F, mean_fn, var_fn, sp.config, sp.x_target,
+                                          reference_fn=sp.reference_fn, ref_horizon=steps)
+    res = run_campaign(cinit, cstep, sp.F_true, x0s,
+                       SimulationConfig(max_steps=steps, altitude_mean=20.0, altitude_std=2.0))
+    return res, campaign_statistics(res)

@@ -13,6 +13,13 @@ Runs one of the cycles of ``gpmpc_tpu_torch/main_path.py``:
 - ``--path calibration``: the bound-riding GP-MPC cycle of the calibration
   campaign (state bounds kept in the QP, production GP, gust on the plant),
   512 lanes;
+- ``--path sixdof``: Path D, the 6-DoF GP-MPC cycle (fit its GP with
+  ``pretrain_gp_6dof``, then cycles of ``gp_mpc_solve`` + the dispersed
+  plant step), 512 lanes;
+- ``--path pretrain6dof``: the cycle of the 6-DoF GP fit's episodes (the
+  sparse-form ``rti_config_6dof(N=15)`` controller tracking a cubic descent
+  reference on the dispersed plant), 4 lanes, and the wall time of the whole
+  ``pretrain_gp_6dof`` call;
 
 warms it up and reports:
 
@@ -40,12 +47,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from .learning import explore_gp_3dof
 from .main_path import (BATCH, DT, N, calibration_cycle, calibration_path, calibration_x0,
-                        fleet_x0, main_path, pretrain_path, rti_path, with_gust_variance)
-from .mpc import RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti_init, rti_step
+                        fleet_x0, main_path, pretrain_path, rti_path, sixdof_fleet_x0,
+                        sixdof_flight_x0, sixdof_path, sixdof_pretrain_path,
+                        with_gust_variance)
+from .mpc import (RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti_config_6dof,
+                  rti_init, rti_step)
 from .reference import cubic_descent_reference
 
 SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.")
-PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4, "calibration": BATCH}  # path → default lanes
+PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4, "calibration": BATCH,
+         "sixdof": BATCH, "pretrain6dof": 4}  # path → default lanes
 
 
 def _card() -> str:
@@ -86,18 +97,35 @@ def _cycle_of(path: str, batch: int, dev):
                                            torch.Generator(device=dev).manual_seed(11))
         cycle = lambda state, xs: solve_and_step(state, xs)[1:]
         return cycle, gp_mpc_init(cp.config, xs, cp.x_target, device=dev), xs
-    # the controller collect_residuals_3dof flies, on the dispersed plant
-    mp = main_path(dev)
+    if path == "sixdof":
+        sp = sixdof_path(dev)
+        _, mean_fn, var_fn = sixdof_pretrain_path(torch.Generator(device=dev).manual_seed(2), dev)
+        xs = sixdof_fleet_x0(torch.Generator(device=dev).manual_seed(7), batch, dev)
+
+        def cycle(state, xs):
+            sol, state = gp_mpc_solve(sp.F, mean_fn, var_fn, sp.config, state, xs)
+            return state, sp.F_true(xs, sol.u0)
+
+        return cycle, gp_mpc_init(sp.config, xs, sp.x_target, device=dev), xs
+    # the controller collect_residuals_3dof (or _6dof) flies, on the dispersed plant
+    if path == "pretrain6dof":
+        sp = sixdof_path(dev)
+        F, F_true, xT = sp.F, sp.F_true, sp.x_target
+        cfg, horizon = rti_config_6dof(sp.params, N=15, dt=DT), 65
+        xs = sixdof_flight_x0(torch.Generator(device=dev).manual_seed(7), batch, dev)
+    else:
+        mp = main_path(dev)
+        F, F_true, xT = mp.F, mp.F_true, mp.x_target
+        cfg, horizon = RTIConfig(N=N, dt=DT, device=dev), 100
     cinit, cstep = make_rti_controller(
-        mp.F, RTIConfig(N=N, dt=DT, device=dev), mp.x_target,
-        reference_fn=lambda x0: cubic_descent_reference(x0, mp.x_target, 80, DT),
-        ref_horizon=100)
+        F, cfg, xT, reference_fn=lambda x0: cubic_descent_reference(x0, xT, 80, DT),
+        ref_horizon=horizon)
     step = [0]
 
     def cycle(cstate, xs):
         u0, cstate = cstep(cstate, xs, step[0])
         step[0] += 1
-        return cstate, mp.F_true(xs, u0)
+        return cstate, F_true(xs, u0)
 
     return cycle, cinit(xs), xs
 
@@ -149,11 +177,14 @@ def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
             "device_ms_per_cycle": us / 1e3 / prof_cycles}
            for name, (count, us) in sorted(per_op.items(), key=lambda kv: -kv[1][1])[:15]]
     res = {}
-    if path == "pretrain":
+    fits = {"pretrain": ("pretrain_gp_3dof_s", pretrain_path),
+            "pretrain6dof": ("pretrain_gp_6dof_s", sixdof_pretrain_path)}
+    if path in fits:
+        name, fit = fits[path]
         t0 = time.perf_counter()
-        pretrain_path(torch.Generator(device=dev).manual_seed(2), dev)
+        fit(torch.Generator(device=dev).manual_seed(2), dev)
         torch.cuda.synchronize()
-        res["pretrain_gp_3dof_s"] = time.perf_counter() - t0
+        res[name] = time.perf_counter() - t0
     return {
         **res,
         "card": _card(),
@@ -185,8 +216,9 @@ def main() -> None:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))
-    if "pretrain_gp_3dof_s" in res:
-        print(f"pretrain_gp_3dof: {res['pretrain_gp_3dof_s']:.3f} s")
+    for name in ("pretrain_gp_3dof_s", "pretrain_gp_6dof_s"):
+        if name in res:
+            print(f"{name[:-2]}: {res[name]:.3f} s")
     print(f"{res['card']} | path {res['path']} batch {res['batch']}: {res['ms_per_cycle']:.3f} ms/cycle "
           f"(CUDA events), {res['solves_per_s']:.1f} solves/s")
     print(f"profiled {res['profiled_cycles']} cycles: wall {res['profiled_wall_ms_per_cycle']:.3f} "

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpmpc_tpu_torch.chunk_bench import BOUNDED_SEGS, chunk_inputs
 from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 from gpmpc_tpu_torch.ops.qp import QPData, ruiz_equilibrate
 from gpmpc_tpu_torch.ops.qp.admm import _factor, _rho_vec
@@ -218,6 +219,36 @@ def test_shared_variant_at_the_condensed_shapes(cuda_device, m, facet_rows, decl
     _assert_matches_plain(args, segs, 25)
 
 
+@pytest.mark.parametrize("iters", [0, 1, 30])
+def test_shared_variant_at_the_sixdof_cycle_shape(cuda_device, iters):
+    """Path D's chunk: 512 lanes of the 6-DoF condensed QP at its real data
+    (n = 60, 140 attitude and rate bound rows declared "blt", then the 60
+    control rows), 30 iterations a chunk. Scaled tolerances, as for the
+    golden set: the iterates reach far above 1."""
+    args = chunk_inputs("sixdof", torch.Generator(device="cuda").manual_seed(0), lanes=512)
+    assert args[1].shape == (512, 200, 60)
+    assert K.variant(60, 200, 60, 512) == "shared" and K.cluster_size(60, 200, 60, 512) == 1
+    _assert_matches_plain(args, BOUNDED_SEGS, iters, scaled=True)
+
+
+@pytest.mark.parametrize("declared", [False, True], ids=["as-the-path", "bounds-declared"])
+@pytest.mark.parametrize("iters", [0, 1, 25])
+@pytest.mark.parametrize("B", [4, 5])
+def test_cluster_variant_at_the_sparse_6dof_shape(cuda_device, B, iters, declared):
+    """The 6-DoF pretraining episodes' chunk at its real data: the sparse
+    form of rti_config_6dof(N=15), n = 269, m = 224 equality rows then 269
+    bound rows. The path declares no row structure (every row dense); the
+    bound rows are the identity, so declaring them "diag" is exact too.
+    Rows of 269 columns take 16 threads a dot product."""
+    args = chunk_inputs("sparse6dof", torch.Generator(device="cuda").manual_seed(1), lanes=B)
+    assert args[1].shape == (B, 493, 269)
+    segs = (("dense", 224), ("diag", 269)) if declared else None
+    mg = 269 if declared else 0
+    assert K.variant(269, 493, mg, B) == "cluster"
+    assert K.cluster_size(269, 493, mg, B) in (4, 8, 16)
+    _assert_matches_plain(args, segs, iters, scaled=True)
+
+
 @pytest.mark.parametrize("md,want", [(64, "register"), (65, "shared")])
 def test_variants_meet_at_the_register_limit(cuda_device, md, want):
     """64 dense rows are the register variant's last shape; one more row
@@ -235,6 +266,11 @@ def test_kernel_picks_the_global_variant_when_smem_is_short(cuda_device):
     assert K.variant(60, 200, 60, 512) == "shared"
     assert K.variant(207, 354, 0, 4) == "cluster" and K.variant(207, 354, 0, 512) == "cluster"
     assert K.cluster_size(207, 354, 0, 4) > K.cluster_size(207, 354, 0, 512) >= 4
+    # the two 6-DoF paths: the cycle's condensed QP and the episodes' sparse one
+    assert K.variant(60, 200, 60, 512) == "shared" and K.cluster_size(60, 200, 60, 512) == 1
+    for mg in (0, 269):
+        assert K.variant(269, 493, mg, 4) == "cluster"
+        assert K.cluster_size(269, 493, mg, 4) in (4, 8, 16)
     assert K.variant(300, 3000) == "global"  # 3.9 MB a lane: beyond 16 blocks
     with pytest.raises(ValueError, match="no variant"):
         K.variant(60, 60, 61)  # more diagonal rows than columns
