@@ -12,7 +12,8 @@ entry points a user calls, and checks the hand-written kernel on the way:
    and 5 lanes, the RTI path's (25 iterations), a condensed QP that keeps
    its state-bound rows (140 dense rows before the 60 diagonal ones) at 25
    and at the calibration path's 50 iterations, the 6-DoF QP with cone
-   facets (380 rows) and the golden shape at 4 and 512 lanes — with the
+   facets (380 rows), the golden shape at 4 and 512 lanes, and Path D's and
+   the 6-DoF online campaign's condensed QPs at 30 and 50 iterations — with the
    variant each launches, its CTAs a lane, its registers and spills, and its
    time beside its bound, the plain version and a cuBLAS chain;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
@@ -35,7 +36,15 @@ entry points a user calls, and checks the hand-written kernel on the way:
    FITC fits, Adam tuning), the 512-lane cycle (the shared variant, one or
    two launches a cycle) timed, counted and held against the CPU, then the
    150-step landing campaign through ``run_campaign``, judged by its success
-   share.
+   share;
+10. Path E, the online-learning GP-MPC cycle (a GP per lane, observed every
+   cycle, refit every 10 and refreshed every 20 cycles): the 512-lane cycle
+   timed as ``bench.py`` times it (windows of 40 cycles replayed from a
+   snapshot whose buffers a first window filled, so every window crosses
+   both cadences), its launches counted, ten cycles held against the CPU;
+   the per-cycle observe alone; then the 3-DoF (130 steps) and 6-DoF (150
+   steps, the shared variant at 50 iterations) online campaigns, each judged
+   by its success share and the drop of its one-step model error.
 
 Everything worth reporting is printed before the last two lines: a JSON
 object with one entry per kernel, the card's name and power limit, and last
@@ -43,6 +52,7 @@ object with one entry per kernel, the card's name and power limit, and last
 is no CPU fallback. Run: ``python3 chip_smoke.py``.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -62,6 +72,9 @@ ITERS = 50
 RTI_CHUNK = 25  # the default check interval: the RTI and pretraining paths' chunk
 DT = 0.1
 SIXDOF_SUCCESS = 0.98  # the 6-DoF campaign's success share floor
+# the online campaigns' floors: success share, and the early/late one-step
+# model-error ratio (tests/test_online_gp_mpc.py: late < 0.5·early)
+ONLINE_FLOORS = {"3dof": (0.98, 2.0), "6dof": (0.95, 2.0)}
 # the TPU kernels this path's kernel replaces (gpmpc_tpu/ops/pallas)
 REPLACES = ("gpmpc_tpu/ops/pallas/admm_kernel.py:29 (_chunk_kernel via admm_chunk:75), "
             "gpmpc_tpu/ops/pallas/admm_kernel.py:137 (_lanes_kernel via make_admm_chunk_lanes:227)")
@@ -129,7 +142,8 @@ def phase_kernels():
     # calibration path's chunk, facets the 6-DoF QP with cone facets at its
     # bench's chunk of 30. sixdof and sparse6dof are Path D's two QPs at their
     # real data: the cycle's condensed one (30 iterations a chunk) and the
-    # pretraining episodes' sparse one (n = 269, m = 493, every row dense).
+    # pretraining episodes' sparse one (n = 269, m = 493, every row dense);
+    # sixdof50 is the condensed one in the 6-DoF online campaign's chunks of 50.
     shapes = (("main", "main", 0, diag, ITERS, True), ("dense", "dense", 0, None, ITERS, True),
               ("golden", "golden", 8, None, ITERS, False),
               ("golden_b5", "golden", 5, None, RTI_CHUNK, False),
@@ -140,6 +154,7 @@ def phase_kernels():
               ("golden_b4", "golden", 4, None, RTI_CHUNK, True),
               ("golden_b512", "golden", BATCH, None, RTI_CHUNK, True),
               ("sixdof", "sixdof", BATCH, BOUNDED_SEGS, 30, True),
+              ("sixdof50", "sixdof", BATCH, BOUNDED_SEGS, ITERS, True),
               ("sparse6dof", "sparse6dof", 4, None, RTI_CHUNK, True),
               ("sparse6dof_b5", "sparse6dof", 5, None, RTI_CHUNK, False))
     for kind, inputs, lanes, segs, iters, timed in shapes:
@@ -189,14 +204,13 @@ def phase_kernels():
     return timings
 
 
-def _to(obj, dev):
-    """Copy a (nested) dataclass of tensors to ``dev``."""
-    import dataclasses
-
+def _to(obj, dev, dtype=None):
+    """Copy a (nested) dataclass of tensors to ``dev``, its floating-point
+    tensors cast to ``dtype`` if given."""
     if isinstance(obj, torch.Tensor):
-        return obj.to(dev)
+        return obj.to(dev, dtype) if dtype is not None and obj.is_floating_point() else obj.to(dev)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        kw = {f.name: _to(getattr(obj, f.name), dev)
+        kw = {f.name: _to(getattr(obj, f.name), dev, dtype)
               for f in dataclasses.fields(obj) if f.init}
         if "device" in kw:
             kw["device"] = dev
@@ -204,10 +218,15 @@ def _to(obj, dev):
     return obj
 
 
-def _first_lanes(state, lanes):
-    """The GP-MPC state of the first ``lanes`` lanes."""
-    return type(state)(**{f: getattr(state, f)[:lanes] for f in
-                          ("X_lin", "U_lin", "x_ref", "rho", "y_prev")})
+def _first_lanes(obj, lanes):
+    """A (nested) dataclass of tensors with a leading lane axis, cut to its
+    first ``lanes`` lanes."""
+    if isinstance(obj, torch.Tensor):
+        return obj[:lanes]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _first_lanes(getattr(obj, f.name), lanes)
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
 
 
 def _time_cycles(cycle, state, xs, cycles, dev, what):
@@ -601,6 +620,194 @@ def phase_sixdof(dev=torch.device("cuda")):
                 solves_per_s=BATCH * 1000.0 / host_ms, du0=du, flight=flight)
 
 
+def _online_window(cstep, F_true, st, xs, k0, cycles):
+    """``cycles`` online cycles + plant steps from cycle index k0."""
+    for k in range(k0, k0 + cycles):
+        u0, st = cstep(st, xs, k)
+        xs = F_true(xs, u0)
+    return st, xs
+
+
+def phase_online(dev=torch.device("cuda")):
+    """Path E: the online-learning GP-MPC cycle timed as bench.py times it,
+    the per-cycle observe alone, and the 3-DoF and 6-DoF online campaigns."""
+    from gpmpc_tpu_torch.experiments import OUTCOME_NAMES
+    from gpmpc_tpu_torch.gp import (OnlineGPUpdater, OnlineUpdateConfig, ResidualCollector,
+                                    Simple3DoFFeatureExtractor)
+    from gpmpc_tpu_torch.learning.online_gp_mpc import _refit_recent
+    from gpmpc_tpu_torch.main_path import (fleet_x0, fly_online, online_flight_path,
+                                           online_flight_x0, online_path)
+    from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg, _n_rows
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    # the timed cycle (bench.py:277-322): a first window fills the buffers,
+    # then windows of 40 cycles replay that snapshot (k = 40..79: refits at
+    # k = 49, 69 and refreshes at k = 59, 79 in each)
+    op = online_path(dev)
+    cinit, cstep = op.controller()
+    x0s = fleet_x0(BATCH, dev)
+    window, windows = 40, 3
+    t0 = time.time()
+    st, xs = _online_window(cstep, op.F_true, cinit(x0s), x0s, 0, window)
+    torch.cuda.synchronize(dev)
+    warm_s = time.time() - t0
+    K.LAUNCHES = 0  # counts from here on are this path's
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    start.record()
+    for _ in range(windows):
+        st_w, xs_w = _online_window(cstep, op.F_true, st, xs, window, window)
+    end.record()
+    torch.cuda.synchronize(dev)
+    cycles = windows * window
+    host_ms = (time.time() - t0) * 1e3 / cycles
+    dev_ms = start.elapsed_time(end) / cycles
+    launches = K.LAUNCHES
+    variant = K.variant(N * 3, N * 3, N * 3, BATCH)
+    if launches != cycles:
+        raise RuntimeError(f"admm_chunk launched {launches} times in {cycles} online cycles, "
+                           f"expected {cycles}")
+    for name, t in (("x", xs_w), ("state.mpc.X_lin", st_w.mpc.X_lin), ("gp.c", st_w.gp.gp.c)):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"non-finite {name} on the online path")
+    n_refits, gp_points = int(st_w.n_refits[0]), float(st_w.gp.buffer_count.float().mean())
+    if n_refits != 8 or not bool((st_w.n_refits == n_refits).all()):
+        raise RuntimeError(f"the online cycle refit {n_refits} times in 80 cycles, expected 8")
+    log(f"[online] first window of {window} cycles in {warm_s:.1f} s; {windows} windows of "
+        f"{window} cycles x {BATCH} lanes: {dev_ms:.3f} ms/cycle (CUDA events), {host_ms:.3f} "
+        f"ms/cycle (host clock), {BATCH * 1000.0 / host_ms:.1f} solves/s; admm_chunk launches "
+        f"{launches} ({launches / cycles:.2f}/cycle, {variant} variant); at cycle 80: n_refits "
+        f"{n_refits}, gp_points mean {gp_points:.2f}, n_accepted mean "
+        f"{float(st_w.n_accepted.float().mean()):.2f}")
+
+    # ten cycles of the first lanes from the snapshot, on the card and on the
+    # CPU (its plain chunk), both on the card's flown transitions (the state
+    # it measures and the control it flew). The last cycle (k = 49) refits on
+    # the latest 32 points, a refit so ill-conditioned in f32 (c and Luu⁻¹
+    # reach 1e2-1e3) that two f32 runs need not agree on its u0 to 1e-3: that
+    # cycle is held by its refitted posterior (1% of its scale), and its u0
+    # is shown beside the spread of the CPU's own u0 when its buffered
+    # features change by a relative 1e-7 (about one ulp)
+    lanes, cpu = 8, torch.device("cpu")
+    sg, xg = _first_lanes(st, lanes), xs[:lanes]
+    sc = _to(sg, cpu)
+    _, cstep_c = online_path(cpu).controller()
+    dus = []
+    for k in range(window, window + 10):
+        sc_pre = sc
+        ug, sg = cstep(sg, xg, k)
+        uc, sc = cstep_c(sc, xg.cpu(), k)
+        dus.append((ug.cpu() - uc).abs().max().item())
+        sc = dataclasses.replace(sc, u_prev=ug.cpu())
+        x_pre, xg = xg.cpu(), op.F_true(xg, ug)
+    gen, spread = torch.Generator().manual_seed(0), []
+    for _ in range(3):
+        buf = sc_pre.gp.buffer
+        X = buf.X * (1.0 + 1e-7 * torch.randn(buf.X.shape, generator=gen))
+        nudged = dataclasses.replace(sc_pre, gp=dataclasses.replace(
+            sc_pre.gp, buffer=dataclasses.replace(buf, X=X)))
+        spread.append((cstep_c(nudged, x_pre, window + 9)[0] - uc).abs().max().item())
+    m_g = sg.gp.predict_gated(xg, ug)[0].cpu()
+    m_c = sc.gp.predict_gated(xg.cpu(), ug.cpu())[0]
+    dmean = ((m_g - m_c).abs().max() / m_c.abs().max()).item()
+    # the same refit in float64 on the CPU's buffers: how far f32 lands
+    m_64 = _refit_recent(_to(sc.gp, cpu, torch.float64)).predict_gated(
+        xg.cpu().double(), ug.cpu().double())[0]
+    dmean64 = ((m_c - m_64).abs().max() / m_64.abs().max()).item()
+    du = max(dus[:-1])
+    same = bool(torch.equal(sg.gp.buffer.count.cpu(), sc.gp.buffer.count))
+    log(f"[online] card vs CPU, 10 cycles at {lanes} lanes from cycle {window}: max|du0| by cycle "
+        f"{[f'{d:.2e}' for d in dus]} (atol 1e-3 but at the refit, k = {window + 9}, where the "
+        f"CPU's own u0 moves by {[f'{d:.2e}' for d in spread]} under a 1e-7 relative change of "
+        f"its buffered features); refitted posterior means apart by {dmean:.2e} of their scale "
+        f"(limit 1e-2), the CPU's f32 one {dmean64:.2e} from the same refit in float64; buffer "
+        f"counts equal: {same}")
+    if du > 1e-3 or dmean > 1e-2 or not same:
+        raise RuntimeError("the card's online cycles disagree with the CPU reference")
+
+    # the per-cycle observe alone (bench.py:244-275): residual, features,
+    # novelty-gated insert and cadence flags, 512 updaters of capacity 256
+    coll, ex = ResidualCollector(dt=DT), Simple3DoFFeatureExtractor()
+    u = torch.tensor([2.0, 0.0, 0.0], device=dev).expand(BATCH, 3)
+    steps = 50
+
+    def observe_window(upd, xs):
+        for _ in range(steps):
+            r = coll.residual(op.F, xs, u, op.F_true(xs, u))
+            upd, _, _ = upd.observe(ex.extract(xs, u), r)
+            xs = xs + 0.01  # drift the queries so inserts stay novel
+        return upd
+
+    upd = observe_window(OnlineGPUpdater.create(OnlineUpdateConfig(capacity=256), ex.n_features,
+                                                3, device=dev, lanes=BATCH), x0s)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(windows):
+        upd_w = observe_window(upd, x0s + 0.1)  # replay from the part-filled snapshot
+    end.record()
+    torch.cuda.synchronize(dev)
+    obs_ms = start.elapsed_time(end) / (windows * steps)
+    obs_us_lane = obs_ms * 1e3 / BATCH
+    log(f"[online] observe alone, {BATCH} updaters of capacity 256: {obs_ms:.4f} ms/cycle "
+        f"(CUDA events), {obs_us_lane:.4f} us a lane; buffer counts after a window "
+        f"{int(upd_w.buffer.count.min())}-{int(upd_w.buffer.count.max())}")
+
+    # the online campaigns (run_campaign_tpu.py --controller online_gp_mpc --elide)
+    flights = {}
+    for model in ("3dof", "6dof"):
+        fp = online_flight_path(model, dev)
+        base = fp.config.mpc.base
+        segs, m = _condensed_admm_cfg(base).row_structure, _n_rows(base)
+        fvariant = K.variant(N * 3, m, N * 3, BATCH)
+        if fvariant != {"3dof": "register", "6dof": "shared"}[model]:
+            raise RuntimeError(f"the {model} online QP ({segs}, m = {m}) picks the {fvariant} variant")
+        x0f = online_flight_x0(model, torch.Generator(device=dev).manual_seed(0), BATCH, dev)
+        K.LAUNCHES = 0
+        t0 = time.time()
+        res, stats, trace = fly_online(fp, x0f)
+        torch.cuda.synchronize(dev)
+        flight_s, flight_launches = time.time() - t0, K.LAUNCHES
+        loop_cycles = int(res["steps"].max())
+        chunks = base.admm.max_iter // base.admm.check_interval
+        if not loop_cycles <= flight_launches <= chunks * loop_cycles:
+            raise RuntimeError(f"the {model} online campaign launched the kernel {flight_launches} "
+                               f"times in {loop_cycles} cycles, expected {loop_cycles} to "
+                               f"{chunks * loop_cycles}")
+        ok = res["outcome"] == 0
+        v = res["landing_speed"]
+        flight = dict(success_share=float(stats["success_rate"]),
+                      landing_speed_mean=float(stats["landing_speed_mean"]),
+                      landing_speed_worst=float(v[ok].max()) if bool(ok.any()) else float("nan"),
+                      landing_error_mean=float(stats["landing_error_mean"]),
+                      fuel_used_mean=float(stats["fuel_used_mean"]),
+                      steps_mean=float(stats["steps_mean"]),
+                      outcome_counts={k: int(c) for k, c in stats["outcome_counts"].items()},
+                      rows=[list(sg_) for sg_ in segs], m=m, variant=fvariant,
+                      seconds=flight_s, cycles=loop_cycles, launches=flight_launches,
+                      **{k: trace[k] for k in trace if k != "err_curve_by5"})
+        log(f"[online] {model} campaign of {BATCH} lanes, up to {fp.sim.max_steps} steps, in "
+            f"{flight_s:.1f} s: {json.dumps(flight)}")
+        log(f"[online] {model} model error every 5 cycles: "
+            f"{[None if e is None else round(e, 5) for e in trace['err_curve_by5']]}")
+        for i in (~ok).nonzero()[:, 0][:8].tolist():
+            log(f"[online] {model} lane {i}: {OUTCOME_NAMES[int(res['outcome'][i])]} after "
+                f"{int(res['steps'][i])} steps, x0 {[round(a, 6) for a in x0f[i].tolist()]}, "
+                f"touchdown |v| {float(v[i]):.4f} m/s, error {float(res['landing_error'][i]):.4f} m")
+        floor_s, floor_r = ONLINE_FLOORS[model]
+        if not all(np.isfinite([flight["landing_speed_mean"], flight["model_err_reduction_x"]])):
+            raise RuntimeError(f"non-finite {model} online campaign statistics")
+        if flight["success_share"] < floor_s or flight["model_err_reduction_x"] < floor_r:
+            raise RuntimeError(
+                f"the {model} online campaign misses its floor: success share "
+                f"{flight['success_share']:.4f} (floor {floor_s}), model-error reduction "
+                f"{flight['model_err_reduction_x']:.3f}x (floor {floor_r}x)")
+        flights[model] = flight
+    return dict(launches=launches, ms_per_cycle=dev_ms, host_ms_per_cycle=host_ms,
+                solves_per_s=BATCH * 1000.0 / host_ms, n_refits=n_refits, gp_points=gp_points,
+                du0=du, du0_refit=dus[-1], du0_refit_cpu_spread=max(spread),
+                refit_mean_rel=dmean, refit_mean_rel_f64=dmean64, observe_us_per_lane=obs_us_lane, flights=flights)
+
+
 def main():
     smi = phase_card()
     phase_build()
@@ -611,6 +818,7 @@ def main():
     pre_res, production_gp = phase_pretrain()
     cal_res = phase_calibration(production_gp)
     six_res = phase_sixdof()
+    onl_res = phase_online()
     log(f"[summary] main path {main_res['ms_per_cycle']:.3f} ms/cycle, "
         f"{main_res['solves_per_s']:.1f} solves/s, landing success {land['success_share']:.4f}; "
         f"RTI path {rti_res['ms_per_cycle']:.3f} ms/cycle, landing success "
@@ -622,7 +830,12 @@ def main():
         f"6-DoF path {six_res['ms_per_cycle']:.3f} ms/cycle, pretraining {six_res['pretrain_s']:.2f} s, "
         f"campaign success {six_res['flight']['success_share']:.4f}, touchdown "
         f"{six_res['flight']['landing_speed_mean']:.4f} m/s, error "
-        f"{six_res['flight']['landing_error_mean']:.4f} m")
+        f"{six_res['flight']['landing_error_mean']:.4f} m; online path "
+        f"{onl_res['ms_per_cycle']:.3f} ms/cycle, observe {onl_res['observe_us_per_lane']:.4f} us "
+        f"a lane, 3-DoF online campaign success {onl_res['flights']['3dof']['success_share']:.4f}, "
+        f"model error drop {onl_res['flights']['3dof']['model_err_reduction_x']:.2f}x, 6-DoF "
+        f"{onl_res['flights']['6dof']['success_share']:.4f}, "
+        f"{onl_res['flights']['6dof']['model_err_reduction_x']:.2f}x")
     main_t = timings[0]
     kernels = [{
         "name": "admm_chunk",
@@ -637,7 +850,10 @@ def main():
                              "calibration_flight": cal_res["flight_launches"],
                              "sixdof": six_res["launches"],
                              "sixdof_pretrain": six_res["pretrain_launches"],
-                             "sixdof_flight": six_res["flight"]["launches"]},
+                             "sixdof_flight": six_res["flight"]["launches"],
+                             "online": onl_res["launches"],
+                             "online_flight": onl_res["flights"]["3dof"]["launches"],
+                             "online6dof_flight": onl_res["flights"]["6dof"]["launches"]},
         "max_abs_err": main_t["max_abs_err"],
         "ms": main_t["ms"],
         "eager_ms": main_t["eager_ms"],

@@ -25,6 +25,11 @@ fitted ``StructuredRocketGP``'s two GPs and stores, prefixed ``trans_`` and
 ``rot_`` (``trans_Z``, …, ``rot_buffer_count``), plus the optional
 unprefixed ``config``.
 
+``online_gp_from_numpy`` carries the GP of a JAX ``OnlineGPMPCState`` (a GP
+per lane) across: the same keys as the two functions above, each array with
+the leading lane axis (``Z`` (B, M, d), ``buffer_head`` (B,), …); the
+``trans_`` keys select the structured model.
+
 ``rocket6dof_params_from_fields`` expects the fields of a
 ``Rocket6DoFParams`` (the vectors and matrices as NumPy arrays).
 """
@@ -89,6 +94,14 @@ def structured_rocket_gp_from_numpy(d: Dict[str, Any],
         rot_extractor=RotationalFeatureExtractor(),
         trans_buffer=trans_buf, rot_buffer=rot_buf, trans_gp=trans_gp, rot_gp=rot_gp,
         is_fitted=True)
+
+
+def online_gp_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda"):
+    """A GP per lane (``Simple3DoFGP`` or ``StructuredRocketGP``) from the
+    leaves of a JAX online controller's GP."""
+    if "trans_Z" in d:
+        return structured_rocket_gp_from_numpy(d, device)
+    return simple3dof_gp_from_numpy(d, device)
 
 
 def rocket6dof_params_from_fields(d: Dict[str, Any],

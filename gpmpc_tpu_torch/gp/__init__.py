@@ -1,5 +1,5 @@
-"""Gaussian-process layer: features, kernels, sparse GPs and the structured
-residual models of both rockets."""
+"""Gaussian-process layer: features, kernels, sparse GPs, the structured
+residual models of both rockets and online updating."""
 
 from .exact_gp import GPPrediction
 from .features import (
@@ -14,7 +14,13 @@ from .features import (
     translational_features,
 )
 from .kernels import SquaredExponentialARD, create_kernel
-from .online_update import ResidualCollector
+from .online_update import (
+    DataBuffer,
+    OnlineGPUpdater,
+    OnlineStructuredGPUpdater,
+    OnlineUpdateConfig,
+    ResidualCollector,
+)
 from .sparse_gp import (
     MultiOutputSparseGPState,
     fit_sparse_multi,
@@ -26,8 +32,9 @@ from .sparse_gp import (
 from .structured_gp import RingBuffer, Simple3DoFGP, StructuredGPConfig, StructuredRocketGP
 
 __all__ = [
-    "AtmosphereModel", "CombinedFeatureExtractor", "GPPrediction", "MultiOutputSparseGPState",
-    "ResidualCollector", "RingBuffer", "RotationalFeatureExtractor",
+    "AtmosphereModel", "CombinedFeatureExtractor", "DataBuffer", "GPPrediction",
+    "MultiOutputSparseGPState", "OnlineGPUpdater", "OnlineStructuredGPUpdater",
+    "OnlineUpdateConfig", "ResidualCollector", "RingBuffer", "RotationalFeatureExtractor",
     "Simple3DoFFeatureExtractor", "Simple3DoFGP", "SquaredExponentialARD",
     "StructuredGPConfig", "StructuredRocketGP", "TranslationalFeatureExtractor",
     "combined_features", "create_kernel", "fit_sparse_multi", "init_inducing_points",

@@ -2,7 +2,10 @@
 SE-ARD kernel the 3-DoF slice uses).
 
 Parameters may carry a leading stack axis (one kernel per GP output); a call
-then returns one Gram matrix per output: (..., n_X, n_Z).
+then returns one Gram matrix per output: (..., n_out, n_X, n_Z). Ahead of the
+output axis the parameters may carry further batch dims (one GP per lane),
+matched by the leading dims of the inputs: parameters (B, n_out, d) with
+inputs (B, n, d).
 """
 
 from __future__ import annotations
@@ -16,8 +19,11 @@ from .._device import DeviceLike, resolve_device
 
 
 def _sq_dists(X: torch.Tensor, Z: torch.Tensor, inv_ls: torch.Tensor) -> torch.Tensor:
-    """Scaled pairwise squared distances via the matmul identity;
-    ``inv_ls`` is (..., d)."""
+    """Scaled pairwise squared distances via the matmul identity; ``inv_ls``
+    is (d,) or (..., n_out, d), and then X (..., n, d) and Z (..., M, d) get
+    the output axis put in."""
+    if inv_ls.dim() > 1:
+        X, Z = X[..., None, :, :], Z[..., None, :, :]
     Xs = X * inv_ls[..., None, :]
     Zs = Z * inv_ls[..., None, :]
     d2 = ((Xs * Xs).sum(-1)[..., :, None] + (Zs * Zs).sum(-1)[..., None, :]

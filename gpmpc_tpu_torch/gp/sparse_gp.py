@@ -3,9 +3,14 @@ multi-output part of ``gpmpc_tpu/gp/sparse_gp.py``).
 
 The outputs share inducing inputs Z and training inputs X; every factor
 carries a leading output axis, so the per-output ``vmap`` of the JAX code is
-one batched call here. Training data is capacity-padded with a mask (masked
-points get unit Λ and zero cross-covariance, which drops them from every
-factor exactly). Factors are cached as explicit inverses of the Cholesky
+one batched call here. Ahead of the output axis every array may carry one
+more batch axis, the lane axis of the online controller, where each lane
+holds its own GP (the JAX package's ``vmap`` over lanes): Z (B, M, d), X
+(B, cap, d), Y (B, n_out, cap), mask (B, cap), the kernel parameters and
+log_noise (B, n_out, ...), the factors (B, n_out, ...).
+
+Training data is capacity-padded with a mask (masked points get unit Λ and
+zero cross-covariance, which drops them from every factor exactly). Factors are cached as explicit inverses of the Cholesky
 factors, so prediction is matmuls only.
 """
 
@@ -29,17 +34,17 @@ def _tri_inv(L: torch.Tensor) -> torch.Tensor:
 
 
 def _factors(kernel: SquaredExponentialARD, Z, X, Y, mask, log_noise, method: str):
-    """FITC/VFE factors for every output: Y is (n_out, cap), log_noise
-    (n_out,). Returns (Luu_inv, LB_inv, c, lam, qff, kff, ym); the last four
-    (each (n_out, cap)) are what the marginal likelihood needs."""
+    """FITC/VFE factors for every output: Y is (..., n_out, cap), log_noise
+    (..., n_out). Returns (Luu_inv, LB_inv, c, lam, qff, kff, ym); the last
+    four (each (..., n_out, cap)) are what the marginal likelihood needs."""
     jitter = 1e-6
-    M = Z.shape[0]
-    mf = mask.to(X.dtype)
-    noise = torch.exp(2.0 * log_noise)[:, None]
+    M = Z.shape[-2]
+    mf = mask.to(X.dtype)[..., None, :]  # (..., 1, cap) against the output axis
+    noise = torch.exp(2.0 * log_noise)[..., None]
     eye = torch.eye(M, dtype=X.dtype, device=X.device)
 
     Kuu = kernel(Z, Z) + jitter * eye
-    Kuf = kernel(Z, X) * mf
+    Kuf = kernel(Z, X) * mf[..., None, :, :]
     kff = kernel.diagonal(X)
 
     # two jitter levels, as in the JAX package: healthy matrices take level
@@ -55,24 +60,31 @@ def _factors(kernel: SquaredExponentialARD, Z, X, Y, mask, log_noise, method: st
         lam = noise.expand_as(kff)
     else:
         raise ValueError(f"unknown sparse-GP method {method!r}")
-    lam = torch.where(mask, lam, torch.ones_like(lam))
+    lam = torch.where(mask[..., None, :], lam, torch.ones_like(lam))
 
-    A = V / torch.sqrt(lam)[:, None, :]
+    A = V / torch.sqrt(lam)[..., None, :]
     Bm = eye + A @ A.transpose(-1, -2)
-    # B ⪰ I by construction: one jitter level always works
-    LB, _ = robust_cholesky(Bm, jitters=(0.0,))
+    # B ⪰ I holds in exact arithmetic only: where Z sits on stored points (the
+    # online refit re-centres it on the latest ones), Λ falls to its floor,
+    # AAᵀ dwarfs the identity and a plain f32 factorization can fail. The
+    # JAX package factors B at one level and then carries a NaN factor; here
+    # such a B takes the relative jitter Kuu takes. A B that factors plainly
+    # takes level 0, as in the JAX package.
+    LB, _ = robust_cholesky(Bm, jitters=(0.0, 1e-3))
     LB_inv = _tri_inv(LB)
     ym = (Y * mf) / torch.sqrt(lam)
-    c = (LB_inv @ (A @ ym[:, :, None]))[:, :, 0]
+    c = (LB_inv @ (A @ ym[..., None]))[..., 0]
     return Luu_inv, LB_inv, c, lam, qff, kff, ym
 
 
 def sparse_lml(kernels, Z, X, Y, mask, log_noise, method: str = "fitc") -> torch.Tensor:
     """FITC marginal likelihood / VFE ELBO of every output, (n_out,): Y is
-    (n_out, cap), the kernel parameters and log_noise carry the leading
-    output axis. Differentiable in the kernel parameters, log_noise and Z."""
+    (..., n_out, cap), the kernel parameters and log_noise carry the output
+    axis (behind any lane axis). Differentiable in the kernel parameters,
+    log_noise and Z."""
     _, LB_inv, c, lam, qff, kff, ym = _factors(kernels, Z, X, Y, mask, log_noise, method)
-    n = mask.sum()
+    n = mask.sum(-1)[..., None]
+    mask = mask[..., None, :]
     quad = (ym * ym).sum(-1) - (c * c).sum(-1)
     # log|B| = −2 Σ log diag(LB⁻¹): the inverse of a triangular factor has
     # the reciprocal diagonal
@@ -96,16 +108,19 @@ def init_inducing_points(X, n_inducing: int, mask=None,
 
 @dataclass
 class MultiOutputSparseGPState:
-    kernels: SquaredExponentialARD  # stacked, leading axis n_out
-    Z: torch.Tensor  # (M, d) shared inducing inputs
-    X: torch.Tensor  # (cap, d) shared training inputs
-    Y: torch.Tensor  # (n_out, cap)
-    mask: torch.Tensor  # (cap,)
-    log_noise: torch.Tensor  # (n_out,)
+    """One multi-output sparse GP, or one per lane: every field then carries
+    the lane axis B first."""
+
+    kernels: SquaredExponentialARD  # stacked, axis n_out: ([B,] n_out, ...)
+    Z: torch.Tensor  # ([B,] M, d) shared inducing inputs
+    X: torch.Tensor  # ([B,] cap, d) shared training inputs
+    Y: torch.Tensor  # ([B,] n_out, cap)
+    mask: torch.Tensor  # ([B,] cap)
+    log_noise: torch.Tensor  # ([B,] n_out)
     method: str = "fitc"
-    Luu_inv: Optional[torch.Tensor] = None  # (n_out, M, M)
-    LB_inv: Optional[torch.Tensor] = None  # (n_out, M, M)
-    c: Optional[torch.Tensor] = None  # (n_out, M)
+    Luu_inv: Optional[torch.Tensor] = None  # ([B,] n_out, M, M)
+    LB_inv: Optional[torch.Tensor] = None  # ([B,] n_out, M, M)
+    c: Optional[torch.Tensor] = None  # ([B,] n_out, M)
 
 
 def refit_sparse_multi(kernels, Z, X, YT, mask, log_noise, method: str = "fitc"
@@ -127,11 +142,13 @@ def fit_sparse_multi(kernels, X, Y, Z, noise: float = 1e-2, mask=None,
 
 
 def predict_sparse_multi(state: MultiOutputSparseGPState, Xs: torch.Tensor) -> GPPrediction:
-    """Posterior mean and variance (n_s, n_out) at Xs (n_s, d): O(M²) per
-    point, v = Luu⁻¹k*, w = LB⁻¹v, as matmuls against the cached inverses."""
-    Ksu = state.kernels(Xs, state.Z)  # (o, n_s, M)
-    v = state.Luu_inv @ Ksu.transpose(-1, -2)  # (o, M, n_s)
+    """Posterior mean and variance ([B,] n_s, n_out) at Xs ([B,] n_s, d), a
+    lane's queries against the lane's GP: O(M²) per point, v = Luu⁻¹k*,
+    w = LB⁻¹v, as matmuls against the cached inverses."""
+    Ksu = state.kernels(Xs, state.Z)  # ([B,] o, n_s, M)
+    v = state.Luu_inv @ Ksu.transpose(-1, -2)  # ([B,] o, M, n_s)
     w = state.LB_inv @ v
-    mean = (state.c[:, None, :] @ w)[:, 0]
+    mean = (state.c[..., None, :] @ w)[..., 0, :]
     var = state.kernels.diagonal(Xs) - (v * v).sum(-2) + (w * w).sum(-2)
-    return GPPrediction(mean=mean.T, variance=var.clamp_min(0.0).T)
+    return GPPrediction(mean=mean.transpose(-1, -2),
+                        variance=var.clamp_min(0.0).transpose(-1, -2))

@@ -16,19 +16,28 @@ kernel selected (``use_pallas="auto"``):
   times as ``gp_mpc_6dof_*`` (``bench.py:324-381``), and the 6-DoF landing
   campaign ``scripts/run_campaign_tpu.py --model 6dof --controller gp_mpc
   --rt`` flies with it (:func:`fly_sixdof`); :func:`sixdof_pretrain_path`
-  fits its GP.
+  fits its GP;
+- :func:`online_path` — Path E, the online-learning GP-MPC cycle that the
+  bench times as ``online_gpmpc_*`` (``bench.py:277-322``): every lane
+  carries its own GP, learning inside the loop; :func:`online_flight_path`
+  and :func:`fly_online` fly it as ``scripts/run_campaign_tpu.py
+  --controller online_gp_mpc --elide`` does, for the 3-DoF and the 6-DoF
+  model.
 
 ``chip_smoke.py`` and ``gpmpc_tpu_torch/profile_cycle.py`` drive them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, NamedTuple
 
 import torch
 
 from ._device import DeviceLike, resolve_device
 from .dynamics import Rocket3DoFParams, Rocket6DoFParams, rocket3dof as r3, rocket6dof as r6
+from .learning.online_gp_mpc import (OnlineGPMPCConfig, make_online_gp_mpc_controller,
+                                     online_controller_info)
 from .learning.pretrain import gp_fns, pretrain_gp_3dof, pretrain_gp_6dof  # noqa: F401  (gp_fns: re-exported for chip_smoke.py)
 from .experiments import (SimulationConfig, campaign_statistics, run_campaign,
                           sample_initial_conditions, wilson_interval)
@@ -355,3 +364,113 @@ def fly_sixdof(sp: SixDoFPath, mean_fn: Callable, var_fn: Callable, x0s: torch.T
     res = run_campaign(cinit, cstep, sp.F_true, x0s,
                        SimulationConfig(max_steps=steps, altitude_mean=20.0, altitude_std=2.0))
     return res, campaign_statistics(res)
+
+
+ONLINE_REF_HORIZON = 200  # the timed online cycle's (bench.py:290-295)
+ONLINE_ERR_LEN = 8
+# the online campaigns' scenarios: episode length and initial altitude
+ONLINE_SIM = {"3dof": SimulationConfig(max_steps=130, altitude_mean=30.0, altitude_std=2.0),
+              "6dof": SimulationConfig(max_steps=150, altitude_mean=20.0, altitude_std=2.0)}
+
+
+class OnlinePath(NamedTuple):
+    F: Callable  # nominal step: the controller's model
+    F_true: Callable  # the plant
+    config: OnlineGPMPCConfig
+    x_target: torch.Tensor
+    reference_fn: Callable  # x0s (B, n_x) → each lane's cubic descent reference
+    ref_horizon: int
+    err_len: int
+    sim: SimulationConfig  # the campaign's scenario (the timed cycle flies no campaign)
+
+    def controller(self):
+        """(cinit, cstep) of the online controller, ``run_campaign``'s protocol."""
+        return make_online_gp_mpc_controller(self.F, self.config, self.x_target,
+                                             self.reference_fn, self.ref_horizon, self.err_len)
+
+
+def online_path(device: DeviceLike = "cuda") -> OnlinePath:
+    """Path E, the timed online cycle (``bench.py:277-322``): the main path's
+    GP-MPC configuration (n = m = 60, ``("diag", 60)``, 50 iterations in one
+    chunk) inside ``OnlineGPMPCConfig``'s defaults (160 points, 32 inducing,
+    refit every 10 cycles, hyperparameter refresh every 20), cubic references
+    of 100 steps, ``ref_horizon`` 200, ``err_len`` 8, the drag plant. The
+    fleet is :func:`fleet_x0`."""
+    mp = main_path(device)
+    xT = mp.x_target
+    return OnlinePath(F=mp.F, F_true=mp.F_true, config=OnlineGPMPCConfig(mpc=mp.config),
+                      x_target=xT,
+                      reference_fn=lambda x0: cubic_descent_reference(x0, xT, 100, DT),
+                      ref_horizon=ONLINE_REF_HORIZON, err_len=ONLINE_ERR_LEN,
+                      sim=SimulationConfig())
+
+
+def online_flight_path(model: str, device: DeviceLike = "cuda") -> OnlinePath:
+    """The online campaigns, ``scripts/run_campaign_tpu.py --controller
+    online_gp_mpc --elide`` with its defaults (N = 20, cubic references of 100
+    steps, ``ref_horizon`` = ``err_len`` = the episode length):
+
+    - ``"3dof"`` (``:91-110``, ``:112-141``): 130 steps from 30 m (σ 2 m); the
+      dispersed plant is the drag plant plus dt·wind, wind 0.4 on x[5] and
+      0.25 on x[6]; the QP is the main path's (every state bound elided,
+      50 iterations in one chunk, scaling 2, no certificates);
+    - ``"6dof"`` (``:228-291``): 150 steps from 20 m (σ 2 m); Path D's plant
+      and QP (translation bounds elided: n = 60, m = 200) with 100 iterations
+      in chunks of 50.
+    """
+    dev = resolve_device(device)
+    if model == "3dof":
+        mp = main_path(dev)
+        wind = torch.zeros(7, device=dev)
+        wind[5], wind[6] = 0.4, 0.25
+        F_true = lambda x, u: mp.F_true(x, u) + DT * wind
+        F, cfg, xT = mp.F, mp.config, mp.x_target
+    elif model == "6dof":
+        sp = sixdof_path(dev)
+        base = sp.config.base
+        cfg = sp.config.replace(base=base.replace(admm=base.admm.replace(
+            max_iter=100, check_interval=50)))
+        F, F_true, xT = sp.F, sp.F_true, sp.x_target
+    else:
+        raise ValueError(f"unknown model {model!r}: use '3dof' or '6dof'")
+    sim = ONLINE_SIM[model]
+    return OnlinePath(F=F, F_true=F_true, config=OnlineGPMPCConfig(mpc=cfg), x_target=xT,
+                      reference_fn=lambda x0: cubic_descent_reference(x0, xT, 100, DT),
+                      ref_horizon=sim.max_steps, err_len=sim.max_steps, sim=sim)
+
+
+def online_flight_x0(model: str, generator: torch.Generator, batch: int = BATCH,
+                     device: DeviceLike = "cuda") -> torch.Tensor:
+    """The online campaigns' initial states: ``sample_initial_conditions``
+    around 30 m (3-DoF) or Path D's campaign fleet around 20 m (6-DoF)."""
+    if model == "6dof":
+        return sixdof_flight_x0(generator, batch, device)
+    return sample_initial_conditions(generator, ONLINE_SIM["3dof"], batch, n_x=7, device=device)
+
+
+def learning_trace(err_hist: torch.Tensor, steps: int) -> Dict[str, float]:
+    """The campaign script's learning trace (``run_campaign_tpu.py:680-700``)
+    from the per-lane one-step model errors (B, steps), nan where a lane
+    flew no real transition: the mean over cycles 2-11 and over the cycles
+    from min(60, steps − 20) on, their ratio, and the curve every 5 cycles."""
+    eh = err_hist.double().cpu()
+    nanmean = lambda t: float(t.nanmean())
+    lo = min(60, steps - 20)
+    early, late = nanmean(eh[:, 2:12]), nanmean(eh[:, lo:])
+    curve = eh.nanmean(0)[::5].tolist()
+    return {"model_err_cycles_2_12": early, f"model_err_cycles_{lo}_plus": late,
+            "model_err_reduction_x": early / max(late, 1e-12),
+            "err_curve_by5": [None if math.isnan(v) else v for v in curve]}
+
+
+def fly_online(op: OnlinePath, x0s: torch.Tensor) -> tuple:
+    """The online campaign: every lane starts with an empty GP, learns the
+    plant gap in flight and is judged by the outcome state machine. Returns
+    (per-lane results with the learning trace's fields, ``campaign_statistics``,
+    the learning trace with ``gp_points_mean`` and ``n_refits_mean``)."""
+    cinit, cstep = op.controller()
+    res = run_campaign(cinit, cstep, op.F_true, x0s, op.sim, cstate_info=online_controller_info)
+    trace = learning_trace(res["err_hist"], op.sim.max_steps)
+    trace["gp_points_mean"] = float(res["gp_points"].float().mean())
+    trace["n_refits_mean"] = float(res["n_refits"].float().mean())
+    return res, campaign_statistics(res), trace

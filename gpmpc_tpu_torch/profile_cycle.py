@@ -20,18 +20,27 @@ Runs one of the cycles of ``gpmpc_tpu_torch/main_path.py``:
   sparse-form ``rti_config_6dof(N=15)`` controller tracking a cubic descent
   reference on the dispersed plant), 4 lanes, and the wall time of the whole
   ``pretrain_gp_6dof`` call;
+- ``--path online``: Path E, the online-learning GP-MPC cycle (each lane's
+  own GP observed every cycle, refit every 10 and refreshed every 20 cycles,
+  then ``gp_mpc_solve`` + the drag plant step), 512 lanes from an empty GP;
+- ``--path online6dof``: the same controller on the 6-DoF model as the
+  6-DoF online campaign flies it (100 iterations in chunks of 50, Path D's
+  plant), 512 lanes of the campaign's fleet;
 
 warms it up and reports:
 
 - ms per cycle from CUDA events, without the profiler;
 - a ``torch.profiler`` trace of a few cycles: for each stage span of the
-  cycle (``gpmpc.*``, ``rti.*``, ``admm.*``) its host time, and for the
+  cycle (``gpmpc.*``, ``rti.*``, ``admm.*``, and ``online.observe`` and
+  ``online.refit`` on the online paths) its host time, and for the
   whole window the device's busy share (sum of kernel times over wall time),
   the kernel launches per cycle and the kernels that take the most device
   time.
 
 Usage: ``python -m gpmpc_tpu_torch.profile_cycle [--path main] [--batch B]
-[--cycles 20] [--out build/profile_cycle.json]``. Needs a CUDA device.
+[--cycles 20] [--prof-cycles P] [--out build/profile_cycle.json]``: the
+profiled window is 5 cycles, 20 on the online paths so that it holds one
+refit and one refresh. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,16 +56,17 @@ from torch.profiler import ProfilerActivity, profile
 
 from .learning import explore_gp_3dof
 from .main_path import (BATCH, DT, N, calibration_cycle, calibration_path, calibration_x0,
-                        fleet_x0, main_path, pretrain_path, rti_path, sixdof_fleet_x0,
-                        sixdof_flight_x0, sixdof_path, sixdof_pretrain_path,
-                        with_gust_variance)
+                        fleet_x0, main_path, online_flight_path, online_path, pretrain_path,
+                        rti_path, sixdof_fleet_x0, sixdof_flight_x0, sixdof_path,
+                        sixdof_pretrain_path, with_gust_variance)
 from .mpc import (RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti_config_6dof,
                   rti_init, rti_step)
 from .reference import cubic_descent_reference
 
-SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.")
+SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.")
 PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4, "calibration": BATCH,
-         "sixdof": BATCH, "pretrain6dof": 4}  # path → default lanes
+         "sixdof": BATCH, "pretrain6dof": 4, "online": BATCH,
+         "online6dof": BATCH}  # path → default lanes
 
 
 def _card() -> str:
@@ -107,19 +117,29 @@ def _cycle_of(path: str, batch: int, dev):
             return state, sp.F_true(xs, sol.u0)
 
         return cycle, gp_mpc_init(sp.config, xs, sp.x_target, device=dev), xs
-    # the controller collect_residuals_3dof (or _6dof) flies, on the dispersed plant
-    if path == "pretrain6dof":
-        sp = sixdof_path(dev)
-        F, F_true, xT = sp.F, sp.F_true, sp.x_target
-        cfg, horizon = rti_config_6dof(sp.params, N=15, dt=DT), 65
-        xs = sixdof_flight_x0(torch.Generator(device=dev).manual_seed(7), batch, dev)
+    # the rest are controllers of the campaign protocol, stepped with the index
+    if path in ("online", "online6dof"):
+        if path == "online":
+            op = online_path(dev)
+        else:
+            op = online_flight_path("6dof", dev)
+            xs = sixdof_flight_x0(torch.Generator(device=dev).manual_seed(7), batch, dev)
+        cinit, cstep = op.controller()
+        F_true = op.F_true
     else:
-        mp = main_path(dev)
-        F, F_true, xT = mp.F, mp.F_true, mp.x_target
-        cfg, horizon = RTIConfig(N=N, dt=DT, device=dev), 100
-    cinit, cstep = make_rti_controller(
-        F, cfg, xT, reference_fn=lambda x0: cubic_descent_reference(x0, xT, 80, DT),
-        ref_horizon=horizon)
+        # the controller collect_residuals_3dof (or _6dof) flies, on the dispersed plant
+        if path == "pretrain6dof":
+            sp = sixdof_path(dev)
+            F, F_true, xT = sp.F, sp.F_true, sp.x_target
+            cfg, horizon = rti_config_6dof(sp.params, N=15, dt=DT), 65
+            xs = sixdof_flight_x0(torch.Generator(device=dev).manual_seed(7), batch, dev)
+        else:
+            mp = main_path(dev)
+            F, F_true, xT = mp.F, mp.F_true, mp.x_target
+            cfg, horizon = RTIConfig(N=N, dt=DT, device=dev), 100
+        cinit, cstep = make_rti_controller(
+            F, cfg, xT, reference_fn=lambda x0: cubic_descent_reference(x0, xT, 80, DT),
+            ref_horizon=horizon)
     step = [0]
 
     def cycle(cstate, xs):
@@ -131,6 +151,8 @@ def _cycle_of(path: str, batch: int, dev):
 
 
 def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
+    """Warm up 5 cycles, time ``cycles`` with CUDA events, then profile
+    ``prof_cycles``."""
     dev = torch.device("cuda")
     cycle, state, xs = _cycle_of(path, batch, dev)
     for _ in range(5):
@@ -207,12 +229,14 @@ def main() -> None:
     ap.add_argument("--path", choices=sorted(PATHS), default="main")
     ap.add_argument("--batch", type=int, default=None, help="lanes (default: the path's)")
     ap.add_argument("--cycles", type=int, default=20)
-    ap.add_argument("--prof-cycles", type=int, default=5)
+    ap.add_argument("--prof-cycles", type=int, default=None,
+                    help="cycles in the profiled window (default 5; 20 on the online paths)")
     ap.add_argument("--out", default="build/profile_cycle.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_cycle needs a CUDA device")
-    res = run(args.path, args.batch or PATHS[args.path], args.cycles, args.prof_cycles)
+    prof_cycles = args.prof_cycles or (20 if args.path.startswith("online") else 5)
+    res = run(args.path, args.batch or PATHS[args.path], args.cycles, prof_cycles)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))

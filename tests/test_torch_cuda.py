@@ -300,3 +300,88 @@ def test_wrapper_leaves_inputs_untouched(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(args, saved):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("iters", [1, 50])
+def test_shared_variant_at_the_online_6dof_chunk(cuda_device, iters):
+    """The 6-DoF online campaign's chunk (``sixdof50``): Path D's condensed
+    QP at its real data in chunks of 50 iterations. The picker must keep the
+    shared variant at 512 lanes."""
+    args = chunk_inputs("sixdof", torch.Generator(device="cuda").manual_seed(0), lanes=512)
+    assert K.variant(60, 200, 60, 512) == "shared" and K.cluster_size(60, 200, 60, 512) == 1
+    _assert_matches_plain(args, BOUNDED_SEGS, iters, scaled=True)
+
+
+def _to(obj, dev):
+    """A (nested) dataclass of tensors copied to ``dev``."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _to(getattr(obj, f.name), dev)
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def test_online_cycles_on_the_card_match_the_cpu(cuda_device):
+    """Path E at 8 lanes: 30 cycles on the card, then 10 more from that
+    state on the card and on the CPU, both on the card's flown transitions
+    (the state it measures, the control it flew): u0 within 1e-3 on the nine
+    cycles without a GP update, the posterior of the GPs refreshed at k = 39
+    within 1% of its scale (a refit on the latest points is so
+    ill-conditioned in f32 that two f32 runs need not agree on its u0 to
+    1e-3: chip_smoke.py prints the CPU's own spread there), the buffer counts
+    and the kernel's launches (one a cycle on the card, none on the CPU)."""
+    import dataclasses
+
+    from gpmpc_tpu_torch.main_path import fleet_x0, online_path
+
+    op = online_path(cuda_device)
+    (cinit, cstep), (_, cstep_c) = op.controller(), online_path("cpu").controller()
+    xs = fleet_x0(8, cuda_device)
+    st = cinit(xs)
+    for k in range(30):
+        u, st = cstep(st, xs, k)
+        xs = op.F_true(xs, u)
+    sc = _to(st, torch.device("cpu"))
+    before = K.LAUNCHES
+    for k in range(30, 40):
+        u, st = cstep(st, xs, k)
+        uc, sc = cstep_c(sc, xs.cpu(), k)
+        if k < 39:
+            torch.testing.assert_close(u.cpu(), uc, rtol=0, atol=1e-3)
+        sc = dataclasses.replace(sc, u_prev=u.cpu())
+        xs = op.F_true(xs, u)
+    m_c = sc.gp.predict_gated(xs.cpu(), u.cpu())[0]
+    torch.testing.assert_close(st.gp.predict_gated(xs, u)[0].cpu(), m_c, rtol=0,
+                               atol=1e-2 * m_c.abs().max().item())
+    assert K.LAUNCHES == before + 10
+    assert torch.equal(st.gp.buffer_count.cpu(), sc.gp.buffer_count)
+    assert torch.equal(st.n_refits.cpu(), sc.n_refits) and int(sc.n_refits[0]) == 4
+
+
+def test_lane_batched_refit_on_the_card_matches_the_cpu(cuda_device):
+    """The online refit's shape, 512 lanes × 3 outputs, 160 stored points
+    (a different count a lane), 32 inducing points, 11 features, on a
+    well-conditioned problem: the factors and the posterior at 1e-4."""
+    from gpmpc_tpu_torch.gp import SquaredExponentialARD, predict_sparse_multi, refit_sparse_multi
+
+    g = torch.Generator().manual_seed(3)
+    B, cap, M, d, o = 512, 160, 32, 11, 3
+    X, Z = torch.randn(B, cap, d, generator=g), torch.randn(B, M, d, generator=g)
+    Y = torch.randn(B, o, cap, generator=g)
+    mask = torch.arange(cap) < torch.randint(0, cap + 1, (B, 1), generator=g)
+    k = SquaredExponentialARD(log_variance=0.2 * torch.randn(B, o, generator=g),
+                              log_lengthscales=0.3 * torch.randn(B, o, d, generator=g) + 1.0)
+    ln = torch.full((B, o), float(np.log(0.1)))
+    Xq = torch.randn(B, 20, d, generator=g)
+    cpu = refit_sparse_multi(k, Z, X, Y, mask, ln)
+    dev = refit_sparse_multi(_to(k, cuda_device), Z.cuda(), X.cuda(), Y.cuda(), mask.cuda(),
+                             ln.cuda())
+    for name in ("Luu_inv", "LB_inv", "c"):
+        torch.testing.assert_close(getattr(dev, name).cpu(), getattr(cpu, name), rtol=0,
+                                   atol=1e-4)
+    pc, pd = predict_sparse_multi(cpu, Xq), predict_sparse_multi(dev, Xq.cuda())
+    torch.testing.assert_close(pd.mean.cpu(), pc.mean, rtol=0, atol=1e-4)
+    torch.testing.assert_close(pd.variance.cpu(), pc.variance, rtol=0, atol=1e-4)

@@ -28,6 +28,7 @@ def test_import_with_jax_blocked():
         "import gpmpc_tpu_torch.experiments.monte_carlo, gpmpc_tpu_torch.chunk_bench\n"
         "import gpmpc_tpu_torch.dynamics.rocket6dof, gpmpc_tpu_torch.mpc.rti6dof\n"
         "import gpmpc_tpu_torch.mpc.cost_functions, gpmpc_tpu_torch.gp.structured_gp\n"
+        "import gpmpc_tpu_torch.gp.online_update, gpmpc_tpu_torch.learning.online_gp_mpc\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
