@@ -96,6 +96,9 @@ BOUNDED_SEGS = (("blt", 5, 28, 12), ("diag", N_VARS))  # 140 state-bound rows, t
 # glideslope row, translation bounds dropped: 7 × 20 state-bound rows, the
 # controls, 20 glideslope rows, 20 blocks of 8 cone rows on a stage's 3 controls
 FACETS_SEGS = BOUNDED_SEGS + (("blt", 5, 4, 12), ("blockdiag", 20, 8, 3))
+# Path F's 6-DoF QP (condensed, N = 15, every state bound kept): 14 × 15
+# state-bound rows, then the 45 control rows
+FLEET6_SEGS = (("blt", 5, 42, 9), ("diag", 45))
 
 
 def _structured_rows(segs, B, n, gen, dev):
@@ -154,6 +157,37 @@ def sixdof_qp(kind, lanes, gen, dev):
                               x_bound_mask=cfg.x_bound_mask)[0]
 
 
+def fleet_qp(kind, lanes, gen, dev):
+    """The first-cycle QP of Path F's controllers at their real data,
+    ``lanes`` lanes of ``main_path.fleet_learning_x0``: "fleet3dof", the sparse form of
+    ``RTIConfig()`` (n = 157, m = 269, every row dense); "fleet6dof", the
+    condensed ``rti_config_6dof(N=15)`` (n = 45, m = 255, FLEET6_SEGS). The
+    linearization trajectory is the rollout of hover thrust, the bounds are
+    the box ∩ the trust region, the reference the fleet's cubic descent."""
+    from .dynamics import trajectory_jacobians
+    from .main_path import fleet_learning_path, fleet_learning_x0
+    from .mpc import gp_mpc_init
+    from .mpc.rti import _rollout
+    from .ops.qp import build_condensed_qp, build_mpc_qp
+    from .reference import cubic_descent_reference
+
+    model = kind[len("fleet"):]
+    fp = fleet_learning_path(model, dev)
+    cfg, F, xT = fp.mpc.base, fp.F, fp.x_target
+    x0s = fleet_learning_x0(model, gen, lanes, dev)
+    st = gp_mpc_init(fp.mpc, x0s, xT, device=dev)
+    X = _rollout(F, x0s, st.U_lin)
+    Aks, Bks, cks = trajectory_jacobians(F, X, st.U_lin)
+    ref = cubic_descent_reference(x0s, xT, fp.config.max_steps - 10, cfg.dt)[:, :cfg.N + 1]
+    tx, tu = fp.mpc.trust_region_x, fp.mpc.trust_region_u
+    bounds = (torch.maximum(cfg.x_min, X - tx), torch.minimum(cfg.x_max, X + tx),
+              torch.maximum(cfg.u_min, st.U_lin - tu), torch.minimum(cfg.u_max, st.U_lin + tu))
+    if cfg.condensed:
+        return build_condensed_qp(Aks, Bks, cks, x0s, cfg.Q, cfg.R, cfg.Qf, ref, *bounds,
+                                  x_bound_mask=cfg.x_bound_mask)[0]
+    return build_mpc_qp(Aks, Bks, cks, x0s, cfg.Q, cfg.R, cfg.Qf, ref, *bounds)
+
+
 def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     """Chunk operands on the card: (Minv, A, q, l, u, rho_v, x, z, y).
     "main": 512 lanes, n = m = 60, A the identity control-bound rows as
@@ -164,13 +198,16 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     rows behind the identity (FACETS_SEGS);
     "golden": ``lanes`` sparse-form golden QPs (n = 207, m = 354), the four of
     ``golden_path`` repeated; "sixdof" and "sparse6dof": ``lanes`` lanes of
-    the 6-DoF paths' QPs (:func:`sixdof_qp`)."""
+    the 6-DoF paths' QPs (:func:`sixdof_qp`); "fleet3dof" and "fleet6dof":
+    ``lanes`` lanes of Path F's QPs (:func:`fleet_qp`)."""
     from .ops.qp import QPData, ruiz_equilibrate
     from .ops.qp.admm import _factor, _rho_vec
 
-    dev = torch.device("cuda")
+    dev = gen.device
     if kind in ("sixdof", "sparse6dof"):
         data = sixdof_qp(kind, lanes, gen, dev)
+    elif kind in ("fleet3dof", "fleet6dof"):
+        data = fleet_qp(kind, lanes, gen, dev)
     elif kind == "golden":
         fx = np.load(golden_path)
         names = (("canonical", "high_fast", "low_slow", "lateral") * ((lanes + 3) // 4))[:lanes]

@@ -25,10 +25,23 @@ fitted ``StructuredRocketGP``'s two GPs and stores, prefixed ``trans_`` and
 ``rot_`` (``trans_Z``, …, ``rot_buffer_count``), plus the optional
 unprefixed ``config``.
 
-``online_gp_from_numpy`` carries the GP of a JAX ``OnlineGPMPCState`` (a GP
-per lane) across: the same keys as the two functions above, each array with
-the leading lane axis (``Z`` (B, M, d), ``buffer_head`` (B,), …); the
-``trans_`` keys select the structured model.
+``online_gp_from_numpy`` carries a GP per lane across — the GP of a JAX
+``OnlineGPMPCState``, or the ``gps`` of a JAX fleet
+(``run_batched_learning``), i.e. per-lane GPs stacked on a leading axis: the
+same keys as the two functions above, each array with the leading lane axis
+(``Z`` (B, M, d), ``buffer_head`` (B,), …); the ``trans_`` keys select the
+structured model.
+
+``sparse_gp_state_from_numpy`` expects the fields of a single-output
+``SparseGPState`` (``Z``, ``X``, ``y``, ``mask``, ``log_noise``,
+``Luu_inv``, ``LB_inv``, ``c``, optionally ``method``) and
+``exact_gp_state_from_numpy`` those of an ``ExactGPState`` (``X``, ``y``,
+``mask``, ``log_noise``, ``L``, ``alpha``); the kernel is an SE-ARD one from
+``log_variance`` and ``log_lengthscales`` unless the caller passes one.
+
+``batched_learning_config_from_fields`` expects the fields of a
+``BatchedLearningConfig``, its ``gp`` entry a dict of ``StructuredGPConfig``
+fields.
 
 ``rocket6dof_params_from_fields`` expects the fields of a
 ``Rocket6DoFParams`` (the vectors and matrices as NumPy arrays).
@@ -52,22 +65,33 @@ from .gp import (
     StructuredRocketGP,
     TranslationalFeatureExtractor,
 )
+from .gp.exact_gp import ExactGPState
 from .gp.kernels import SquaredExponentialARD
-from .gp.sparse_gp import MultiOutputSparseGPState
+from .gp.sparse_gp import MultiOutputSparseGPState, SparseGPState
 from .gp.structured_gp import RingBuffer
+from .learning.batched_learner import BatchedLearningConfig
 from .mpc import GPMPCConfig, RTIConfig, RTIState
 from .ops.qp import ADMMConfig
 
 
+def _getters(d: Dict[str, Any], prefix: str, dev: torch.device):
+    """(float32, bool) tensor getters of the ``prefix``-ed keys."""
+    f = lambda k: as_f32(np.array(d[prefix + k]), dev)
+    b = lambda k: torch.as_tensor(np.array(d[prefix + k]), dtype=torch.bool, device=dev)
+    return f, b
+
+
+def _se_ard(f) -> SquaredExponentialARD:
+    return SquaredExponentialARD(log_variance=f("log_variance"),
+                                 log_lengthscales=f("log_lengthscales"))
+
+
 def _sparse_gp(d: Dict[str, Any], prefix: str, dev: torch.device):
     """(MultiOutputSparseGPState, RingBuffer) from the ``prefix``-ed keys."""
-    f = lambda k: as_f32(np.array(d[prefix + k]), dev)
+    f, b = _getters(d, prefix, dev)
     i32 = lambda k: torch.as_tensor(np.array(d[prefix + k]), dtype=torch.int32, device=dev)
-    kernels = SquaredExponentialARD(log_variance=f("log_variance"),
-                                    log_lengthscales=f("log_lengthscales"))
     gp = MultiOutputSparseGPState(
-        kernels=kernels, Z=f("Z"), X=f("X"), Y=f("Y"),
-        mask=torch.as_tensor(np.array(d[prefix + "mask"]), dtype=torch.bool, device=dev),
+        kernels=_se_ard(f), Z=f("Z"), X=f("X"), Y=f("Y"), mask=b("mask"),
         log_noise=f("log_noise"), method=str(d.get(prefix + "method", "fitc")),
         Luu_inv=f("Luu_inv"), LB_inv=f("LB_inv"), c=f("c"),
     )
@@ -98,10 +122,34 @@ def structured_rocket_gp_from_numpy(d: Dict[str, Any],
 
 def online_gp_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda"):
     """A GP per lane (``Simple3DoFGP`` or ``StructuredRocketGP``) from the
-    leaves of a JAX online controller's GP."""
+    leaves of a JAX online controller's GP or of a JAX fleet's ``gps``."""
     if "trans_Z" in d:
         return structured_rocket_gp_from_numpy(d, device)
     return simple3dof_gp_from_numpy(d, device)
+
+
+def sparse_gp_state_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda",
+                               kernel=None) -> SparseGPState:
+    f, b = _getters(d, "", resolve_device(device))
+    return SparseGPState(
+        kernel=_se_ard(f) if kernel is None else kernel, Z=f("Z"), X=f("X"), y=f("y"),
+        mask=b("mask"), log_noise=f("log_noise"), method=str(d.get("method", "fitc")),
+        Luu_inv=f("Luu_inv"), LB_inv=f("LB_inv"), c=f("c"))
+
+
+def exact_gp_state_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda",
+                              kernel=None) -> ExactGPState:
+    f, b = _getters(d, "", resolve_device(device))
+    return ExactGPState(kernel=_se_ard(f) if kernel is None else kernel, X=f("X"), y=f("y"),
+                        mask=b("mask"), log_noise=f("log_noise"), L=f("L"), alpha=f("alpha"))
+
+
+def batched_learning_config_from_fields(d: Dict[str, Any]) -> BatchedLearningConfig:
+    """The port's ``BatchedLearningConfig`` from the JAX config's field values."""
+    extra = {}
+    if "gp" in d:
+        extra["gp"] = _dataclass_from(StructuredGPConfig, d["gp"])
+    return _dataclass_from(BatchedLearningConfig, d, **extra)
 
 
 def rocket6dof_params_from_fields(d: Dict[str, Any],

@@ -1,7 +1,9 @@
-"""Sparse (inducing-point) multi-output GPs, FITC and VFE (counterpart of the
-multi-output part of ``gpmpc_tpu/gp/sparse_gp.py``).
+"""Sparse (inducing-point) GPs, FITC and VFE (counterpart of
+``gpmpc_tpu/gp/sparse_gp.py``): the single-output state with its fit, refit,
+prediction, ring-buffer update and Adam hyperparameter fit, and the
+multi-output state.
 
-The outputs share inducing inputs Z and training inputs X; every factor
+The outputs of a multi-output GP share inducing inputs Z and training inputs X; every factor
 carries a leading output axis, so the per-output ``vmap`` of the JAX code is
 one batched call here. Ahead of the output axis every array may carry one
 more batch axis, the lane axis of the online controller, where each lane
@@ -24,8 +26,7 @@ import torch
 
 from ..ops.kmeans import kmeans
 from ..ops.linalg import robust_cholesky
-from .exact_gp import GPPrediction
-from .kernels import SquaredExponentialARD
+from .exact_gp import GPPrediction, _pad, adam_fit
 
 
 def _tri_inv(L: torch.Tensor) -> torch.Tensor:
@@ -33,7 +34,7 @@ def _tri_inv(L: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
 
 
-def _factors(kernel: SquaredExponentialARD, Z, X, Y, mask, log_noise, method: str):
+def _factors(kernel, Z, X, Y, mask, log_noise, method: str):
     """FITC/VFE factors for every output: Y is (..., n_out, cap), log_noise
     (..., n_out). Returns (Luu_inv, LB_inv, c, lam, qff, kff, ym); the last
     four (each (..., n_out, cap)) are what the marginal likelihood needs."""
@@ -78,10 +79,13 @@ def _factors(kernel: SquaredExponentialARD, Z, X, Y, mask, log_noise, method: st
 
 
 def sparse_lml(kernels, Z, X, Y, mask, log_noise, method: str = "fitc") -> torch.Tensor:
-    """FITC marginal likelihood / VFE ELBO of every output, (n_out,): Y is
-    (..., n_out, cap), the kernel parameters and log_noise carry the output
-    axis (behind any lane axis). Differentiable in the kernel parameters,
-    log_noise and Z."""
+    """FITC marginal likelihood / VFE ELBO of every output, ([B,] n_out): Y is
+    ([B,] n_out, cap), the kernel parameters and log_noise carry the output
+    axis (behind any lane axis). One output (Y (cap,), an unstacked kernel, a
+    scalar log_noise) gives a scalar. Differentiable in the kernel
+    parameters, log_noise and Z."""
+    if Y.dim() == 1:
+        return sparse_lml(_one_output(kernels), Z, X, Y[None], mask, log_noise[None], method)[0]
     _, LB_inv, c, lam, qff, kff, ym = _factors(kernels, Z, X, Y, mask, log_noise, method)
     n = mask.sum(-1)[..., None]
     mask = mask[..., None, :]
@@ -101,9 +105,97 @@ def sparse_lml(kernels, Z, X, Y, mask, log_noise, method: str = "fitc") -> torch
 def init_inducing_points(X, n_inducing: int, mask=None,
                          generator: Optional[torch.Generator] = None,
                          init_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """k-means centroids as inducing points."""
+    """k-means centroids as inducing points: X ([B,] cap, d) → ([B,] M, d),
+    one k-means per lane (see :func:`~gpmpc_tpu_torch.ops.kmeans.kmeans`)."""
     Z, _ = kmeans(X, n_inducing, mask=mask, generator=generator, init_idx=init_idx)
     return Z
+
+
+def _one_output(kernel):
+    """A single kernel seen as a stack of one output."""
+    return kernel.map_params(lambda p: p[None])
+
+
+@dataclass
+class SparseGPState:
+    """One single-output sparse GP: Z (M, d), padded X (cap, d), y (cap,),
+    mask (cap,), scalar log_noise, and the cached triangular inverses."""
+
+    kernel: object
+    Z: torch.Tensor
+    X: torch.Tensor
+    y: torch.Tensor
+    mask: torch.Tensor
+    log_noise: torch.Tensor
+    method: str = "fitc"
+    Luu_inv: Optional[torch.Tensor] = None  # (M, M)
+    LB_inv: Optional[torch.Tensor] = None  # (M, M)
+    c: Optional[torch.Tensor] = None  # (M,)
+
+    @property
+    def n_inducing(self) -> int:
+        return self.Z.shape[0]
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self.mask.sum()
+
+
+def refit_sparse(kernel, Z, X, y, mask, log_noise, method: str = "fitc") -> SparseGPState:
+    Luu_inv, LB_inv, c, *_ = _factors(_one_output(kernel), Z, X, y[None], mask,
+                                      log_noise[None], method)
+    return SparseGPState(kernel=kernel, Z=Z, X=X, y=y, mask=mask, log_noise=log_noise,
+                         method=method, Luu_inv=Luu_inv[0], LB_inv=LB_inv[0], c=c[0])
+
+
+def fit_sparse(kernel, X, y, Z, noise: float = 1e-2, mask=None,
+               capacity: Optional[int] = None, method: str = "fitc") -> SparseGPState:
+    """Fit on X (n, d), y (n,), padded with masked rows to ``capacity``."""
+    X, y, m = _pad(X, y, mask, capacity)
+    log_noise = torch.tensor(math.log(noise), dtype=X.dtype, device=X.device)
+    return refit_sparse(kernel, Z, X, y, m, log_noise, method)
+
+
+def predict_sparse(state: SparseGPState, Xs: torch.Tensor) -> GPPrediction:
+    """Posterior mean and variance (n_s,) at Xs (n_s, d): O(M²) per point
+    as matmuls against the cached inverses."""
+    Ksu = state.kernel(Xs, state.Z)
+    v = state.Luu_inv @ Ksu.T
+    w = state.LB_inv @ v
+    var = state.kernel.diagonal(Xs) - (v * v).sum(0) + (w * w).sum(0)
+    return GPPrediction(mean=w.T @ state.c, variance=var.clamp_min(0.0))
+
+
+def _ring_slots(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """The k slots after the active count, wrapping (the oldest rows are
+    overwritten once the store is full)."""
+    return (mask.sum() + torch.arange(k, device=mask.device)) % mask.shape[0]
+
+
+def update_sparse(state: SparseGPState, X_new, y_new) -> SparseGPState:
+    """Write X_new (k, d), y_new (k,) into the store, then refit."""
+    idx = _ring_slots(state.mask, X_new.shape[0])
+    X, y, mask = state.X.clone(), state.y.clone(), state.mask.clone()
+    X[idx], y[idx], mask[idx] = X_new, y_new, True
+    return refit_sparse(state.kernel, state.Z, X, y, mask, state.log_noise, state.method)
+
+
+def optimize_sparse_hyperparameters(kernel, Z, X, y, mask, log_noise, steps: int = 200,
+                                    learning_rate: float = 0.05,
+                                    optimize_inducing: bool = False, method: str = "fitc"):
+    """Adam on (kernel, log_noise[, Z]) against the negative FITC/VFE
+    objective. Returns (kernel, log_noise, Z, the loss at the last step)."""
+    n_k = len(kernel.params())
+
+    def loss(leaves):
+        zz = leaves[-1] if optimize_inducing else Z
+        return -sparse_lml(kernel.with_params(leaves[:n_k]), zz, X, y, mask,
+                                  leaves[n_k], method)
+
+    leaves = kernel.params() + [log_noise] + ([Z] if optimize_inducing else [])
+    leaves, last = adam_fit(loss, leaves, steps, learning_rate)
+    return (kernel.with_params(leaves[:n_k]), leaves[n_k],
+            leaves[-1] if optimize_inducing else Z, last)
 
 
 @dataclass
@@ -111,7 +203,7 @@ class MultiOutputSparseGPState:
     """One multi-output sparse GP, or one per lane: every field then carries
     the lane axis B first."""
 
-    kernels: SquaredExponentialARD  # stacked, axis n_out: ([B,] n_out, ...)
+    kernels: object  # stacked, axis n_out: ([B,] n_out, ...)
     Z: torch.Tensor  # ([B,] M, d) shared inducing inputs
     X: torch.Tensor  # ([B,] cap, d) shared training inputs
     Y: torch.Tensor  # ([B,] n_out, cap)
@@ -133,12 +225,17 @@ def refit_sparse_multi(kernels, Z, X, YT, mask, log_noise, method: str = "fitc"
 
 
 def fit_sparse_multi(kernels, X, Y, Z, noise: float = 1e-2, mask=None,
-                     method: str = "fitc") -> MultiOutputSparseGPState:
-    """``Y`` is (n, n_out); kernels stacked with leading axis n_out."""
-    n_out = Y.shape[1]
-    m = torch.ones(X.shape[0], dtype=torch.bool, device=X.device) if mask is None else mask
-    ln = torch.full((n_out,), math.log(noise), dtype=X.dtype, device=X.device)
-    return refit_sparse_multi(kernels, Z, X, Y.T.contiguous(), m, ln, method)
+                     capacity: Optional[int] = None, method: str = "fitc"
+                     ) -> MultiOutputSparseGPState:
+    """``Y`` is ([B,] n, n_out); kernels stacked with leading axis n_out
+    (behind the lane axis of a GP per lane). ``capacity`` pads one GP's
+    rows."""
+    if X.dim() == 2:
+        X, Y, mask = _pad(X, Y, mask, capacity)
+    n_out = Y.shape[-1]
+    m = torch.ones(X.shape[:-1], dtype=torch.bool, device=X.device) if mask is None else mask
+    ln = torch.full((*X.shape[:-2], n_out), math.log(noise), dtype=X.dtype, device=X.device)
+    return refit_sparse_multi(kernels, Z, X, Y.transpose(-1, -2).contiguous(), m, ln, method)
 
 
 def predict_sparse_multi(state: MultiOutputSparseGPState, Xs: torch.Tensor) -> GPPrediction:
@@ -152,3 +249,13 @@ def predict_sparse_multi(state: MultiOutputSparseGPState, Xs: torch.Tensor) -> G
     var = state.kernels.diagonal(Xs) - (v * v).sum(-2) + (w * w).sum(-2)
     return GPPrediction(mean=mean.transpose(-1, -2),
                         variance=var.clamp_min(0.0).transpose(-1, -2))
+
+
+def update_sparse_multi(state: MultiOutputSparseGPState, X_new, Y_new
+                        ) -> MultiOutputSparseGPState:
+    """Write X_new (k, d), Y_new (k, n_out) into the store, then refit."""
+    idx = _ring_slots(state.mask, X_new.shape[0])
+    X, Y, mask = state.X.clone(), state.Y.clone(), state.mask.clone()
+    X[idx], mask[idx] = X_new, True
+    Y[:, idx] = Y_new.T
+    return refit_sparse_multi(state.kernels, state.Z, X, Y, mask, state.log_noise, state.method)

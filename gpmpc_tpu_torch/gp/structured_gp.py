@@ -10,10 +10,11 @@ each with fixed-capacity FIFO data stores, the novelty-gated one-point
 insert of the online loop, the masked batch insert, the novelty test and
 ``.npz`` persistence.
 
-A GP is one model, or one per lane (``create(..., lanes=B)``): then every
-tensor of its stores and of its sparse GPs carries the lane axis B first,
-and ``predict`` treats dim 0 of its inputs as that axis (the JAX package
-``vmap``s one GP per lane)."""
+A GP is one model, or one per lane (``create(..., lanes=B)``, or
+:func:`broadcast_lanes` of one model): then every tensor of its stores and
+of its sparse GPs carries the lane axis B first, ``fit`` runs one k-means and
+one fit per lane in a batch, and ``predict`` treats dim 0 of its inputs as
+that axis (the JAX package ``vmap``s one GP per lane)."""
 
 from __future__ import annotations
 
@@ -167,7 +168,7 @@ def _stacked_kernels(name: str, d: int, n_out: int, lengthscales=None,
     for one stack per lane."""
     k = stack_kernels([create_kernel(name, d, variance=variance, device=device)
                        for _ in range(n_out)])
-    if lengthscales is not None:
+    if lengthscales is not None and hasattr(k, "log_lengthscales"):
         lead = lengthscales.shape[:-1]
         k.log_lengthscales = torch.log(lengthscales)[..., None, :].expand(
             *lead, n_out, d).contiguous()
@@ -191,11 +192,11 @@ def _initial_hyperparameters(cfg: StructuredGPConfig, buf: RingBuffer, d: int,
                              fixed_ls=None, variance: float = 1.0):
     """(kernels, log_noise) a three-output fit on ``buf`` starts from: the
     fixed or data-driven ARD lengthscales and the configured noise."""
-    dev = buf.X.device
-    ls = (torch.as_tensor(fixed_ls, dtype=torch.float32, device=dev) if fixed_ls is not None
-          else _data_lengthscales(buf.X, buf.mask))
+    dev, lead = buf.X.device, buf.X.shape[:-2]
+    ls = (torch.as_tensor(fixed_ls, dtype=torch.float32, device=dev).expand(*lead, d)
+          if fixed_ls is not None else _data_lengthscales(buf.X, buf.mask))
     kernels = _stacked_kernels(cfg.kernel, d, 3, ls, variance=variance, device=dev)
-    return kernels, torch.full((3,), math.log(cfg.noise), device=dev)
+    return kernels, torch.full((*lead, 3), math.log(cfg.noise), device=dev)
 
 
 def _fit_buffer(cfg: StructuredGPConfig, buf: RingBuffer, kernels, generator, init_idx
@@ -244,6 +245,20 @@ def _gate(mean, var, prior):
 
 def _lanes(buf: RingBuffer) -> Optional[int]:
     return buf.X.shape[0] if buf.X.dim() == 3 else None
+
+
+def broadcast_lanes(obj, lanes: int):
+    """A copy of a GP (or any dataclass tree of tensors) with every tensor
+    repeated along a new leading lane axis of size ``lanes``: B identical
+    per-lane GPs, as ``jnp.broadcast_to`` gives the JAX package's ``vmap``."""
+    kw = {}
+    for f in fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = v.expand(lanes, *v.shape).contiguous()
+        elif is_dataclass(v) and any(True for _ in _tensors(v)):
+            kw[f.name] = broadcast_lanes(v, lanes)
+    return replace(obj, **kw)
 
 
 def _tensors(obj, prefix: str = ""):
@@ -363,7 +378,7 @@ class StructuredRocketGP(_Persistent):
             ) -> "StructuredRocketGP":
         """Fit both sparse GPs on the stored data. ``generator`` draws the
         translational, then the rotational k-means start; ``init_idx`` (a
-        pair) fixes them instead."""
+        pair, each ([B,] n_inducing)) fixes them instead."""
         (kt, _), (kr, _) = self.initial_hyperparameters()
         it, ir = (None, None) if init_idx is None else init_idx
         return replace(
@@ -468,7 +483,7 @@ class Simple3DoFGP(_Persistent):
     def fit(self, generator: Optional[torch.Generator] = None,
             init_idx: Optional[torch.Tensor] = None) -> "Simple3DoFGP":
         """Fit the sparse GP on the buffered data. ``generator`` draws the
-        k-means start (``init_idx`` fixes it instead)."""
+        k-means start (``init_idx`` ([B,] n_inducing) fixes it instead)."""
         kernels, _ = self.initial_hyperparameters()
         return replace(self, gp=_fit_buffer(self.config, self.buffer, kernels, generator,
                                             init_idx), is_fitted=True)

@@ -22,7 +22,12 @@ kernel selected (``use_pallas="auto"``):
   carries its own GP, learning inside the loop; :func:`online_flight_path`
   and :func:`fly_online` fly it as ``scripts/run_campaign_tpu.py
   --controller online_gp_mpc --elide`` does, for the 3-DoF and the 6-DoF
-  model.
+  model;
+- :func:`fleet_learning_path` — Path F, fleet GP learning
+  (``scripts/run_fleet_learning_tpu.py``): ``run_batched_learning`` over
+  128 (3-DoF) or 64 (6-DoF) lanes, each flying closed-loop GP-MPC episodes
+  with its own sparse GP, refitting at the round barrier and retuning on a
+  cadence; :func:`fly_fleet` flies it and returns the artifact's fields.
 
 ``chip_smoke.py`` and ``gpmpc_tpu_torch/profile_cycle.py`` drive them.
 """
@@ -30,12 +35,14 @@ kernel selected (``use_pallas="auto"``):
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from ._device import DeviceLike, resolve_device
 from .dynamics import Rocket3DoFParams, Rocket6DoFParams, rocket3dof as r3, rocket6dof as r6
+from .gp import StructuredGPConfig
+from .learning.batched_learner import BatchedLearningConfig, default_mpc, run_batched_learning
 from .learning.online_gp_mpc import (OnlineGPMPCConfig, make_online_gp_mpc_controller,
                                      online_controller_info)
 from .learning.pretrain import gp_fns, pretrain_gp_3dof, pretrain_gp_6dof  # noqa: F401  (gp_fns: re-exported for chip_smoke.py)
@@ -474,3 +481,111 @@ def fly_online(op: OnlinePath, x0s: torch.Tensor) -> tuple:
     trace["gp_points_mean"] = float(res["gp_points"].float().mean())
     trace["n_refits_mean"] = float(res["n_refits"].float().mean())
     return res, campaign_statistics(res), trace
+
+
+FLEET_LANES = {"3dof": 128, "6dof": 64}  # the published artifacts' widths
+
+
+class FleetPath(NamedTuple):
+    model: str
+    params: object  # the controllers' nominal model
+    F: Callable  # nominal step
+    plant: Callable  # the true plant
+    config: BatchedLearningConfig
+    mpc: GPMPCConfig
+    x_target: torch.Tensor
+
+
+def fleet_learning_path(model: str, device: DeviceLike = "cuda") -> FleetPath:
+    """Path F, ``scripts/run_fleet_learning_tpu.py`` with its defaults
+    (``:57-91``): 3 rounds of 110 steps, 128 points and 24 inducing points a
+    lane, an Adam retune of 40 steps every 2 rounds, and
+    ``run_batched_learning``'s default controller:
+
+    - ``"3dof"``: the plant adds drag (ρ = 1, C_D = 1, A_ref = 0.1) and dt·wind,
+      wind 0.4 on x[5] and 0.25 on x[6]; the controller is the sparse-form
+      ``RTIConfig()`` (N = 15: n = 157, m = 269; 100 iterations in chunks of
+      25 with adaptive ρ and polish) in two SCP iterations;
+    - ``"6dof"``: Path D's plant (ρ = 0.8, C_A = 0.05·I, wind 0.10/0.06);
+      the controller is the condensed ``rti_config_6dof(N=15)`` with every
+      state bound kept (n = 45, m = 255: 210 rows below the diagonal blocks,
+      then the 45 control rows), 100 fixed-ρ iterations in chunks of 25, two
+      SCP iterations with tightening.
+    """
+    dev = resolve_device(device)
+    if model == "3dof":
+        p = Rocket3DoFParams(device=dev)
+        p_true = p.replace(rho=1.0, C_D=1.0, A_ref=0.1)
+        wind = torch.zeros(7, device=dev)
+        wind[5], wind[6] = 0.4, 0.25
+        plant = lambda x, u: r3.step(p_true, x, u, DT) + DT * wind
+        F = lambda x, u: r3.step(p, x, u, DT)
+        xT = torch.zeros(7, device=dev)
+        xT[0] = 2.0
+    elif model == "6dof":
+        p = Rocket6DoFParams(device=dev)
+        p_true = p.replace(rho=0.8, C_A=0.05 * torch.eye(3))
+        wind = torch.zeros(14, device=dev)
+        wind[5], wind[6] = 0.10, 0.06
+        plant = lambda x, u: r6.step(p_true, x, u, DT) + DT * wind
+        F = lambda x, u: r6.step(p, x, u, DT)
+        xT = r6.create_initial_state(p, altitude=0.0)
+    else:
+        raise ValueError(f"unknown model {model!r}: use '3dof' or '6dof'")
+    cfg = BatchedLearningConfig(n_rounds=3, max_steps=110, dt=DT,
+                                gp=StructuredGPConfig(max_data_points=128, n_inducing=24),
+                                tune_every=2, tune_steps=40)
+    return FleetPath(model=model, params=p, F=F, plant=plant, config=cfg,
+                     mpc=default_mpc(p, xT.shape[0], DT, dev), x_target=xT)
+
+
+def fleet_learning_x0(model: str, generator: torch.Generator, batch: Optional[int] = None,
+             device: DeviceLike = "cuda") -> torch.Tensor:
+    """The fleet's initial states (``run_fleet_learning_tpu.py:64-85``),
+    drawn from ``generator``: 3-DoF at (2, 28, 0.5, −0.5, −3, 0, 0) with
+    altitude + 2·N(0,1) and horizontal position + 0.5·N(0,1); 6-DoF at
+    altitude 16 + 5·U(0,1), velocity (−3, 0.3·N(0,1), −0.1), upright."""
+    dev = resolve_device(device)
+    B = FLEET_LANES[model] if batch is None else batch
+    draw = lambda f, *shape: f(*shape, generator=generator, device=generator.device).to(dev)
+    if model == "3dof":
+        x0s = torch.tensor([2.0, 28.0, 0.5, -0.5, -3.0, 0.0, 0.0], device=dev).repeat(B, 1)
+        x0s[:, 1] += 2.0 * draw(torch.randn, B)
+        x0s[:, 2:4] += 0.5 * draw(torch.randn, B, 2)
+        return x0s
+    alts, vys = 16.0 + 5.0 * draw(torch.rand, B), 0.3 * draw(torch.randn, B)
+    x0s = r6.create_initial_state(Rocket6DoFParams(device=dev), altitude=0.0,
+                                  velocity=(-3.0, 0.0, -0.1)).repeat(B, 1)
+    x0s[:, 1], x0s[:, 5] = alts, vys
+    return x0s
+
+
+def fleet_summary(out: Dict, batch: int) -> Dict:
+    """The artifact's fields (``run_fleet_learning_tpu.py:106-133``) from
+    ``run_batched_learning``'s output, and its gate: model error final/first
+    < 0.5, last-round landed ≥ 0.95·B, every lane's GP fitted."""
+    me = out["model_err"].double().cpu()
+    landed = out["landed"].sum(1).tolist()
+    res = {
+        "batch": batch,
+        "model_err_by_round": me.mean(1).tolist(),
+        "model_err_final_over_first": float(me[-1].mean() / me[0].mean()),
+        "lanes_improved": int((me[-1] < me[0]).sum()),
+        "gp_fitted_all": bool(out["gp_fitted"].all()),
+        "landed_by_round": landed,
+        "success_by_round": out["success"].sum(1).tolist(),
+        # np.median's definition (the mean of the two middle values at an even count)
+        "touchdown_speed_median_by_round": [
+            float(v.quantile(0.5)) for v in out["touchdown_speed"].double().cpu()],
+    }
+    res["gate"] = (res["model_err_final_over_first"] < 0.5
+                   and landed[-1] >= int(0.95 * batch) and res["gp_fitted_all"])
+    return res
+
+
+def fly_fleet(fp: FleetPath, x0s: torch.Tensor, generator: torch.Generator) -> tuple:
+    """Fly the fleet's rounds; returns (``run_batched_learning``'s output,
+    :func:`fleet_summary`)."""
+    out = run_batched_learning(generator, fp.params, fp.plant, x0s, fp.config, fp.mpc,
+                               fp.x_target, device=x0s.device)
+    return out, fleet_summary(out, x0s.shape[0])

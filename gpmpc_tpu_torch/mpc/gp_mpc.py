@@ -7,12 +7,13 @@ linearization of the nominal dynamics, GP posterior mean and variance at
 every knot, linear covariance propagation and box chance tightening,
 condensed QP build, warm-started ADMM solve, acceptance}.
 
-Facet rows (``Gx``/``Gu``) and per-cycle linearized state rows
-(``stage_rows_fn(X_lin (B,N+1,n_x)) → Gx (B,N,n_gx,n_x), gx_l, gx_u``) of the
-base config enter the condensed QP as in the JAX package.
+The QP is the condensed one (``base.condensed=True``, controls only) or the
+sparse one (z = [X;U] with the dynamics as equality rows, the RTI default).
+Facet rows (``Gx``/``Gu``) of the base config enter either form; per-cycle
+linearized state rows (``stage_rows_fn(X_lin (B,N+1,n_x)) → Gx
+(B,N,n_gx,n_x), gx_l, gx_u``) enter the condensed one, as in the JAX package.
 
-Not ported (``NotImplementedError``): the sparse (non-condensed) QP form of
-the SCP loop, ``solver="ipm"`` and ``warm_kkt``.
+Not ported (``NotImplementedError``): ``solver="ipm"`` and ``warm_kkt``.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ from torch.profiler import record_function
 
 from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics.linearize import trajectory_jacobians
-from ..ops.qp import SOLVED, build_condensed_qp, recover_states, solve
+from ..ops.qp import (SOLVED, build_condensed_qp, build_mpc_qp, extend_qp, join_z,
+                      recover_states, solve, split_z)
 from .constraints import normal_quantile
-from .rti import RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows
+from .rti import RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows, _stage_rows
 from .uncertainty_prop import box_tightening, propagate_linear
 
 Tensor = torch.Tensor
@@ -87,11 +89,14 @@ def _check_supported(config: GPMPCConfig) -> None:
     if config.warm_kkt:
         raise NotImplementedError(
             "GP-MPC warm_kkt (KKT inverse carried across cycles) is not ported yet")
-    if not cfg.condensed:
-        raise NotImplementedError(
-            "the sparse (condensed=False) GP-MPC QP is not ported yet")
+    if cfg.solver == "ipm" and not cfg.condensed:
+        raise ValueError(
+            "solver='ipm' requires the condensed form (the sparse z=[X;U] "
+            "layout interleaves its dynamics equality rows)")
     if cfg.solver != "admm":
         raise NotImplementedError(f"solver={cfg.solver!r} is not ported yet")
+    if cfg.stage_rows_fn is not None and not cfg.condensed:
+        raise ValueError("stage_rows_fn (linearized state rows) requires condensed=True")
 
 
 def _rollout(step_fn, x0, U, dt, residual_fn):
@@ -182,7 +187,7 @@ def gp_mpc_solve(
         else:
             X_sim = _rollout(step_fn, x0, state.U_lin, dt, lambda k, x, u: torch.zeros_like(x))
 
-    admm_cfg = _condensed_admm_cfg(cfg)
+    admm_cfg = _condensed_admm_cfg(cfg) if cfg.condensed else cfg.admm
     X_lin, U_lin = X_sim, state.U_lin
     rho, y_prev = state.rho, state.y_prev
     done = torch.zeros(Bsz, dtype=torch.bool, device=x0.device)
@@ -202,17 +207,28 @@ def gp_mpc_solve(
             Sigmas, (Xlo, Xhi, Ulo, Uhi) = _tightened_bounds(
                 config, Aks, X_lin, U_lin, gp_vars)
 
-        with record_function("gpmpc.qp_build"):
-            Gx_r, gx_l_r, gx_u_r = _gx_rows(cfg, X_lin)
-            data, Gs, ds = build_condensed_qp(
-                Aks, Bks, cks, x0, cfg.Q, cfg.R, cfg.Qf, state.x_ref,
-                Xlo, Xhi, Ulo, Uhi, Gx_r, gx_l_r, gx_u_r, cfg.Gu, cfg.gu_l, cfg.gu_u,
-                x_bound_mask=cfg.x_bound_mask,
-            )
-        with record_function("gpmpc.admm_solve"):
-            sol = solve(data, U_lin.reshape(Bsz, -1), y_prev, admm_cfg, rho0=rho)
-        U_new = sol.x.reshape(Bsz, N, n_u)
-        X_new = recover_states(Gs, ds, sol.x, x0)
+        if cfg.condensed:
+            with record_function("gpmpc.qp_build"):
+                Gx_r, gx_l_r, gx_u_r = _gx_rows(cfg, X_lin)
+                data, Gs, ds = build_condensed_qp(
+                    Aks, Bks, cks, x0, cfg.Q, cfg.R, cfg.Qf, state.x_ref,
+                    Xlo, Xhi, Ulo, Uhi, Gx_r, gx_l_r, gx_u_r, cfg.Gu, cfg.gu_l, cfg.gu_u,
+                    x_bound_mask=cfg.x_bound_mask,
+                )
+            with record_function("gpmpc.admm_solve"):
+                sol = solve(data, U_lin.reshape(Bsz, -1), y_prev, admm_cfg, rho0=rho)
+            U_new = sol.x.reshape(Bsz, N, n_u)
+            X_new = recover_states(Gs, ds, sol.x, x0)
+        else:
+            with record_function("gpmpc.qp_build"):
+                data = build_mpc_qp(Aks, Bks, cks, x0, cfg.Q, cfg.R, cfg.Qf, state.x_ref,
+                                    Xlo, Xhi, Ulo, Uhi)
+                if cfg.Gx is not None or cfg.Gu is not None:
+                    # facet rows ride along in every SCP subproblem, as in RTI
+                    data = extend_qp(data, *_stage_rows(cfg))
+            with record_function("gpmpc.admm_solve"):
+                sol = solve(data, join_z(X_lin, U_lin), y_prev, admm_cfg, rho0=rho)
+            X_new, U_new = split_z(sol.x, N, cfg.n_x, n_u)
 
         # accept primal-feasible plans below the tolerance even when the dual
         # termination test has not fired

@@ -26,13 +26,19 @@ Runs one of the cycles of ``gpmpc_tpu_torch/main_path.py``:
 - ``--path online6dof``: the same controller on the 6-DoF model as the
   6-DoF online campaign flies it (100 iterations in chunks of 50, Path D's
   plant), 512 lanes of the campaign's fleet;
+- ``--path fleet`` and ``--path fleet6dof``: Path F, the episode cycle of
+  fleet GP learning (``run_batched_learning``'s GP-MPC controller with each
+  lane's own GP, fitted by a first round of 110 steps, + the true plant),
+  128 and 64 lanes, and the wall times of the round's refit barrier (every
+  lane's k-means and FITC fit) and of its per-lane Adam retune;
 
 warms it up and reports:
 
 - ms per cycle from CUDA events, without the profiler;
 - a ``torch.profiler`` trace of a few cycles: for each stage span of the
-  cycle (``gpmpc.*``, ``rti.*``, ``admm.*``, and ``online.observe`` and
-  ``online.refit`` on the online paths) its host time, and for the
+  cycle (``gpmpc.*``, ``rti.*``, ``admm.*``, ``online.observe`` and
+  ``online.refit`` on the online paths, ``fleet.cycle`` on the fleet
+  paths) its host time, and for the
   whole window the device's busy share (sum of kernel times over wall time),
   the kernel launches per cycle and the kernels that take the most device
   time.
@@ -49,24 +55,28 @@ import argparse
 import json
 import subprocess
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
-from .learning import explore_gp_3dof
-from .main_path import (BATCH, DT, N, calibration_cycle, calibration_path, calibration_x0,
-                        fleet_x0, main_path, online_flight_path, online_path, pretrain_path,
-                        rti_path, sixdof_fleet_x0, sixdof_flight_x0, sixdof_path,
-                        sixdof_pretrain_path, with_gust_variance)
+from .learning import explore_gp_3dof, run_batched_learning
+from .learning.batched_learner import _gated_fns, _tune_lane, fleet_cycle, fleet_reference
+from .main_path import (BATCH, DT, FLEET_LANES, N, calibration_cycle, calibration_path,
+                        calibration_x0, fleet_learning_path, fleet_learning_x0, fleet_x0,
+                        main_path, online_flight_path, online_path, pretrain_path, rti_path,
+                        sixdof_fleet_x0, sixdof_flight_x0, sixdof_path, sixdof_pretrain_path,
+                        with_gust_variance)
 from .mpc import (RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti_config_6dof,
                   rti_init, rti_step)
 from .reference import cubic_descent_reference
 
-SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.")
+SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.", "fleet.")
 PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4, "calibration": BATCH,
          "sixdof": BATCH, "pretrain6dof": 4, "online": BATCH,
-         "online6dof": BATCH}  # path → default lanes
+         "online6dof": BATCH, "fleet": FLEET_LANES["3dof"],
+         "fleet6dof": FLEET_LANES["6dof"]}  # path → default lanes
 
 
 def _card() -> str:
@@ -117,6 +127,8 @@ def _cycle_of(path: str, batch: int, dev):
             return state, sp.F_true(xs, sol.u0)
 
         return cycle, gp_mpc_init(sp.config, xs, sp.x_target, device=dev), xs
+    if path in ("fleet", "fleet6dof"):
+        return _fleet_cycle("6dof" if path == "fleet6dof" else "3dof", batch, dev)
     # the rest are controllers of the campaign protocol, stepped with the index
     if path in ("online", "online6dof"):
         if path == "online":
@@ -148,6 +160,46 @@ def _cycle_of(path: str, batch: int, dev):
         return cstate, F_true(xs, u0)
 
     return cycle, cinit(xs), xs
+
+
+def _wall_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _fleet_cycle(model: str, batch: int, dev):
+    """Path F's episode cycle with the GPs that a first round fitted; the
+    cycle carries ``barrier()``, which times that round's refit barrier and
+    its per-lane retune."""
+    fp = fleet_learning_path(model, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs = fleet_learning_x0(model, gen, batch, dev)
+    out, round_s = _wall_s(lambda: run_batched_learning(
+        gen, fp.params, fp.plant, xs, replace(fp.config, n_rounds=1), fp.mpc, fp.x_target,
+        device=dev))
+    gps, fitted = out["gps"], out["gp_fitted"]
+    fleet = fleet_cycle(fp.F, fp.plant, fp.mpc, *_gated_fns(gps, fitted, xs.shape[1]),
+                        fleet_reference(xs, fp.x_target, fp.config, fp.mpc.base.N))
+    step = [0]
+
+    def cycle(state, xs):
+        k = min(step[0], fp.config.max_steps - 1)  # past the episode, hold its last window
+        step[0] += 1
+        with record_function("fleet.cycle"):
+            _, state, xs = fleet(state, xs, k)
+            return state, xs
+
+    def barrier():
+        _, fit_s = _wall_s(lambda: gps.fit(gen))
+        _, tune_s = _wall_s(lambda: _tune_lane(gps, fp.config.tune_steps))
+        return {"first_round_s": round_s, "refit_barrier_s": fit_s, "tune_s": tune_s,
+                "gp_fitted": int(fitted.sum())}
+
+    cycle.barrier = barrier
+    return cycle, gp_mpc_init(fp.mpc, xs, fp.x_target, device=dev), xs
 
 
 def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
@@ -203,10 +255,9 @@ def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
             "pretrain6dof": ("pretrain_gp_6dof_s", sixdof_pretrain_path)}
     if path in fits:
         name, fit = fits[path]
-        t0 = time.perf_counter()
-        fit(torch.Generator(device=dev).manual_seed(2), dev)
-        torch.cuda.synchronize()
-        res[name] = time.perf_counter() - t0
+        _, res[name] = _wall_s(lambda: fit(torch.Generator(device=dev).manual_seed(2), dev))
+    if hasattr(cycle, "barrier"):
+        res["fleet"] = cycle.barrier()
     return {
         **res,
         "card": _card(),
@@ -243,6 +294,8 @@ def main() -> None:
     for name in ("pretrain_gp_3dof_s", "pretrain_gp_6dof_s"):
         if name in res:
             print(f"{name[:-2]}: {res[name]:.3f} s")
+    if "fleet" in res:
+        print("fleet: " + json.dumps(res["fleet"]))
     print(f"{res['card']} | path {res['path']} batch {res['batch']}: {res['ms_per_cycle']:.3f} ms/cycle "
           f"(CUDA events), {res['solves_per_s']:.1f} solves/s")
     print(f"profiled {res['profiled_cycles']} cycles: wall {res['profiled_wall_ms_per_cycle']:.3f} "

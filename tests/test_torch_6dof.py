@@ -35,6 +35,8 @@ from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg, _n_rows
 from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 from gpmpc_tpu_torch.ops.qp import ADMMConfig
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 N = 20
 AERO = dict(rho=0.8, C_A=0.05 * np.eye(3, dtype=np.float32))

@@ -23,6 +23,8 @@ from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 sys.path.insert(0, "tests")
 from test_qp import random_qp  # noqa: E402
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 ATOL_XZ, ATOL_Y = 3e-4, 2e-3
 
 

@@ -39,6 +39,8 @@ sys.path.insert(0, "tests")
 from test_torch_gp import jax_explore_gp, jax_gp_to_numpy  # noqa: E402
 from test_torch_mpc import jax_bench_config, port_config  # noqa: E402
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 N = 20
 X_TARGET = np.array([2.0, 0, 0, 0, 0, 0, 0], np.float32)

@@ -18,12 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from gpmpc_tpu_torch.chunk_bench import BOUNDED_SEGS, chunk_inputs
+from gpmpc_tpu_torch.chunk_bench import BOUNDED_SEGS, FLEET6_SEGS, chunk_inputs
 from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 from gpmpc_tpu_torch.ops.qp import QPData, ruiz_equilibrate
 from gpmpc_tpu_torch.ops.qp.admm import _factor, _rho_vec
 
 pytestmark = pytest.mark.cuda
+
+if not torch.cuda.is_available():
+    torch.set_num_threads(1)  # the suite's CPU workers share the cores
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "qp_golden.npz")
 
@@ -385,3 +388,53 @@ def test_lane_batched_refit_on_the_card_matches_the_cpu(cuda_device):
     pc, pd = predict_sparse_multi(cpu, Xq), predict_sparse_multi(dev, Xq.cuda())
     torch.testing.assert_close(pd.mean.cpu(), pc.mean, rtol=0, atol=1e-4)
     torch.testing.assert_close(pd.variance.cpu(), pc.variance, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 25])
+def test_cluster_variant_at_the_fleet_3dof_shape(cuda_device, iters):
+    """Path F's 3-DoF chunk at its real data and width: 128 lanes of the
+    sparse form of RTIConfig() (N = 15: n = 157, m = 112 equality rows then
+    157 bound rows, no row declared), 25 iterations a chunk."""
+    args = chunk_inputs("fleet3dof", torch.Generator(device="cuda").manual_seed(0), lanes=128)
+    assert args[1].shape == (128, 269, 157)
+    assert K.variant(157, 269, 0, 128) == "cluster"
+    assert K.cluster_size(157, 269, 0, 128) in (2, 4, 8, 16)
+    _assert_matches_plain(args, None, iters, scaled=True)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 25])
+def test_shared_variant_at_the_fleet_6dof_shape(cuda_device, iters):
+    """Path F's 6-DoF chunk at its real data and width: 64 lanes of the
+    condensed rti_config_6dof(N=15) with every state bound kept (n = 45,
+    210 rows declared "blt", then the 45 control rows), 25 iterations."""
+    args = chunk_inputs("fleet6dof", torch.Generator(device="cuda").manual_seed(0), lanes=64)
+    assert args[1].shape == (64, 255, 45)
+    assert K.variant(45, 255, 45, 64) == "shared" and K.cluster_size(45, 255, 45, 64) == 1
+    _assert_matches_plain(args, FLEET6_SEGS, iters, scaled=True)
+
+
+def test_lane_batched_fit_on_the_card_matches_the_cpu(cuda_device):
+    """The fleet's refit barrier: a 3-DoF GP per lane, 128 lanes of 128
+    stored points (a different count a lane), fitted from the same k-means
+    start rows on the card and on the CPU, at noise 0.1 (at the fleet's 1e-4
+    the f32 posterior itself lands 4e-2 of its scale from float64; at 0.1,
+    8e-5): the posterior within 5e-4 of its scale."""
+    from gpmpc_tpu_torch.gp import Simple3DoFGP, StructuredGPConfig
+
+    g = torch.Generator().manual_seed(5)
+    B, cap = 128, 128
+    gp = Simple3DoFGP.create(StructuredGPConfig(max_data_points=cap, n_inducing=24, noise=0.1),
+                             device="cpu", lanes=B)
+    X = torch.tensor([2.0, 20.0, 0.5, -0.5, -3.0, 0.2, 0.1]) + torch.randn(B, cap, 7, generator=g)
+    U = torch.tensor([2.0, 0.0, 0.0]) + 0.3 * torch.randn(B, cap, 3, generator=g)
+    R = 0.3 * torch.tanh(X[..., 4:7])
+    valid = torch.arange(cap) < torch.randint(40, cap + 1, (B, 1), generator=g)
+    gp = gp.add_data_batch_masked(X, U, R, valid)
+    idx = torch.argsort(torch.rand(B, cap, generator=g) - 2.0 * gp.buffer.mask, dim=1)[:, :24]
+    cpu = gp.fit(init_idx=idx)
+    dev = _to(gp, cuda_device).fit(init_idx=idx.cuda())
+    Xq, Uq = X[:, :20], U[:, :20]
+    mc, vc = cpu.predict(Xq, Uq)
+    md, vd = dev.predict(Xq.cuda(), Uq.cuda())
+    torch.testing.assert_close(md.cpu(), mc, rtol=0, atol=5e-4 * mc.abs().max().item())
+    torch.testing.assert_close(vd.cpu(), vc, rtol=0, atol=5e-4 * vc.abs().max().item())

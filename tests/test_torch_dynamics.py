@@ -11,6 +11,8 @@ from gpmpc_tpu.dynamics import rocket3dof as jr
 from gpmpc_tpu.dynamics import trajectory_jacobians as jax_tj
 from gpmpc_tpu_torch.dynamics import Rocket3DoFParams, rocket3dof as tr, trajectory_jacobians
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 DRAG = dict(rho=1.0, C_D=1.0, A_ref=0.1)
 

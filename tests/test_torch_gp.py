@@ -29,6 +29,8 @@ from gpmpc_tpu_torch.learning import explore_gp_3dof
 from gpmpc_tpu_torch.ops.kmeans import kmeans
 from gpmpc_tpu_torch.ops.linalg import cho_solve, robust_cholesky
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 
 

@@ -7,6 +7,9 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "gpmpc_tpu")
@@ -29,6 +32,10 @@ def test_import_with_jax_blocked():
         "import gpmpc_tpu_torch.dynamics.rocket6dof, gpmpc_tpu_torch.mpc.rti6dof\n"
         "import gpmpc_tpu_torch.mpc.cost_functions, gpmpc_tpu_torch.gp.structured_gp\n"
         "import gpmpc_tpu_torch.gp.online_update, gpmpc_tpu_torch.learning.online_gp_mpc\n"
+        "import gpmpc_tpu_torch.gp.exact_gp, gpmpc_tpu_torch.gp.fast_gp, gpmpc_tpu_torch.gp.kernels\n"
+        "import gpmpc_tpu_torch.gp.sparse_gp, gpmpc_tpu_torch.ops.kmeans\n"
+        "import gpmpc_tpu_torch.learning.batched_learner, gpmpc_tpu_torch.learning.data_manager\n"
+        "import gpmpc_tpu_torch.learning.novelty_selector\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"

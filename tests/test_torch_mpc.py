@@ -31,6 +31,8 @@ from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 sys.path.insert(0, "tests")
 from test_torch_gp import jax_explore_gp, jax_gp_to_numpy  # noqa: E402
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 N = 20
 
@@ -133,8 +135,17 @@ def test_gp_mpc_features_outside_the_slice_raise(kw):
 
 @pytest.mark.parametrize("base_kw", [{"condensed": False}, {"solver": "ipm"}])
 def test_gp_mpc_base_options_outside_the_slice_raise(base_kw):
+    """``solver="ipm"`` still raises. The sparse form (``condensed=False``)
+    is ported now: its state sizes the duals for the sparse rows
+    (``tests/test_torch_fleet.py`` holds its cycle against JAX)."""
     cfg = port_config(jax_bench_config())
     cfg = cfg.replace(base=cfg.base.replace(**base_kw))
+    if not cfg.base.condensed:
+        st = gp_mpc_init(cfg, np.zeros((1, 7), np.float32), np.zeros(7, np.float32),
+                         device="cpu")
+        N = cfg.base.N
+        assert st.y_prev.shape == (1, (N + 1) * 7 + (N + 1) * 7 + N * 3)
+        return
     with pytest.raises(NotImplementedError):
         gp_mpc_init(cfg, np.zeros((1, 7), np.float32), np.zeros(7, np.float32), device="cpu")
 

@@ -50,6 +50,8 @@ from gpmpc_tpu_torch.mpc import GPMPCState
 from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg
 from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 N = 20
 T = lambda a: torch.tensor(np.asarray(a))

@@ -26,6 +26,8 @@ from gpmpc_tpu_torch.mpc import GPMPCConfig, rti6dof as trti6
 from gpmpc_tpu_torch.ops.qp import ADMMConfig
 from gpmpc_tpu_torch.reference import cubic_descent_reference
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 NH = 15
 T = lambda a: torch.tensor(np.asarray(a))

@@ -22,6 +22,8 @@ from gpmpc_tpu_torch.gp.sparse_gp import predict_sparse_multi, refit_sparse_mult
 from gpmpc_tpu_torch.learning import hyperparameter_tuner as TT
 from gpmpc_tpu_torch.learning import pretrain as TP
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 T = lambda a: torch.tensor(np.asarray(a))
 
@@ -154,10 +156,22 @@ def test_tune_never_returns_a_worse_or_non_finite_point():
 
 
 def test_tune_map_is_not_ported():
+    """MAP tuning is ported now: five steps with the log-normal prior on every
+    log-hyperparameter from the same start as the JAX package's ``tune_map``
+    per output; parameters within 1e-3, as the MLE steps above."""
     X, Y, Z, mask, ll, lv, ln = _problem(5)
-    with pytest.raises(NotImplementedError):
-        TT._tune(TT.HyperparameterConfig(steps=1), _kernels(ll, lv)[1], T(Z), T(X), T(Y), T(mask),
-                 T(ln), "fitc", map_prior=True)
+    jk, tk = _kernels(ll, lv)
+    jcfg = JT.HyperparameterConfig(steps=5, prior_mean=0.2, prior_std=0.5)
+    one = lambda k, y, l: JT.tune_map(jcfg, k, jnp.asarray(Z), jnp.asarray(X), y,
+                                      jnp.asarray(mask), l)
+    k_j, ln_j, nll_j = jax.jit(jax.vmap(one))(jk, jnp.asarray(Y), jnp.asarray(ln))
+    k_t, ln_t, nll_t = TT.tune_map(TT.HyperparameterConfig(steps=5, prior_mean=0.2,
+                                                           prior_std=0.5),
+                                   tk, T(Z), T(X), T(Y), T(mask), T(ln))
+    np.testing.assert_allclose(k_t.log_lengthscales.numpy(), k_j.log_lengthscales, atol=1e-3)
+    np.testing.assert_allclose(k_t.log_variance.numpy(), k_j.log_variance, atol=1e-3)
+    np.testing.assert_allclose(ln_t.numpy(), ln_j, atol=1e-3)
+    np.testing.assert_allclose(nll_t.numpy(), nll_j, rtol=1e-4)
 
 
 # -- on-policy episodes and the whole fit --------------------------------------

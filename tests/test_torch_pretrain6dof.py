@@ -29,6 +29,8 @@ from gpmpc_tpu_torch.main_path import (fly_sixdof, sixdof_fleet_x0, sixdof_fligh
 sys.path.insert(0, "tests")
 from test_torch_pretrain import _jax_noise  # noqa: E402
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 T = lambda a: torch.tensor(np.asarray(a))
 

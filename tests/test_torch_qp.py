@@ -25,6 +25,8 @@ from gpmpc_tpu_torch.ops.qp import join_z, split_z
 sys.path.insert(0, "tests")
 from test_qp import random_qp  # noqa: E402
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "qp_golden.npz")
 SCENARIOS = ("canonical", "high_fast", "low_slow", "lateral")
 

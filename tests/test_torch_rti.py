@@ -21,6 +21,8 @@ from gpmpc_tpu_torch.mpc import rti as TR
 from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 from gpmpc_tpu_torch.reference import cubic_descent_reference, pad_reference
 
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
 DT = 0.1
 N = 6
 XT = np.array([2.0, 0, 0, 0, 0, 0, 0], np.float32)
