@@ -99,6 +99,10 @@ FACETS_SEGS = BOUNDED_SEGS + (("blt", 5, 4, 12), ("blockdiag", 20, 8, 3))
 # Path F's 6-DoF QP (condensed, N = 15, every state bound kept): 14 × 15
 # state-bound rows, then the 45 control rows
 FLEET6_SEGS = (("blt", 5, 42, 9), ("diag", 45))
+# the fleet-LMPC ADMM arm's condensed hull QP (N = 15, every state bound
+# kept): 7 × 15 state-bound rows, the 45 control rows, then 18 dense hull rows
+# (7 terminal equalities, Σλ, 10 λ bounds) past the declared segments
+LMPC_SEGS = (("blt", 5, 21, 9), ("diag", 45))
 
 
 def _structured_rows(segs, B, n, gen, dev):
@@ -199,7 +203,10 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     "golden": ``lanes`` sparse-form golden QPs (n = 207, m = 354), the four of
     ``golden_path`` repeated; "sixdof" and "sparse6dof": ``lanes`` lanes of
     the 6-DoF paths' QPs (:func:`sixdof_qp`); "fleet3dof" and "fleet6dof":
-    ``lanes`` lanes of Path F's QPs (:func:`fleet_qp`)."""
+    ``lanes`` lanes of Path F's QPs (:func:`fleet_qp`); "lmpc": ``lanes``
+    lanes of the fleet-LMPC hull QP (:func:`lmpc_qp`), "lmpc_rows" a random
+    QP with its rows' structure (n = 62, LMPC_SEGS and 18 dense rows);
+    "hull": ``lanes`` lanes of the hull projection QP (:func:`hull_qp`)."""
     from .ops.qp import QPData, ruiz_equilibrate
     from .ops.qp.admm import _factor, _rho_vec
 
@@ -208,6 +215,18 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
         data = sixdof_qp(kind, lanes, gen, dev)
     elif kind in ("fleet3dof", "fleet6dof"):
         data = fleet_qp(kind, lanes, gen, dev)
+    elif kind in ("lmpc", "hull"):
+        data = lmpc_qp(lanes, gen, dev) if kind == "lmpc" else hull_qp(lanes, gen, dev)
+    elif kind == "lmpc_rows":
+        n = 62
+        A = torch.cat([_structured_rows(LMPC_SEGS, lanes, n, gen, dev),
+                       torch.randn(lanes, 18, n, generator=gen, device=dev)], dim=1)
+        G = torch.randn(lanes, n, n, generator=gen, device=dev)
+        m = A.shape[1]
+        data = QPData(P=G @ G.transpose(1, 2) / n + 0.1 * torch.eye(n, device=dev),
+                      q=torch.randn(lanes, n, generator=gen, device=dev), A=A,
+                      l=-torch.rand(lanes, m, generator=gen, device=dev) - 0.5,
+                      u=torch.rand(lanes, m, generator=gen, device=dev) + 0.5)
     elif kind == "golden":
         fx = np.load(golden_path)
         names = (("canonical", "high_fast", "low_slow", "lateral") * ((lanes + 3) // 4))[:lanes]
@@ -536,3 +555,47 @@ def main():
 
 if __name__ == "__main__":
     main()
+
+
+def lmpc_qp(lanes, gen, dev):
+    """The first-solve hull QP of the fleet-LMPC campaign's ADMM arm at its
+    real data, ``lanes`` lanes of ``main_path.lmpc_fleet_x0`` against the
+    seed's safe set: condensed, n = 45 + 10 + 7 = 62, m = 105 + 45 + 18 = 168
+    (LMPC_SEGS, then the hull rows)."""
+    from .lmpc import lmpc_init
+    from .lmpc.lmpc import _lmpc_qp
+    from .main_path import lmpc_fleet_path, lmpc_fleet_x0
+    from .terminal import SafeSet
+
+    lp = lmpc_fleet_path("3dof", dev, solver="admm")
+    X, U, C = lp.seed
+    ss = SafeSet.create(4096, 7, device=dev).add_trajectory(X, U, C)
+    x0s = lmpc_fleet_x0(lp, gen, lanes)
+    st = lmpc_init(lp.config, x0s, lp.x_target)
+    return _lmpc_qp(lp.F, lp.config, ss, st, x0s).data
+
+
+def hull_qp(lanes, gen, dev):
+    """The hull projection QP of ``terminal.project_onto_hull`` at real data:
+    ``lanes`` lanes of ``main_path.lmpc_fleet_x0``, each shifted 0.3 m
+    sideways, projected onto its 10 nearest states of the 3-DoF seed
+    flight (n = 10, m = 11: Σλ = 1 and the λ bounds, every row dense)."""
+    from .main_path import lmpc_fleet_path, lmpc_fleet_x0
+    from .ops.qp import QPData
+    from .terminal import SafeSet, knn_query
+
+    lp = lmpc_fleet_path("3dof", dev)
+    X, U, C = lp.seed
+    ss = SafeSet.create(4096, 7, device=dev).add_trajectory(X, U, C)
+    pts = lmpc_fleet_x0(lp, gen, lanes)
+    pts[:, 2] += 0.3
+    res = knn_query(ss, pts, 10)
+    V = res.states * res.valid[..., None]
+    K = V.shape[1]
+    eye = torch.eye(K, device=dev)
+    vf = res.valid.float()
+    ones = torch.ones(lanes, 1, device=dev)
+    return QPData(P=V @ V.transpose(-1, -2) + 1e-8 * eye, q=-(V @ pts[..., None])[..., 0],
+                  A=torch.cat([vf[:, None], eye.expand(lanes, K, K)], dim=1),
+                  l=torch.cat([ones, torch.zeros(lanes, K, device=dev)], dim=1),
+                  u=torch.cat([ones, vf], dim=1))

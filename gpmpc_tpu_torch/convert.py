@@ -45,6 +45,13 @@ fields.
 
 ``rocket6dof_params_from_fields`` expects the fields of a
 ``Rocket6DoFParams`` (the vectors and matrices as NumPy arrays).
+
+``safe_set_from_numpy`` reads a JAX ``SafeSet``: its 12 leaves in pytree
+order (``jax.tree.flatten(ss)[0]``, the order its ``.npz`` files use) or a
+dict of its fields. ``lmpc_config_from_fields`` and
+``ipm_config_from_fields`` take the fields of an ``LMPCConfig`` (its
+``admm`` entry a dict of ``ADMMConfig`` fields, the matrices NumPy arrays)
+and of an ``IPMConfig``.
 """
 
 from __future__ import annotations
@@ -70,8 +77,10 @@ from .gp.kernels import SquaredExponentialARD
 from .gp.sparse_gp import MultiOutputSparseGPState, SparseGPState
 from .gp.structured_gp import RingBuffer
 from .learning.batched_learner import BatchedLearningConfig
+from .lmpc import LMPCConfig
 from .mpc import GPMPCConfig, RTIConfig, RTIState
-from .ops.qp import ADMMConfig
+from .ops.qp import ADMMConfig, IPMConfig
+from .terminal.safe_set import _LEAVES, SafeSet, safe_set_from_leaves
 
 
 def _getters(d: Dict[str, Any], prefix: str, dev: torch.device):
@@ -211,3 +220,28 @@ def gp_mpc_config_from_fields(d: Dict[str, Any], device: DeviceLike = "cuda") ->
     if d.get("tighten_mask") is not None:
         extra["tighten_mask"] = as_f32(np.array(d["tighten_mask"]), resolve_device(device))
     return _dataclass_from(GPMPCConfig, d, **extra)
+
+
+def safe_set_from_numpy(d, device: DeviceLike = "cuda") -> SafeSet:
+    """The port's ``SafeSet`` from a JAX one's leaves (a sequence in pytree
+    order) or fields (a dict)."""
+    leaves = [d[k] for k in _LEAVES] if isinstance(d, dict) else list(d)
+    return safe_set_from_leaves(leaves, device)
+
+
+def ipm_config_from_fields(d: Dict[str, Any]) -> IPMConfig:
+    """The port's ``IPMConfig`` from the JAX config's field values."""
+    return _dataclass_from(IPMConfig, d)
+
+
+def lmpc_config_from_fields(d: Dict[str, Any], device: DeviceLike = "cuda") -> LMPCConfig:
+    """The port's ``LMPCConfig`` from the JAX config's field values."""
+    dev = resolve_device(device)
+    extra = {"device": dev}
+    if "admm" in d:
+        extra["admm"] = admm_config_from_fields(d["admm"])
+    extra.update({k: as_f32(np.array(d[k]), dev)
+                  for k in ("Q", "R", "x_min", "x_max", "u_min", "u_max") if k in d})
+    if d.get("x_bound_mask") is not None:
+        extra["x_bound_mask"] = tuple(bool(b) for b in d["x_bound_mask"])
+    return _dataclass_from(LMPCConfig, d, **extra)

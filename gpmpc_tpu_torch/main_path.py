@@ -27,7 +27,13 @@ kernel selected (``use_pallas="auto"``):
   (``scripts/run_fleet_learning_tpu.py``): ``run_batched_learning`` over
   128 (3-DoF) or 64 (6-DoF) lanes, each flying closed-loop GP-MPC episodes
   with its own sparse GP, refitting at the round barrier and retuning on a
-  cadence; :func:`fly_fleet` flies it and returns the artifact's fields.
+  cadence; :func:`fly_fleet` flies it and returns the artifact's fields;
+- :func:`lmpc_fleet_path` — Path G, fleet LMPC (``scripts/run_fleet_lmpc_tpu.py``):
+  256 lanes fly closed-loop LMPC episodes against one shared sampled safe
+  set, the interior-point solver on the condensed convex-hull QP, the
+  successful trajectories joining the set between rounds, for the 3-DoF
+  and the 6-DoF model; :func:`fly_lmpc_fleet` flies it and returns the
+  script's result dictionary.
 
 ``chip_smoke.py`` and ``gpmpc_tpu_torch/profile_cycle.py`` drive them.
 """
@@ -35,6 +41,7 @@ kernel selected (``use_pallas="auto"``):
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -43,15 +50,19 @@ from ._device import DeviceLike, resolve_device
 from .dynamics import Rocket3DoFParams, Rocket6DoFParams, rocket3dof as r3, rocket6dof as r6
 from .gp import StructuredGPConfig
 from .learning.batched_learner import BatchedLearningConfig, default_mpc, run_batched_learning
+from .lmpc import LMPCConfig, default_stage_cost, fly_episode, lmpc_config_6dof, lmpc_plan_value
 from .learning.online_gp_mpc import (OnlineGPMPCConfig, make_online_gp_mpc_controller,
                                      online_controller_info)
 from .learning.pretrain import gp_fns, pretrain_gp_3dof, pretrain_gp_6dof  # noqa: F401  (gp_fns: re-exported for chip_smoke.py)
 from .experiments import (SimulationConfig, campaign_statistics, run_campaign,
                           sample_initial_conditions, wilson_interval)
-from .mpc import GPMPCConfig, RTIConfig, gp_mpc_solve, make_gp_mpc_controller, rti_config_6dof
+from .mpc import (GPMPCConfig, RTIConfig, gp_mpc_solve, make_gp_mpc_controller, rti_closed_loop,
+                  rti_config_6dof)
 from .mpc.constraints import normal_quantile
 from .ops.qp import ADMMConfig
 from .reference import cubic_descent_reference, pad_reference
+from .terminal import SafeSet, knn_bucket, trim
+from .terminal import prune as prune_safe_set
 
 N = 20
 BATCH = 512
@@ -589,3 +600,278 @@ def fly_fleet(fp: FleetPath, x0s: torch.Tensor, generator: torch.Generator) -> t
     out = run_batched_learning(generator, fp.params, fp.plant, x0s, fp.config, fp.mpc,
                                fp.x_target, device=x0s.device)
     return out, fleet_summary(out, x0s.shape[0])
+
+
+LMPC_LANES, LMPC_ROUNDS, LMPC_STEPS = 256, 5, 150  # the fleet-LMPC artifacts' widths
+LMPC_SETTLE = 8  # re-solves before the probe's value is read (the script's --settle)
+
+
+class LMPCFleetPath(NamedTuple):
+    model: str
+    params: object
+    F: Callable  # the controller's model and the plant
+    config: LMPCConfig
+    x_target: torch.Tensor
+    x0_seed: torch.Tensor  # (n_x,) the seed flight's initial state, the probe lane's
+    seed: tuple  # (X (T, n_x), U (T, n_u), stage costs (T,)) of the seed flight
+    pert_scale: torch.Tensor  # (n_x,) half-widths of the fleet's uniform dispersion
+
+
+def _seed_descent_3dof(p: Rocket3DoFParams, F: Callable, xT: torch.Tensor, cfg: LMPCConfig,
+                       n_steps: int = 200):
+    """The 3-DoF bootstrap (``scripts/run_fleet_lmpc_tpu.py:40-69``): a PD
+    descent law flown for ``n_steps`` steps, frozen at touchdown (its later
+    rows repeat the touchdown state at zero cost), scored with the episodes'
+    stage cost."""
+    p_clamp = p.replace(T_min=0.3, T_max=5.0)
+    dev = xT.device
+    x = torch.tensor([[2.0, 20.0, 0.5, 0.0, -2.0, 0.0, 0.0]], device=dev)
+    landed = torch.zeros(1, dtype=torch.bool, device=dev)
+    X, U, C = [], [], []
+    for _ in range(n_steps):
+        v_ref = -0.7 * torch.sqrt(x[:, 1].clamp_min(0.0))
+        u = r3.hover_thrust(p, x) + torch.stack(
+            [2.0 * (v_ref - x[:, 4]), -1.0 * x[:, 5] - 0.4 * x[:, 2],
+             -1.0 * x[:, 6] - 0.4 * x[:, 3]], dim=-1)
+        u = r3.clamp_thrust(p_clamp, u)
+        cost = torch.where(landed, torch.zeros_like(x[:, 0]), default_stage_cost(x, u, xT, cfg))
+        X.append(x)
+        U.append(u)
+        C.append(cost)
+        x = torch.where(landed[:, None], x, F(x, u))
+        landed = landed | (x[:, 1] < 0.05)
+    if not bool(landed.all()):
+        raise RuntimeError("the seed descent law must land")
+    return X[0][0], torch.cat(X), torch.cat(U), torch.cat(C)
+
+
+def _seed_rti_6dof(p: Rocket6DoFParams, F: Callable, xT: torch.Tensor, cfg: LMPCConfig,
+                   n_steps: int = 150):
+    """The 6-DoF bootstrap (``scripts/run_fleet_lmpc_tpu.py:71-98``): one
+    RTI-flown landing, condensed ``rti_config_6dof(N=15)`` with 100 fixed-ρ
+    iterations (the chunk kernel on the card), tracking a 100-step cubic
+    reference; its live rows scored with the episodes' stage cost."""
+    rcfg = rti_config_6dof(
+        p, N=15, admm=ADMMConfig(max_iter=100, polish=False, adaptive_rho=False, scaling=3),
+    ).replace(accept_pri_tol=1e-2, condensed=True)
+    x0 = r6.create_initial_state(p, altitude=12.0, horizontal=(0.5, -0.3),
+                                 velocity=(-1.5, 0.05, 0.0))[None]
+    ref = pad_reference(cubic_descent_reference(x0, xT, 100, rcfg.dt), n_steps + rcfg.N + 1)
+    res = rti_closed_loop(F, rcfg, x0, xT, n_steps, X_ref_full=ref)
+    if not bool(res["landed"].all()):
+        raise RuntimeError("the 6-DoF seed flight must land")
+    n_live = int(res["steps"][0])
+    X, U = res["X"][0, :n_live], res["U"][0, :n_live]
+    return x0[0], X, U, default_stage_cost(X, U, xT, cfg)
+
+
+def lmpc_fleet_path(model: str = "3dof", device: DeviceLike = "cuda", solver: str = "ipm",
+                    touchdown_weight: float = 250.0, pool: int = 0,
+                    pool_dist_weight: float = 0.0, same_traj: bool = False,
+                    vertex_memory: bool = False, elide: bool = False) -> LMPCFleetPath:
+    """The fleet-LMPC campaign of ``scripts/run_fleet_lmpc_tpu.py``, its
+    configuration and seed flight. The keyword arguments are the script's
+    flags (``--solver``, ``--touchdown-weight``, ``--pool``,
+    ``--pool-dist-weight``, ``--same-traj``, ``--vertex-memory``,
+    ``--elide``), its defaults theirs:
+
+    - ``"3dof"``: ``LMPCConfig`` (N = 15, the condensed hull QP: n = 45 + 10
+      + 7 = 62, m = 105 blt + 45 diag + 18 hull rows), seeded by the PD
+      descent law from (2, 20, 0.5, 0, −2, 0, 0); the fleet disperses
+      altitude ±2, horizontal ±0.5, velocity ±0.3/0.1/0.1;
+    - ``"6dof"``: ``lmpc_config_6dof`` (n = 45 + 10 + 14 = 69), seeded by one
+      RTI-flown landing from 12 m; the fleet disperses altitude ±1.5,
+      horizontal ±0.4, velocity ±0.25/0.05/0.05.
+
+    ``elide`` drops the loose-envelope state-bound rows (3-DoF: all seven;
+    6-DoF: the seven translation ones)."""
+    dev = resolve_device(device)
+    knobs = dict(solver=solver, touchdown_speed_weight=touchdown_weight, candidate_pool=pool,
+                 candidate_dist_weight=pool_dist_weight, hull_same_trajectory=same_traj,
+                 vertex_memory=vertex_memory, device=dev)
+    if elide:
+        knobs["x_bound_mask"] = (False,) * 7 + (True,) * 7 if model == "6dof" else (False,) * 7
+    if model == "6dof":
+        p = Rocket6DoFParams(device=dev)
+        cfg = lmpc_config_6dof(p, **knobs)
+        xT = r6.create_initial_state(p, altitude=0.0)
+        F = lambda x, u: r6.step(p, x, u, cfg.dt)
+        x0_seed, X, U, C = _seed_rti_6dof(p, F, xT, cfg)
+        pert = (0.0, 1.5, 0.4, 0.4, 0.25, 0.05, 0.05) + (0.0,) * 7
+    elif model == "3dof":
+        p = Rocket3DoFParams(device=dev)
+        cfg = LMPCConfig(**knobs)
+        xT = torch.zeros(7, device=dev)
+        xT[0] = 2.0
+        F = lambda x, u: r3.step(p, x, u, cfg.dt)
+        x0_seed, X, U, C = _seed_descent_3dof(p, F, xT, cfg)
+        pert = (0.0, 2.0, 0.5, 0.5, 0.3, 0.1, 0.1)
+    else:
+        raise ValueError(f"unknown model {model!r}: use '3dof' or '6dof'")
+    return LMPCFleetPath(model=model, params=p, F=F, config=cfg, x_target=xT, x0_seed=x0_seed,
+                         seed=(X, U, C), pert_scale=torch.tensor(pert, device=dev))
+
+
+def lmpc_fleet_x0(lp: LMPCFleetPath, generator: torch.Generator,
+                  batch: int = LMPC_LANES) -> torch.Tensor:
+    """The dispersed fleet: the seed's initial state plus U(−1, 1)·pert_scale
+    drawn from ``generator``; lane 0 (the probe) at the seed's state."""
+    dev = lp.x0_seed.device
+    n_x = lp.x0_seed.shape[0]
+    u = torch.rand(batch, n_x, generator=generator, device=generator.device).to(dev)
+    x0s = lp.x0_seed[None] + (2.0 * u - 1.0) * lp.pert_scale
+    x0s[0] = lp.x0_seed
+    return x0s
+
+
+def _r(v, nd):
+    return None if v is None else round(float(v), nd)
+
+
+def fly_lmpc_fleet(lp: LMPCFleetPath, x0s: torch.Tensor, rounds: int = LMPC_ROUNDS,
+                   steps: int = LMPC_STEPS, capacity: int = 0,
+                   prune: Optional[str] = None) -> tuple:
+    """Fly the campaign (``scripts/run_fleet_lmpc_tpu.py:319-480``): the safe
+    set starts from the seed flight; every round reads the probe's value
+    estimate V(x0) at the seed's state (``lmpc_plan_value``, LMPC_SETTLE
+    re-solves) and flies every lane's episode against the round's frozen set,
+    both on the smallest power-of-four prefix that covers every written row
+    (``knn_bucket`` of ``written``, ``trim``); the successful trajectories
+    then join the set in lane order. ``prune`` ("quality", "fifo",
+    "diversity") prunes to 80% of capacity once it is 90% full; capacity 0
+    sizes the set to hold every round (pair ``prune`` with a smaller one).
+
+    Returns (the script's result dictionary with every round's summary and
+    the campaign's ``probe_*`` fields, the final safe set). Times are this
+    device's wall clock; a round's summary adds ``cycles`` (the solves its
+    loop ran: it stops once every lane has landed) and ``ms_per_step``."""
+    cfg, F, xT = lp.config, lp.F, lp.x_target
+    dev = x0s.device
+    batch, n_x = x0s.shape
+    Xs, Us, Cs = lp.seed
+    seed_cost = float(Cs.sum())
+    cap = capacity or 1 << (batch * (steps + 1) * rounds + Xs.shape[0]).bit_length()
+    ss = SafeSet.create(cap, n_x, device=dev).add_trajectory(Xs, Us, Cs)
+    probe_verts = torch.full((1, cfg.n_terminal_vertices), -1, dtype=torch.int32, device=dev)
+    rounds_out, probe_costs = [], []
+    t_start = time.time()
+    for r in range(rounds):
+        t0 = time.time()
+        hw = int(ss.written)
+        bucket = knn_bucket(hw, cap)
+        view = trim(ss, bucket)
+        V, _, new_verts = lmpc_plan_value(F, cfg, view, lp.x0_seed[None], xT,
+                                          settle=LMPC_SETTLE, prev_vertices=probe_verts)
+        if cfg.vertex_memory:
+            probe_verts = new_verts
+        out = fly_episode(F, cfg, view, x0s, xT, steps)
+        ss = ss.add_trajectories(out["X"][:, :-1], out["U"], out["costs"], valid=out["success"])
+        pruned_to = survived = None
+        if prune is not None and float(ss.count) / cap > 0.9:
+            ss = prune_safe_set(ss, int(0.8 * cap), strategy=prune)
+            pruned_to = int(ss.count)
+            if cfg.vertex_memory:
+                pv = probe_verts[0].long()
+                alive = ss.traj_ids[pv.clamp_min(0)] >= 0
+                survived = int((alive & (pv >= 0)).sum())
+        dt_round = time.time() - t0
+        landed = out["landed"].cpu()
+        n_landed = float(landed.float().sum())
+        speed = torch.linalg.vector_norm(out["x_final"][:, 4:7], dim=1).double().cpu()
+        summary = {
+            "round": r + 1,
+            "success_rate": _r(out["success"].float().mean(), 4),
+            "total_cost_mean": _r(out["total_cost"].mean(), 1),
+            "probe_lane_cost": _r(out["total_cost"][0], 1),
+            "probe_plan_value": _r(V[0], 1),
+            "probe_lane_steps": int(out["steps"][0]),
+            "steps_mean": _r(out["steps"].float().mean(), 1),
+            "qp_success_rate": _r(out["qp_success_rate"].mean(), 4),
+            # over landed lanes only: one ballistic lane would swamp the mean
+            "touchdown_speed_mean": (_r(speed[landed].sum() / n_landed, 3)
+                                     if n_landed > 0 else None),
+            # np.median's definition (the mean of the two middle values)
+            "touchdown_speed_median": (_r(speed[landed].quantile(0.5), 3)
+                                       if n_landed > 0 else None),
+            "landed": int(landed.sum()),
+            "safe_set_trajectories": int(ss.n_trajectories),
+            "safe_set_states": int(ss.count),
+            "pruned_to": pruned_to,
+            "probe_verts_survived_prune": survived,
+            "knn_bucket": bucket,
+            "wall_s": round(dt_round, 1),
+            "lmpc_cycles_per_s": round(batch * steps / dt_round, 1),
+            "cycles": out["cycles"],
+            "ms_per_step": dt_round * 1e3 / max(out["cycles"], 1),
+        }
+        rounds_out.append(summary)
+        probe_costs.append(summary["probe_lane_cost"])
+    wall = time.time() - t_start
+    values = [s["probe_plan_value"] for s in rounds_out]
+    result = {
+        "campaign": f"fleet_lmpc_{lp.model}",
+        "controller": "LMPC (condensed hull QP, fuel-filtered KNN terminal set)",
+        "solver": cfg.solver,
+        "touchdown_speed_weight": cfg.touchdown_speed_weight,
+        "touchdown_speed_by_round": [s["touchdown_speed_mean"] for s in rounds_out],
+        "touchdown_speed_median_by_round": [s["touchdown_speed_median"] for s in rounds_out],
+        "batch": batch, "rounds": rounds, "max_steps": steps, "safe_set_capacity": cap,
+        "prune_strategy": prune,
+        "devices": [torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)],
+        "seed_cost": round(seed_cost, 1),
+        "probe_lane_costs": probe_costs,
+        "probe_improves_on_seed": probe_costs[-1] < seed_cost,
+        "probe_monotone_within_5pct": all(b <= a * 1.05 for a, b in
+                                          zip(probe_costs, probe_costs[1:])),
+        "probe_plan_values": values,
+        "probe_value_monotone_within_1pct": all(b <= a * 1.01 for a, b in
+                                                zip(values, values[1:])),
+        "prune_events": [
+            {"after_round": s["round"], "pruned_to": s["pruned_to"],
+             "probe_verts_survived": s["probe_verts_survived_prune"],
+             "probe_cost_pre": s["probe_lane_cost"],
+             "probe_cost_post": (rounds_out[i + 1]["probe_lane_cost"]
+                                 if i + 1 < len(rounds_out) else None),
+             "touchdown_pre": s["touchdown_speed_mean"],
+             "touchdown_post": (rounds_out[i + 1]["touchdown_speed_mean"]
+                                if i + 1 < len(rounds_out) else None),
+             "recovered_within_5pct": (rounds_out[i + 1]["probe_lane_cost"]
+                                       <= s["probe_lane_cost"] * 1.05
+                                       if i + 1 < len(rounds_out) else None)}
+            for i, s in enumerate(rounds_out) if s["pruned_to"] is not None],
+        "final_success_rate": rounds_out[-1]["success_rate"],
+        "episodes_flown": batch * rounds,
+        "episodes_per_s": round(batch * rounds / wall, 2),
+        "lmpc_cycles_per_s": round(batch * steps * rounds / wall, 1),
+        "wall_s": round(wall, 1),
+        "per_round": rounds_out,
+    }
+    return result, ss
+
+
+GPMPC_CAMPAIGN_LANES = 4096  # artifacts/campaign_gpmpc3dof_4096_rt.json's width
+
+
+def gpmpc_campaign_gp(generator: torch.Generator, device: DeviceLike = "cuda"):
+    """The 3-DoF GP-MPC campaign's GP (``run_campaign_tpu.py:143-146``):
+    ``pretrain_gp_3dof`` with its defaults on the drag + wind plant that the
+    campaign flies (:func:`online_flight_path`'s 3-DoF plant). Returns (gp,
+    mean_fn, var_fn)."""
+    fp = online_flight_path("3dof", device)
+    return pretrain_gp_3dof(generator, Rocket3DoFParams(device=resolve_device(device)),
+                            fp.F_true, dt=DT, device=resolve_device(device))
+
+
+def fly_gpmpc_campaign(mean_fn: Callable, var_fn: Callable, x0s: torch.Tensor) -> tuple:
+    """``scripts/run_campaign_tpu.py --model 3dof --controller gp_mpc --rt
+    --elide`` (``:91-110``, ``:143-160``): the main path's real-time GP-MPC
+    configuration with the campaign's GP, every lane tracking its 100-step
+    cubic descent reference under the drag + wind plant for up to 130
+    steps, judged by the outcome state machine. Returns (per-lane results,
+    ``campaign_statistics``)."""
+    fp = online_flight_path("3dof", x0s.device)
+    cinit, cstep = make_gp_mpc_controller(fp.F, mean_fn, var_fn, fp.config.mpc, fp.x_target,
+                                          reference_fn=fp.reference_fn,
+                                          ref_horizon=fp.sim.max_steps)
+    res = run_campaign(cinit, cstep, fp.F_true, x0s, fp.sim)
+    return res, campaign_statistics(res)

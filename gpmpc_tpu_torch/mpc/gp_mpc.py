@@ -13,7 +13,9 @@ Facet rows (``Gx``/``Gu``) of the base config enter either form; per-cycle
 linearized state rows (``stage_rows_fn(X_lin (B,N+1,n_x)) → Gx
 (B,N,n_gx,n_x), gx_l, gx_u``) enter the condensed one, as in the JAX package.
 
-Not ported (``NotImplementedError``): ``solver="ipm"`` and ``warm_kkt``.
+``base.solver="ipm"`` solves the condensed QP with the interior-point
+solver; the ADMM carry (ρ and duals) rides through it. Not ported
+(``NotImplementedError``): ``warm_kkt``.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ from torch.profiler import record_function
 
 from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics.linearize import trajectory_jacobians
-from ..ops.qp import (SOLVED, build_condensed_qp, build_mpc_qp, extend_qp, join_z,
-                      recover_states, solve, split_z)
+from ..ops.qp import (SOLVED, IPMConfig, build_condensed_qp, build_mpc_qp, extend_qp, join_z,
+                      recover_states, solve, solve_ipm, split_z)
 from .constraints import normal_quantile
 from .rti import RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows, _stage_rows
 from .uncertainty_prop import box_tightening, propagate_linear
@@ -93,8 +95,6 @@ def _check_supported(config: GPMPCConfig) -> None:
         raise ValueError(
             "solver='ipm' requires the condensed form (the sparse z=[X;U] "
             "layout interleaves its dynamics equality rows)")
-    if cfg.solver != "admm":
-        raise NotImplementedError(f"solver={cfg.solver!r} is not ported yet")
     if cfg.stage_rows_fn is not None and not cfg.condensed:
         raise ValueError("stage_rows_fn (linearized state rows) requires condensed=True")
 
@@ -215,8 +215,15 @@ def gp_mpc_solve(
                     Xlo, Xhi, Ulo, Uhi, Gx_r, gx_l_r, gx_u_r, cfg.Gu, cfg.gu_l, cfg.gu_u,
                     x_bound_mask=cfg.x_bound_mask,
                 )
-            with record_function("gpmpc.admm_solve"):
-                sol = solve(data, U_lin.reshape(Bsz, -1), y_prev, admm_cfg, rho0=rho)
+            if cfg.solver == "ipm":
+                # the box QP has no equality rows once x0 is eliminated; the
+                # IPM's f32 duals do not enter the carried ADMM workspace
+                with record_function("gpmpc.ipm"):
+                    sol = replace(solve_ipm(data, IPMConfig(n_eq=0, iters=cfg.ipm_iters)),
+                                  rho=rho, y=y_prev)
+            else:
+                with record_function("gpmpc.admm_solve"):
+                    sol = solve(data, U_lin.reshape(Bsz, -1), y_prev, admm_cfg, rho0=rho)
             U_new = sol.x.reshape(Bsz, N, n_u)
             X_new = recover_states(Gs, ds, sol.x, x0)
         else:

@@ -12,7 +12,10 @@ solver's adapted ρ and duals ride in :class:`RTIState`.
 called on the whole batch for rollouts and differentiated knot by knot with
 ``torch.func``, so it must use no in-place ops.
 
-Not ported (``NotImplementedError``): ``solver="ipm"`` and ``warm_kkt=True``.
+``solver="ipm"`` solves the condensed QP with the interior-point solver
+(no equality rows once x0 is eliminated); the ADMM carry (ρ and duals)
+rides through it unchanged. Not ported (``NotImplementedError``):
+``warm_kkt=True``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..dynamics.linearize import trajectory_jacobians
 from ..ops.qp import (
     SOLVED,
     ADMMConfig,
+    IPMConfig,
     build_condensed_qp,
     build_mpc_qp,
     build_stage_rows,
@@ -35,6 +39,7 @@ from ..ops.qp import (
     join_z,
     recover_states,
     solve,
+    solve_ipm,
     split_z,
 )
 
@@ -163,9 +168,6 @@ def _condensed_admm_cfg(config) -> ADMMConfig:
 
 
 def _check_supported(config: RTIConfig) -> None:
-    if config.solver != "admm":
-        raise NotImplementedError(
-            f"solver={config.solver!r} is not ported yet; only 'admm'")
     if config.warm_kkt:
         raise NotImplementedError(
             "warm_kkt (KKT inverse carried across cycles, Newton–Schulz "
@@ -211,10 +213,22 @@ def _solve_qp(config, state, Aks, Bks, cks, x_current, z0_XU, y0):
                 config.x_min, config.x_max, config.u_min, config.u_max,
                 Gx, gx_l, gx_u, config.Gu, config.gu_l, config.gu_u,
                 x_bound_mask=config.x_bound_mask)
-        with record_function("rti.admm_solve"):
-            sol = solve(data, U0.reshape(Bsz, -1), y0, _condensed_admm_cfg(config),
-                        rho0=state.rho)
+        if config.solver == "ipm":
+            # the condensed box QP has no equality rows (x0 is eliminated);
+            # the IPM has no penalty to carry and its f32 duals do not enter
+            # the dual warm start: ρ and y0 ride through
+            with record_function("rti.ipm"):
+                sol = replace(solve_ipm(data, IPMConfig(n_eq=0, iters=config.ipm_iters)),
+                              rho=state.rho, y=y0)
+        else:
+            with record_function("rti.admm_solve"):
+                sol = solve(data, U0.reshape(Bsz, -1), y0, _condensed_admm_cfg(config),
+                            rho0=state.rho)
         return sol, recover_states(Gs, ds, sol.x, x_current), sol.x.reshape(Bsz, N, config.n_u)
+    if config.solver == "ipm":
+        raise ValueError(
+            "solver='ipm' requires the condensed form (the sparse z=[X;U] "
+            "layout interleaves its dynamics equality rows)")
     with record_function("rti.qp_build"):
         data = _build_rti_qp(config, Aks, Bks, cks, x_current, state.x_ref)
     with record_function("rti.admm_solve"):

@@ -1,5 +1,5 @@
 """Dense linear-algebra building blocks (counterpart of the parts of
-``gpmpc_tpu/ops/linalg.py`` the GP fit uses)."""
+``gpmpc_tpu/ops/linalg.py`` the GP fit and the safe-set queries use)."""
 
 from __future__ import annotations
 
@@ -40,3 +40,17 @@ def robust_cholesky(M: torch.Tensor, jitters=(0.0, 1e-8, 1e-6, 1e-4, 1e-2)
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve (L Lᵀ) x = b given lower-triangular L (b: (..., n, k))."""
     return torch.cholesky_solve(b, L, upper=False)
+
+
+def weighted_sq_dists(X: torch.Tensor, Z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances ‖(x−z)·√w‖² as one matmul: X (..., n, d),
+    Z (..., S, d) → (..., n, S), with leading axes broadcast (the JAX
+    function is the unbatched case). Kept in the ‖a‖²+‖b‖²−2a·b form with
+    a = X√w, b = Z√w, so its f32 cancellation is the JAX package's; clipped
+    at 0."""
+    sw = torch.sqrt(w)
+    Xs = X * sw
+    Zs = Z * sw
+    d = ((Xs * Xs).sum(-1)[..., :, None] + (Zs * Zs).sum(-1)[..., None, :]
+         - 2.0 * Xs @ Zs.transpose(-1, -2))
+    return d.clamp_min(0.0)

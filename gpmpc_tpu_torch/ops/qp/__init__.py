@@ -1,6 +1,7 @@
 """Batched convex-QP solvers (counterpart of ``gpmpc_tpu/ops/qp``)."""
 
 from .admm import ADMMConfig, solve
+from .ipm import IPMConfig, solve_ipm
 from .condensed import (
     build_condensed_qp,
     n_condensed_constraints,
@@ -30,10 +31,10 @@ from .types import (
 )
 
 __all__ = [
-    "ADMMConfig", "DUAL_INFEASIBLE", "MAX_ITER", "PRIMAL_INFEASIBLE",
+    "ADMMConfig", "IPMConfig", "DUAL_INFEASIBLE", "MAX_ITER", "PRIMAL_INFEASIBLE",
     "SOLVED", "STATUS_NAMES", "QPData", "QPSolution", "Scaling",
     "build_condensed_qp", "build_constraints", "build_cost", "build_mpc_qp",
     "build_stage_rows", "extend_qp", "join_z", "n_condensed_constraints",
     "n_constraints", "n_vars", "prediction_matrices", "recover_states",
-    "ruiz_equilibrate", "solve", "split_z",
+    "ruiz_equilibrate", "solve", "solve_ipm", "split_z",
 ]

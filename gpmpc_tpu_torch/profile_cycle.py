@@ -31,6 +31,11 @@ Runs one of the cycles of ``gpmpc_tpu_torch/main_path.py``:
   lane's own GP, fitted by a first round of 110 steps, + the true plant),
   128 and 64 lanes, and the wall times of the round's refit barrier (every
   lane's k-means and FITC fit) and of its per-lane Adam retune;
+- ``--path lmpc`` and ``--path lmpc6dof``: Path G, one fleet-LMPC step
+  (``lmpc_solve`` with the interior-point solver + the plant step), 256
+  lanes of the campaign's fleet from their initial states, against the safe
+  set that two rounds of the campaign grew (the seed and 512 trajectories,
+  read through the round's KNN bucket), and the wall time of those rounds;
 
 warms it up and reports:
 
@@ -38,7 +43,7 @@ warms it up and reports:
 - a ``torch.profiler`` trace of a few cycles: for each stage span of the
   cycle (``gpmpc.*``, ``rti.*``, ``admm.*``, ``online.observe`` and
   ``online.refit`` on the online paths, ``fleet.cycle`` on the fleet
-  paths) its host time, and for the
+  paths, ``lmpc.*`` on the LMPC paths) its host time, and for the
   whole window the device's busy share (sum of kernel times over wall time),
   the kernel launches per cycle and the kernels that take the most device
   time.
@@ -63,20 +68,25 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from .learning import explore_gp_3dof, run_batched_learning
 from .learning.batched_learner import _gated_fns, _tune_lane, fleet_cycle, fleet_reference
-from .main_path import (BATCH, DT, FLEET_LANES, N, calibration_cycle, calibration_path,
-                        calibration_x0, fleet_learning_path, fleet_learning_x0, fleet_x0,
+from .lmpc import lmpc_init, lmpc_solve
+from .main_path import (BATCH, DT, FLEET_LANES, LMPC_LANES, N, calibration_cycle,
+                        calibration_path, calibration_x0, fleet_learning_path,
+                        fleet_learning_x0, fleet_x0, fly_lmpc_fleet, lmpc_fleet_path,
+                        lmpc_fleet_x0,
                         main_path, online_flight_path, online_path, pretrain_path, rti_path,
                         sixdof_fleet_x0, sixdof_flight_x0, sixdof_path, sixdof_pretrain_path,
                         with_gust_variance)
 from .mpc import (RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti_config_6dof,
                   rti_init, rti_step)
 from .reference import cubic_descent_reference
+from .terminal import knn_bucket, trim
 
-SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.", "fleet.")
+SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.", "fleet.", "lmpc.")
 PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4, "calibration": BATCH,
          "sixdof": BATCH, "pretrain6dof": 4, "online": BATCH,
          "online6dof": BATCH, "fleet": FLEET_LANES["3dof"],
-         "fleet6dof": FLEET_LANES["6dof"]}  # path → default lanes
+         "fleet6dof": FLEET_LANES["6dof"], "lmpc": LMPC_LANES,
+         "lmpc6dof": LMPC_LANES}  # path → default lanes
 
 
 def _card() -> str:
@@ -129,6 +139,8 @@ def _cycle_of(path: str, batch: int, dev):
         return cycle, gp_mpc_init(sp.config, xs, sp.x_target, device=dev), xs
     if path in ("fleet", "fleet6dof"):
         return _fleet_cycle("6dof" if path == "fleet6dof" else "3dof", batch, dev)
+    if path in ("lmpc", "lmpc6dof"):
+        return _lmpc_cycle("6dof" if path == "lmpc6dof" else "3dof", batch, dev)
     # the rest are controllers of the campaign protocol, stepped with the index
     if path in ("online", "online6dof"):
         if path == "online":
@@ -202,6 +214,29 @@ def _fleet_cycle(model: str, batch: int, dev):
     return cycle, gp_mpc_init(fp.mpc, xs, fp.x_target, device=dev), xs
 
 
+def _lmpc_cycle(model: str, batch: int, dev):
+    """Path G's fleet step against the safe set two campaign rounds grew;
+    the cycle carries ``barrier()``, which reports those rounds."""
+    lp = lmpc_fleet_path(model, dev)
+    xs = lmpc_fleet_x0(lp, torch.Generator(device=dev).manual_seed(0), batch)
+    (res, ss), rounds_s = _wall_s(lambda: fly_lmpc_fleet(lp, xs, rounds=2))
+    bucket = knn_bucket(int(ss.written), ss.capacity)
+    view = trim(ss, bucket)
+
+    def cycle(state, xs):
+        sol, state = lmpc_solve(lp.F, lp.config, view, state, xs)
+        return state, lp.F(xs, sol.u0)
+
+    def barrier():
+        return {"two_rounds_s": rounds_s, "safe_set_states": int(ss.count),
+                "knn_bucket": bucket, "success_by_round":
+                [r["success_rate"] for r in res["per_round"]],
+                "ms_per_step_by_round": [r["ms_per_step"] for r in res["per_round"]]}
+
+    cycle.barrier = barrier
+    return cycle, lmpc_init(lp.config, xs, lp.x_target), xs
+
+
 def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
     """Warm up 5 cycles, time ``cycles`` with CUDA events, then profile
     ``prof_cycles``."""
@@ -257,7 +292,7 @@ def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
         name, fit = fits[path]
         _, res[name] = _wall_s(lambda: fit(torch.Generator(device=dev).manual_seed(2), dev))
     if hasattr(cycle, "barrier"):
-        res["fleet"] = cycle.barrier()
+        res["lmpc" if path.startswith("lmpc") else "fleet"] = cycle.barrier()
     return {
         **res,
         "card": _card(),
@@ -294,8 +329,9 @@ def main() -> None:
     for name in ("pretrain_gp_3dof_s", "pretrain_gp_6dof_s"):
         if name in res:
             print(f"{name[:-2]}: {res[name]:.3f} s")
-    if "fleet" in res:
-        print("fleet: " + json.dumps(res["fleet"]))
+    for name in ("fleet", "lmpc"):
+        if name in res:
+            print(f"{name}: " + json.dumps(res[name]))
     print(f"{res['card']} | path {res['path']} batch {res['batch']}: {res['ms_per_cycle']:.3f} ms/cycle "
           f"(CUDA events), {res['solves_per_s']:.1f} solves/s")
     print(f"profiled {res['profiled_cycles']} cycles: wall {res['profiled_wall_ms_per_cycle']:.3f} "

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpmpc_tpu_torch.chunk_bench import BOUNDED_SEGS, FLEET6_SEGS, chunk_inputs
+from gpmpc_tpu_torch.chunk_bench import BOUNDED_SEGS, FLEET6_SEGS, LMPC_SEGS, chunk_inputs
 from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 from gpmpc_tpu_torch.ops.qp import QPData, ruiz_equilibrate
 from gpmpc_tpu_torch.ops.qp.admm import _factor, _rho_vec
@@ -138,6 +138,8 @@ def _assert_matches_plain(args, segs, iters, scaled=False):
     (3, 300, 3100, (("dense", 1400), ("diag", 300), ("dense", 1400)), 5, "global"),
     (64, 60, 200, (("blt", 5, 28, 12), ("diag", 60)), 25, "shared"),  # state bounds kept
     (8, 24, 64, (("blt", 4, 8, 6), ("diag", 24), ("blockdiag", 4, 2, 6)), 25, "register"),
+    (256, 10, 11, None, 25, "register"),                        # the hull projection's QP
+    (256, 62, 168, (("blt", 5, 21, 9), ("diag", 45)), 25, "shared"),  # the LMPC hull QP's rows
     (4, 100, 150, (("diag", 100), ("dense", 50)), 25, "shared"),
     (4, 100, 120, None, 25, "shared"),
     (2, 300, 3000, None, 5, "global"),                          # a lane no cluster can hold
@@ -145,7 +147,7 @@ def _assert_matches_plain(args, segs, iters, scaled=False):
     (4, 207, 354, "golden", 25, "cluster"),                     # a pretraining episode's chunk
 ], ids=["random", "main", "dense60", "mixed", "ragged", "ragged-mixed", "diag-later",
         "diag-middle", "diag-middle-shared", "diag-middle-global", "blt-diag",
-        "blt-diag-blockdiag", "shared-mixed", "shared-dense", "global", "golden", "golden-b4"])
+        "blt-diag-blockdiag", "hull-projection", "lmpc-rows", "shared-mixed", "shared-dense", "global", "golden", "golden-b4"])
 def test_kernel_matches_plain_version(cuda_device, B, n, m, segs, iters, want):
     if segs == "golden":
         args, segs = [a[:B] for a in _golden_args(cuda_device)], None
@@ -438,3 +440,117 @@ def test_lane_batched_fit_on_the_card_matches_the_cpu(cuda_device):
     md, vd = dev.predict(Xq.cuda(), Uq.cuda())
     torch.testing.assert_close(md.cpu(), mc, rtol=0, atol=5e-4 * mc.abs().max().item())
     torch.testing.assert_close(vd.cpu(), vc, rtol=0, atol=5e-4 * vc.abs().max().item())
+
+
+def _assert_within_witness(args, segs, iters, x=2.0):
+    """Real data whose f32 plain run lies beyond ten times the tolerance
+    from its float64 run (the LMPC hull QP, the hull projection): the
+    kernel lies no farther from the float64 run than the tolerance plus
+    ``x`` times the plain f32 run's own distance (chip_smoke.py's rule for
+    these shapes)."""
+    kw = dict(iters=iters, sigma=1e-6, alpha=1.6, row_structure=segs)
+    kern = K.admm_chunk(*args, **kw)
+    plain = K.admm_chunk_plain(*args, **kw)
+    ref = K.admm_chunk_plain(*[a.double() for a in args], **kw)
+    for k, p, r, atol in zip(kern, plain, ref, (3e-4, 3e-4, 2e-3)):
+        atol *= max(1.0, r.abs().max().item())
+        f32 = (p.double() - r).abs().max().item()
+        assert bool(torch.isfinite(k).all())
+        assert (k.double() - r).abs().max().item() <= atol + x * f32
+
+
+@pytest.mark.parametrize("kind,iters", [("lmpc", 1), ("lmpc", 25), ("hull", 1), ("hull", 25)])
+def test_lmpc_and_hull_shapes_at_real_data(cuda_device, kind, iters):
+    """The fleet-LMPC ADMM arm's hull QP (256 lanes, n = 62, m = 105 blt +
+    45 diag + 18 dense rows: the shared variant, not the global one) and
+    the hull projection's QP (256 lanes, n = 10, m = 11: register) at their
+    real data, held by the witness rule."""
+    args = chunk_inputs(kind, torch.Generator(device="cuda").manual_seed(0), lanes=256)
+    B, m, n = args[1].shape
+    segs = LMPC_SEGS if kind == "lmpc" else None
+    want = {"lmpc": "shared", "hull": "register"}[kind]
+    assert K.variant(n, m, 45 if kind == "lmpc" else 0, B) == want
+    _assert_within_witness(args, segs, iters)
+
+
+def _feasible_qps(B, n=16, m=30, n_eq=3, seed=0):
+    """tests/test_ipm.py's random feasible QPs (one-sided rows, the last
+    n_eq rows equalities), B of them, float64."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(B):
+        Ph = rng.normal(size=(n, n))
+        A = rng.normal(size=(m, n))
+        Az = A @ (rng.normal(size=n) * 0.5)
+        l = Az - np.abs(rng.normal(size=m)) - 0.05
+        u = Az + np.abs(rng.normal(size=m)) + 0.05
+        l[0], u[1] = -np.inf, np.inf
+        l[-n_eq:] = u[-n_eq:] = Az[-n_eq:]
+        out.append((Ph @ Ph.T + np.eye(n), rng.normal(size=n), A, l, u))
+    return out
+
+
+def test_ipm_on_the_card_matches_the_cpu(cuda_device):
+    """The interior-point solver on 64 random feasible QPs and on the LMPC
+    hull QPs of 256 lanes: the card's x within 4e-3 of the CPU's
+    (tests/test_ipm.py:92's batched floor), the same status, no host sync
+    needed to freeze a lane (a non-PD lane freezes on the card as well)."""
+    from gpmpc_tpu_torch.chunk_bench import lmpc_qp
+    from gpmpc_tpu_torch.ops.qp import IPMConfig, solve_ipm
+
+    qps = _feasible_qps(64)
+    qps[5] = (-1e3 * np.eye(16),) + qps[5][1:]
+    data = QPData(*[torch.tensor(np.stack([q[i] for q in qps]), dtype=torch.float32)
+                    for i in range(5)])
+    cfg = IPMConfig(n_eq=3, iters=25)
+    cpu = solve_ipm(data, cfg)
+    dev = solve_ipm(QPData(*[t.cuda() for t in (data.P, data.q, data.A, data.l, data.u)]), cfg)
+    torch.testing.assert_close(dev.x.cpu(), cpu.x, rtol=0, atol=4e-3)
+    # the status is a threshold on the residuals: a lane at it may part
+    # (one of 64 did on an H100, its x within the tolerance all the same)
+    assert int((dev.status.cpu() != cpu.status).sum()) <= 2
+    assert int(dev.iterations[5]) == int(cpu.iterations[5]) == 0
+    assert int(dev.status[5]) == int(cpu.status[5]) != 0
+    hull = lmpc_qp(256, torch.Generator(device="cuda").manual_seed(0), torch.device("cuda"))
+    perm = torch.tensor(list(range(150)) + list(range(158, 168)) + list(range(150, 158)))
+    hull = QPData(hull.P, hull.q, hull.A[:, perm], hull.l[:, perm], hull.u[:, perm])
+    # the hull QPs: card vs CPU per lane within 4e-3 of the iterate's scale,
+    # or twice the CPU's own spread under a 1e-7 relative change of q, on
+    # all but 2% of the lanes: the freeze (μ and stationarity thresholds)
+    # and acceptance are thresholds, and a lane at one parts (1 of 256 did
+    # on an H100, beyond 2e-2)
+    hcfg = IPMConfig(n_eq=8, iters=20)
+    hd = solve_ipm(hull, hcfg)
+    hcpu = QPData(*[t.cpu() for t in (hull.P, hull.q, hull.A, hull.l, hull.u)])
+    hc = solve_ipm(hcpu, hcfg)
+    q1 = hcpu.q * (1 + 1e-7 * torch.randn(hcpu.q.shape, generator=torch.Generator().manual_seed(0)))
+    ho = solve_ipm(QPData(hcpu.P, q1, hcpu.A, hcpu.l, hcpu.u), hcfg)
+    scale = hc.x.abs().amax(-1).clamp_min(1.0)
+    lim = torch.maximum(4e-3 * scale, 2.0 * (ho.x - hc.x).abs().amax(-1))
+    assert bool(torch.isfinite(hd.x).all())
+    assert float(((hd.x.cpu() - hc.x).abs().amax(-1) <= lim).float().mean()) >= 0.98
+    assert float((hd.status.cpu() == hc.status).float().mean()) > 0.95
+
+
+def test_knn_on_the_card_matches_the_cpu(cuda_device):
+    """The lanes-first KNN over a 65,536-row store (256 lanes, a fuel budget
+    each, the fallback on): the same neighbours by state and Q, squared
+    distances within rtol 1e-4 plus 1e-3, the f32 cancellation floor of
+    ‖a‖²+‖b‖²−2a·b at weighted norms² ≈ 4e2 (a few ulps of 8e2)."""
+    from gpmpc_tpu_torch.terminal import SafeSet, knn_query
+
+    g = torch.Generator().manual_seed(0)
+    ss = SafeSet.create(65536, 7, device="cpu")
+    X = torch.randn(400, 150, 7, generator=g) + torch.tensor([2.0, 20, 0, 0, -2, 0, 0])
+    ss = ss.add_trajectories(X, torch.randn(400, 150, 3, generator=g),
+                             torch.rand(400, 150, generator=g))
+    xq = X[:256, 40] + 0.05 * torch.randn(256, 7, generator=g)
+    fuel = torch.rand(256, generator=g) - 0.2
+    rc = knn_query(ss, xq, 10, fuel_available=fuel, fallback_unfiltered=True)
+    ssd = SafeSet(**{k: (v.cuda() if torch.is_tensor(v) else v) for k, v in vars(ss).items()})
+    rd = knn_query(ssd, xq.cuda(), 10, fuel_available=fuel.cuda(), fallback_unfiltered=True)
+    assert torch.equal(rd.valid.cpu(), rc.valid)
+    torch.testing.assert_close(rd.distances.cpu() ** 2, rc.distances ** 2, rtol=1e-4, atol=1e-3)
+    same = rd.indices.cpu() == rc.indices
+    assert float(same.float().mean()) > 0.99  # near-ties may swap
+    torch.testing.assert_close(rd.q_values.cpu()[same], rc.q_values[same])

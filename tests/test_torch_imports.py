@@ -36,6 +36,10 @@ def test_import_with_jax_blocked():
         "import gpmpc_tpu_torch.gp.sparse_gp, gpmpc_tpu_torch.ops.kmeans\n"
         "import gpmpc_tpu_torch.learning.batched_learner, gpmpc_tpu_torch.learning.data_manager\n"
         "import gpmpc_tpu_torch.learning.novelty_selector\n"
+        "import gpmpc_tpu_torch.ops.qp.ipm, gpmpc_tpu_torch.terminal, gpmpc_tpu_torch.lmpc\n"
+        "import gpmpc_tpu_torch.terminal.safe_set, gpmpc_tpu_torch.terminal.local_safe_set\n"
+        "import gpmpc_tpu_torch.terminal.convex_hull, gpmpc_tpu_torch.terminal.q_function\n"
+        "import gpmpc_tpu_torch.lmpc.lmpc\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"

@@ -135,19 +135,27 @@ def test_gp_mpc_features_outside_the_slice_raise(kw):
 
 @pytest.mark.parametrize("base_kw", [{"condensed": False}, {"solver": "ipm"}])
 def test_gp_mpc_base_options_outside_the_slice_raise(base_kw):
-    """``solver="ipm"`` still raises. The sparse form (``condensed=False``)
-    is ported now: its state sizes the duals for the sparse rows
-    (``tests/test_torch_fleet.py`` holds its cycle against JAX)."""
+    """Both options are ported now. The sparse form (``condensed=False``)
+    sizes the duals for the sparse rows (``tests/test_torch_fleet.py`` holds
+    its cycle against JAX); ``solver="ipm"`` on the condensed QP no longer
+    raises and leaves the ADMM carry as it was (``tests/test_torch_ipm.py``
+    holds its cycle against JAX)."""
     cfg = port_config(jax_bench_config())
     cfg = cfg.replace(base=cfg.base.replace(**base_kw))
+    st = gp_mpc_init(cfg, np.zeros((1, 7), np.float32), np.zeros(7, np.float32),
+                     device="cpu")
+    N = cfg.base.N
     if not cfg.base.condensed:
-        st = gp_mpc_init(cfg, np.zeros((1, 7), np.float32), np.zeros(7, np.float32),
-                         device="cpu")
-        N = cfg.base.N
         assert st.y_prev.shape == (1, (N + 1) * 7 + (N + 1) * 7 + N * 3)
         return
-    with pytest.raises(NotImplementedError):
-        gp_mpc_init(cfg, np.zeros((1, 7), np.float32), np.zeros(7, np.float32), device="cpu")
+    x0s, xT = _fleet(2)
+    st = gp_mpc_init(cfg, x0s, xT, device="cpu")
+    zero = lambda X, U: torch.zeros(*X.shape[:-1], 7)
+    sol, st2 = gp_mpc_solve(lambda x, u: tr.step(Rocket3DoFParams(device="cpu"), x, u, 0.1),
+                            zero, lambda X, U: torch.zeros(*X.shape[:-1], 3), cfg, st,
+                            torch.tensor(x0s))
+    assert bool(torch.isfinite(sol.u0).all())
+    assert torch.equal(st2.rho, st.rho) and torch.equal(st2.y_prev, st.y_prev)
 
 
 def _fleet(B):

@@ -258,7 +258,17 @@ def test_closed_loop_matches_jax_and_freezes_landed_lanes():
 
 @pytest.mark.parametrize("kw", [{"solver": "ipm", "condensed": True}, {"warm_kkt": True}])
 def test_rti_options_not_ported_raise(kw):
+    """``warm_kkt`` is not ported. ``solver="ipm"`` on the condensed QP is
+    ported now: the cycle runs and leaves the ADMM carry (ρ, duals) as it
+    was (``tests/test_torch_ipm.py`` holds it against JAX)."""
     cfg = TR.RTIConfig(N=N, device="cpu", **kw)
+    if cfg.solver == "ipm":
+        st = TR.rti_init(cfg, _x0s(2), XT)
+        sol, st2 = TR.rti_step(tF, cfg, st, torch.tensor(_x0s(2)))
+        assert bool(torch.isfinite(sol.u0).all())
+        assert torch.equal(st2.rho, st.rho)
+        assert torch.equal(st2.y_prev, st.y_prev)
+        return
     with pytest.raises(NotImplementedError):
         TR.rti_init(cfg, _x0s(1), XT)
     with pytest.raises(NotImplementedError):
