@@ -14,7 +14,8 @@ entry points a user calls, and checks the hand-written kernel on the way:
    and at the calibration path's 50 iterations, the 6-DoF QP with cone
    facets (380 rows), the golden shape at 4 and 512 lanes, and Path D's and
    the 6-DoF online campaign's condensed QPs at 30 and 50 iterations, Path F's
-   two QPs, and Path G's hull QP and hull projection QP — with the
+   two QPs, Path G's hull QP and hull projection QP, and the safety filter's
+   intervention QP at 1024 and 512 lanes — with the
    variant each launches, its CTAs a lane, its registers and spills, and its
    time beside its bound, the plain version and a cuBLAS chain;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
@@ -67,7 +68,19 @@ entry points a user calls, and checks the hand-written kernel on the way:
    campaign (its seed an RTI-flown landing through the kernel; 3 rounds);
 13. the 3-DoF GP-MPC campaign of ``scripts/run_campaign_tpu.py --controller
    gp_mpc --rt --elide`` at the artifact's 4096 lanes with its own GP on the
-   drag + wind plant, reported beside the artifact.
+   drag + wind plant, reported beside the artifact;
+14. the safety layer (``phase_safety``): 10 teacher-forced filtered cycles of
+   the rescue composition, 8 lanes, card against CPU; the filter's latency
+   per cycle as ``scripts/bench_safety_filter.py`` measures it (512 lanes,
+   half diving); the three safety-filtered campaigns, each judged by its own
+   gate and printed beside the JAX package's TPU artifact: the rescue
+   (``--controller rti --safety-filter --gust -2.0``, 1024 lanes, the filter
+   and the unfiltered arm), the GP-MPC campaign behind the velocity-ellipsoid
+   filter (1024 lanes, phase 13's GP) and the online GP-MPC learning across
+   episodes behind the GP-read funnel filter (512 lanes), each on the
+   initial states its artifact flew (``tests/fixtures/safety_x0.npz``). The
+   filter's QP is the kernel's ``filter`` shape (n = 4, m = 6), eight
+   launches a cycle.
 
 Everything worth reporting is printed before the last two lines: a JSON
 object with one entry per kernel, the card's name and power limit, and last
@@ -115,6 +128,12 @@ FLEET_U0_ATOL, FLEET_ERR_RTOL, FLEET_WITNESS_X = 1e-3, 1e-2, 2.0
 LMPC_ROUNDS = {"3dof": 5, "6dof": 3}
 LMPC_FLOORS = {"3dof": 0.98, "6dof": 0.97}
 LMPC_U0_ATOL, LMPC_WITNESS_X = 5e-3, 2.0
+# the safety campaigns' episodes of online learning: the artifact's 6 (the
+# first cut if the script outgrows ~900 s is to the script's default of 3)
+ONLINE_SAFETY_EPISODES = 6
+# card vs CPU on the filter: u within 1e-3 or twice the CPU's own spread
+# under one-ulp changes of the state (the witness rule)
+SAFETY_U_ATOL, SAFETY_WITNESS_X = 1e-3, 2.0
 # the TPU kernels this path's kernel replaces (gpmpc_tpu/ops/pallas)
 REPLACES = ("gpmpc_tpu/ops/pallas/admm_kernel.py:29 (_chunk_kernel via admm_chunk:75), "
             "gpmpc_tpu/ops/pallas/admm_kernel.py:137 (_lanes_kernel via make_admm_chunk_lanes:227)")
@@ -196,7 +215,11 @@ def phase_kernels():
     # G's ADMM arm: the condensed hull QP (n = 62, m = 168: LMPC_SEGS and 18
     # trailing dense hull rows) of 256 lanes against the seed's safe set;
     # lmpc_rows a random QP of its shape and rows. hull is the hull
-    # projection's QP (n = 10, m = 11) of those lanes. On lmpc and hull f32
+    # projection's QP (n = 10, m = 11) of those lanes. bounded1024 is the
+    # bounded shape at the rescue campaign's 1024 lanes. filter and filter512
+    # are the safety filter's intervention QP (n = 4, m = 6 dense rows) at
+    # the rescue and GP-MPC campaigns' 1024 and the online campaign's 512
+    # lanes. On lmpc and hull f32
     # alone moves the iterates by tens of times the tolerance (an
     # ill-conditioned M⁻¹ and near-duplicate vertices; WITNESS_SHAPES).
     shapes = (("main", "main", 0, diag, ITERS, True), ("dense", "dense", 0, None, ITERS, True),
@@ -216,7 +239,10 @@ def phase_kernels():
               ("lmpc", "lmpc", 256, LMPC_SEGS, RTI_CHUNK, True),
               ("lmpc_rows", "lmpc_rows", 256, LMPC_SEGS, RTI_CHUNK, False),
               ("hull", "hull", 256, None, RTI_CHUNK, True),
-              ("sparse6dof_b5", "sparse6dof", 5, None, RTI_CHUNK, False))
+              ("sparse6dof_b5", "sparse6dof", 5, None, RTI_CHUNK, False),
+              ("bounded1024", "bounded", 1024, BOUNDED_SEGS, RTI_CHUNK, True),
+              ("filter", "filter", 1024, None, RTI_CHUNK, True),
+              ("filter512", "filter", BATCH, None, RTI_CHUNK, True))
     for kind, inputs, lanes, segs, iters, timed in shapes:
         args = chunk_inputs(inputs, gen, golden, lanes)
         B, m, n = args[1].shape
@@ -232,6 +258,8 @@ def phase_kernels():
         if Ak is not args[1]:
             raise RuntimeError(f"the wrapper copied A for the {kind} shape")
         variant, ctas = K.variant(n, m, mg, B), K.cluster_size(n, m, mg, B)
+        if variant == "global":
+            raise RuntimeError(f"the {kind} shape lands on the global variant: repair the picker")
         regs, spill_st, spill_ld = ptxas_report(_build.build_log("admm_chunk"),
                                                 kernel_entry(variant, n, m, mg))
         log(f"[kernel] {kind}: B={B} n={n} m={m} diagonal rows {d0}..{d0 + mg} iters={iters} "
@@ -303,6 +331,8 @@ def _to(obj, dev, dtype=None):
         if "device" in kw:
             kw["device"] = dev
         return type(obj)(**kw)
+    if type(obj) is tuple:
+        return tuple(_to(o, dev, dtype) for o in obj)
     return obj
 
 
@@ -314,6 +344,8 @@ def _first_lanes(obj, lanes):
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{f.name: _first_lanes(getattr(obj, f.name), lanes)
                                            for f in dataclasses.fields(obj) if f.init})
+    if type(obj) is tuple:
+        return tuple(_first_lanes(o, lanes) for o in obj)
     return obj
 
 
@@ -325,6 +357,8 @@ def _repeat_lanes(obj, r):
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{f.name: _repeat_lanes(getattr(obj, f.name), r)
                                            for f in dataclasses.fields(obj) if f.init})
+    if type(obj) is tuple:
+        return tuple(_repeat_lanes(o, r) for o in obj)
     return obj
 
 
@@ -1269,7 +1303,7 @@ def phase_gpmpc_campaign(dev=torch.device("cuda")):
     """``run_campaign_tpu.py --model 3dof --controller gp_mpc --rt --elide``
     at the artifact's 4096 lanes: the campaign's GP on the drag + wind
     plant, then the 130-step campaign; reported beside the artifact, no
-    gate."""
+    gate. Returns (the report, the GP's (mean_fn, var_fn))."""
     from gpmpc_tpu_torch.experiments import SimulationConfig, sample_initial_conditions
     from gpmpc_tpu_torch.main_path import (GPMPC_CAMPAIGN_LANES, fly_gpmpc_campaign,
                                            gpmpc_campaign_gp)
@@ -1299,6 +1333,224 @@ def phase_gpmpc_campaign(dev=torch.device("cuda")):
         f"130 steps: {json.dumps(out)}; the JAX package's artifact (TPU v5e): success "
         f"{art['success_rate']}, {art['landing_speed_mean']:.4f} m/s, "
         f"{art['landing_error_mean']:.4f} m")
+    return out, (mean_fn, var_fn)
+
+
+def _artifact(name, keys):
+    with open(os.path.join(ROOT, "artifacts", name)) as f:
+        art = json.load(f)
+    sf = art.get("safety_filter", {})
+    return {k: art[k] if k in art else sf[k] for k in keys}
+
+
+def _reset_launches():
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    K.LAUNCHES = 0
+    K.LAUNCHES_BY_SHAPE.clear()
+
+
+def _launches():
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    return K.LAUNCHES, {f"n{n}_m{m}": c for (n, m), c in sorted(K.LAUNCHES_BY_SHAPE.items())}
+
+
+def _safety_vs_cpu(dev, lanes=8, cycles=10, own_r=4):
+    """The rescue composition's filtered cycle on ``lanes`` lanes flying into
+    the downdraft, teacher forced: every cycle the CPU runs the card's
+    controller state and measured state (the RTI step, then the filter), and
+    again under ``own_r`` relative 1e-7 changes of the state. Returns the
+    per-cycle max |Δu| card−CPU on the lanes clear of the threshold
+    (|V − α| > 1e-4·α), the CPU's own spread, and whether ``intervened``
+    agreed on those lanes."""
+    from gpmpc_tpu_torch.main_path import safety_rescue_path
+    from gpmpc_tpu_torch.safety import filter_control
+
+    cpu = torch.device("cpu")
+    sg_path, sc_path = safety_rescue_path(dev), safety_rescue_path(cpu)
+    x = torch.tensor([2.0, 3.0, 0.2, -0.1, -2.5, 0.05, 0.0], device=dev).repeat(lanes, 1)
+    x[:, 1] += torch.linspace(0.0, 7.0, lanes, device=dev)
+    x[:, 4] -= torch.linspace(0.0, 1.5, lanes, device=dev)
+    (cinit, cstep), (_, cstep_c) = sg_path.controller, sc_path.controller
+    filt = lambda p, xx, uu: filter_control(p.F_filter, p.backup, p.invariant, p.filter_config,
+                                            xx, uu)
+    gen = torch.Generator().manual_seed(0)
+    alpha = sg_path.invariant.alpha
+    st = cinit(x)
+    du, spread, same, n_int = [], [], True, 0
+    for k in range(cycles):
+        sc, xc = _to(st, cpu), x.cpu()
+        u_g, st_next = cstep(st, x, k)
+        rg = filt(sg_path, x, u_g)
+        rc = filt(sc_path, xc, cstep_c(sc, xc, k)[0])
+        xo = xc.repeat(own_r, 1) * (1 + 1e-7 * torch.randn(own_r * lanes, 7, generator=gen))
+        ro = filt(sc_path, xo, cstep_c(_repeat_lanes(sc, own_r), xo, k)[0])
+        clear = (rc.lyapunov_value - alpha).abs() > 1e-4 * alpha
+        du.append((rg.u.cpu() - rc.u)[clear].abs().max().item() if bool(clear.any()) else 0.0)
+        spread.append((ro.u - rc.u.repeat(own_r, 1)).abs().max().item())
+        same = same and bool(torch.equal(rg.intervened.cpu()[clear], rc.intervened[clear]))
+        n_int += int(rg.intervened.sum())
+        x, st = sg_path.plant(x, rg.u), st_next
+    return du, spread, same, n_int
+
+
+def _filter_latency(dev, batch=BATCH, cycles=10, windows=4):
+    """``scripts/bench_safety_filter.py``: the velocity-ellipsoid filter
+    (check + intervention QP) on ``batch`` lanes, half of them diving out of
+    the envelope, timed in windows of ``cycles`` cycles with CUDA events
+    (the state nudged by each cycle's output so every cycle depends on the
+    last). Returns (ms per cycle, intervention rate, launches per cycle)."""
+    from gpmpc_tpu_torch.dynamics import Rocket3DoFParams, rocket3dof as r3
+    from gpmpc_tpu_torch.main_path import velocity_ellipsoid_filter
+    from gpmpc_tpu_torch.safety import filter_control
+
+    p = Rocket3DoFParams(device=dev)
+    F = lambda x, u: r3.step(p, x, u, DT)
+    inv, backup, cfg = velocity_ellipsoid_filter(dev)
+    xs = torch.tensor([2.0, 20.0, 0.3, -0.2, -1.5, 0.1, 0.0], device=dev).repeat(batch, 1)
+    xs[1::2, 4] = -4.5
+    u_nom = torch.tensor([2.0, 0.0, 0.0], device=dev).repeat(batch, 1)
+
+    def window(xs):
+        rates = []
+        for _ in range(cycles):
+            res = filter_control(F, backup, inv, cfg, xs, u_nom)
+            xs = xs + 1e-9 * res.u.mean()
+            rates.append(res.intervened.float().mean())
+        return xs, torch.stack(rates).mean()
+
+    xs, _ = window(xs)  # warm-up
+    torch.cuda.synchronize(dev)
+    _reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(windows):
+        xs, rate = window(xs)
+    end.record()
+    torch.cuda.synchronize(dev)
+    launches, _ = _launches()
+    return start.elapsed_time(end) / (windows * cycles), float(rate), launches / (windows * cycles)
+
+
+def _safety_x0(name, dev):
+    """The initial states the JAX package's safety artifacts flew
+    (``tests/fixtures/make_safety_x0.py``): "campaign" (1024 lanes) or
+    "online" (512), so that every lane's numbers compare like for like."""
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "safety_x0.npz")) as f:
+        return torch.tensor(f[name], device=dev)
+
+
+def phase_safety(gp_fns_, dev=torch.device("cuda")):
+    """The safety layer: the filter card vs CPU, its latency, and the three
+    safety-filtered campaigns, each judged by its own gate, on the initial
+    states of the artifacts they are printed beside."""
+    from gpmpc_tpu_torch.main_path import (ONLINE_SAFETY_LANES, SAFETY_GPMPC_COMMIT, SAFETY_LANES,
+                                           fly_online_safety, fly_safety, online_safety_path,
+                                           safety_gpmpc_path, safety_rescue_path)
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    out = {}
+    fv = K.variant(4, 6, 0, SAFETY_LANES)
+    if fv == "global":
+        raise RuntimeError("the filter's QP lands on the global variant: repair the picker")
+
+    # card vs CPU, teacher forced, by the witness rule
+    du, spread, same, n_int = _safety_vs_cpu(dev)
+    lim = max(SAFETY_U_ATOL, SAFETY_WITNESS_X * max(spread))
+    fmt = lambda xs: [f"{d:.2e}" for d in xs]
+    log(f"[safety] card vs CPU, 10 teacher-forced filtered cycles of the rescue composition, 8 "
+        f"lanes ({n_int} interventions): max|du| by cycle {fmt(du)} (limit {lim:.2e}); the CPU "
+        f"under a 1e-7 relative change of the state (max of 4) {fmt(spread)}; intervened equal "
+        f"on the lanes clear of the threshold: {same}")
+    if max(du) > lim or not same or n_int == 0:
+        raise RuntimeError("the card's filtered cycles disagree with the CPU reference")
+    out["card_vs_cpu"] = dict(du=du, cpu_own=spread, limit=lim, interventions=n_int)
+
+    # the filter's latency per cycle (scripts/bench_safety_filter.py)
+    ms, rate, lpc = _filter_latency(dev)
+    log(f"[safety] filter latency, {BATCH} lanes (half diving), windows of 10 cycles: {ms:.3f} "
+        f"ms/cycle (CUDA events), {ms * 1e3 / BATCH:.3f} us a lane, intervention rate {rate:.2f}, "
+        f"{lpc:.2f} kernel launches a cycle ({fv} variant); the reference's budget: 5 ms a "
+        f"cycle, no gate")
+    out["latency"] = dict(ms_per_cycle=ms, intervention_rate=rate, launches_per_cycle=lpc)
+
+    # the rescue: RTI into the downdraft, with and without the funnel filter
+    sp = safety_rescue_path(dev)
+    x0s = _safety_x0("campaign", dev)[:SAFETY_LANES]
+    _reset_launches()
+    res = fly_safety(sp, x0s)
+    res["launches"], res["launches_by_shape"] = _launches()
+    art = _artifact("campaign_rti3dof_safety_gust_1024.json",
+                    ("success_rate", "success_rate_unfiltered", "success_rate_delta",
+                     "crash_count_filtered", "crash_count_unfiltered", "intervention_rate",
+                     "interventions_per_episode_mean"))
+    log(f"[safety] rescue campaign (--controller rti --safety-filter --gust -2.0), "
+        f"{SAFETY_LANES} lanes, 150 steps: {json.dumps(res)}")
+    log(f"[safety] rescue, the JAX package's artifact (a TPU v5e record, not this card's; its "
+        f"--gust is not recorded, -2.0 per tests/test_scripts.py): {json.dumps(art)}")
+    if res["launches_by_shape"].get("n4_m6", 0) <= 0 or res["launches_by_shape"].get(
+            "n60_m200", 0) <= 0:
+        raise RuntimeError("the rescue campaign did not go through the kernel at both shapes")
+    if not (res["success_rate_delta"] >= 0.5
+            and res["crash_count_filtered"] < res["crash_count_unfiltered"]):
+        raise RuntimeError(f"the rescue misses its gate: success delta "
+                           f"{res['success_rate_delta']:.4f} (floor 0.5), crashes "
+                           f"{res['crash_count_filtered']} filtered vs "
+                           f"{res['crash_count_unfiltered']} unfiltered")
+    out["rescue"] = res
+
+    # the GP-MPC campaign behind the velocity-ellipsoid filter of ab18305
+    mean_fn, var_fn = gp_fns_
+    sg = safety_gpmpc_path(mean_fn, var_fn, dev)
+    x0g = _safety_x0("campaign", dev)[:SAFETY_LANES]
+    _reset_launches()
+    resg = fly_safety(sg, x0g)
+    resg["launches"], resg["launches_by_shape"] = _launches()
+    artg = _artifact("campaign_gpmpc3dof_safety_1024.json",
+                     ("success_rate", "success_rate_unfiltered", "intervention_rate",
+                      "interventions_per_episode_mean", "landing_speed_mean",
+                      "landing_error_mean"))
+    log(f"[safety] GP-MPC campaign (--controller gp_mpc --safety-filter, the velocity-ellipsoid "
+        f"filter the artifact flew at {SAFETY_GPMPC_COMMIT}), {SAFETY_LANES} lanes, 130 steps: "
+        f"{json.dumps(resg)}")
+    log(f"[safety] GP-MPC, the JAX package's artifact (a TPU v5e record): {json.dumps(artg)}")
+    if resg["launches_by_shape"].get("n4_m6", 0) <= 0:
+        raise RuntimeError("the GP-MPC safety campaign's filter did not go through the kernel")
+    if resg["success_rate"] < 0.98:
+        raise RuntimeError(f"the GP-MPC safety campaign's success {resg['success_rate']:.4f} "
+                           f"is under 0.98")
+    out["gpmpc"] = resg
+
+    # the online GP-MPC learning across episodes behind the GP-read filter
+    op = online_safety_path(dev)
+    x0o = _safety_x0("online", dev)[:ONLINE_SAFETY_LANES]
+    _reset_launches()
+    t0 = time.time()
+    reso = fly_online_safety(op, x0o, episodes=ONLINE_SAFETY_EPISODES)
+    reso["seconds"] = time.time() - t0
+    reso["launches"], reso["launches_by_shape"] = _launches()
+    arto = _artifact("campaign_online_safety_tpu_512.json",
+                     ("interventions_by_episode", "model_err_by_episode", "success_by_episode",
+                      "success_mcnemar_z_vs_ep1", "final_success_rate", "per_episode"))
+    arto["landed_by_episode"] = [e["landed_rate"] for e in arto.pop("per_episode")]
+    by_ep = lambda key: [r[key] for r in reso["per_episode"]]
+    log(f"[safety] online safety, landed by episode {by_ep('landed_rate')}, lanes not finite "
+        f"by episode {by_ep('nonfinite_lanes')}")
+    log(f"[safety] online safety campaign (run_online_safety_tpu.py --filter-model gp), "
+        f"{ONLINE_SAFETY_LANES} lanes x {ONLINE_SAFETY_EPISODES} episodes of 110 steps: "
+        f"{json.dumps(reso)}")
+    log(f"[safety] online safety, the JAX package's artifact (a TPU v5e record, 6 episodes): "
+        f"{json.dumps(arto)}")
+    if reso["launches_by_shape"].get("n4_m6", 0) <= 0:
+        raise RuntimeError("the online safety campaign's filter did not go through the kernel")
+    if not reso["gate"]:
+        raise RuntimeError(
+            f"the online safety campaign misses the script's gate: interventions "
+            f"{reso['interventions_by_episode']} (must fall), final success "
+            f"{reso['final_success_rate']:.4f} (> 0.95), McNemar z "
+            f"{reso['success_mcnemar_z_vs_ep1']} (each < 2.0)")
+    out["online"] = reso
     return out
 
 
@@ -1315,7 +1567,8 @@ def main():
     onl_res = phase_online()
     flt_res = phase_fleet()
     lmpc_res = phase_lmpc()
-    camp_res = phase_gpmpc_campaign()
+    camp_res, camp_gp = phase_gpmpc_campaign()
+    saf_res = phase_safety(camp_gp)
     log(f"[summary] main path {main_res['ms_per_cycle']:.3f} ms/cycle, "
         f"{main_res['solves_per_s']:.1f} solves/s, landing success {land['success_share']:.4f}; "
         f"RTI path {rti_res['ms_per_cycle']:.3f} ms/cycle, landing success "
@@ -1343,7 +1596,12 @@ def main():
         f"{lmpc_res['6dof']['final_success_rate']}, ADMM arm "
         f"{lmpc_res['admm']['success_rate']}; 3-DoF GP-MPC campaign success "
         f"{camp_res['success_share']:.4f}, {camp_res['landing_speed_mean']:.4f} m/s, "
-        f"{camp_res['landing_error_mean']:.4f} m")
+        f"{camp_res['landing_error_mean']:.4f} m; safety: filter {saf_res['latency']['ms_per_cycle']:.3f} "
+        f"ms/cycle at {BATCH} lanes, rescue success {saf_res['rescue']['success_rate']:.4f} vs "
+        f"{saf_res['rescue']['success_rate_unfiltered']:.4f} unfiltered, GP-MPC behind the filter "
+        f"{saf_res['gpmpc']['success_rate']:.4f} (intervention rate "
+        f"{saf_res['gpmpc']['intervention_rate']:.4f}), online interventions by episode "
+        f"{[round(v, 3) for v in saf_res['online']['interventions_by_episode']]}")
     main_t = timings[0]
     kernels = [{
         "name": "admm_chunk",
@@ -1368,7 +1626,13 @@ def main():
                              "lmpc_admm": lmpc_res["admm"]["launches"],
                              "lmpc6dof_seed": lmpc_res["6dof"]["seed_launches"],
                              "hull_projection": lmpc_res["hull"]["launches"],
-                             "gpmpc_campaign": camp_res["launches"]},
+                             "gpmpc_campaign": camp_res["launches"],
+                             "safety_rescue": saf_res["rescue"]["launches"],
+                             "safety_gpmpc": saf_res["gpmpc"]["launches"],
+                             "safety_online": saf_res["online"]["launches"],
+                             "safety_filter_shape": {
+                                 k: saf_res[k]["launches_by_shape"].get("n4_m6", 0)
+                                 for k in ("rescue", "gpmpc", "online")}},
         "max_abs_err": main_t["max_abs_err"],
         "ms": main_t["ms"],
         "eager_ms": main_t["eager_ms"],

@@ -194,7 +194,8 @@ def fleet_qp(kind, lanes, gen, dev):
 
 def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     """Chunk operands on the card: (Minv, A, q, l, u, rho_v, x, z, y).
-    "main": 512 lanes, n = m = 60, A the identity control-bound rows as
+    "main": 512 lanes (or ``lanes`` where that is more; so for "dense",
+    "bounded" and "facets"), n = m = 60, A the identity control-bound rows as
     build_condensed_qp makes them; "dense": the same size with a random A;
     "bounded": n = 60, m = 200, the condensed QP that keeps its state-bound
     rows: 140 block-lower-triangular rows (BOUNDED_SEGS), then the identity;
@@ -206,7 +207,9 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     ``lanes`` lanes of Path F's QPs (:func:`fleet_qp`); "lmpc": ``lanes``
     lanes of the fleet-LMPC hull QP (:func:`lmpc_qp`), "lmpc_rows" a random
     QP with its rows' structure (n = 62, LMPC_SEGS and 18 dense rows);
-    "hull": ``lanes`` lanes of the hull projection QP (:func:`hull_qp`)."""
+    "hull": ``lanes`` lanes of the hull projection QP (:func:`hull_qp`);
+    "filter": ``lanes`` lanes of the safety filter's intervention QP
+    (:func:`filter_qp`)."""
     from .ops.qp import QPData, ruiz_equilibrate
     from .ops.qp.admm import _factor, _rho_vec
 
@@ -215,6 +218,8 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
         data = sixdof_qp(kind, lanes, gen, dev)
     elif kind in ("fleet3dof", "fleet6dof"):
         data = fleet_qp(kind, lanes, gen, dev)
+    elif kind == "filter":
+        data = filter_qp(lanes, gen, dev)
     elif kind in ("lmpc", "hull"):
         data = lmpc_qp(lanes, gen, dev) if kind == "lmpc" else hull_qp(lanes, gen, dev)
     elif kind == "lmpc_rows":
@@ -234,7 +239,7 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
                                        dtype=torch.float32, device=dev)
         data = QPData(*[stack(p) for p in ("P", "q", "A", "l", "u")])
     else:
-        B, n = BATCH, N_VARS
+        B, n = max(lanes, BATCH), N_VARS
         G = torch.randn(B, n, n, generator=gen, device=dev)
         P = G @ G.transpose(1, 2) / n + 0.1 * torch.eye(n, device=dev)
         if kind == "main":
@@ -599,3 +604,32 @@ def hull_qp(lanes, gen, dev):
                   A=torch.cat([vf[:, None], eye.expand(lanes, K, K)], dim=1),
                   l=torch.cat([ones, torch.zeros(lanes, K, device=dev)], dim=1),
                   u=torch.cat([ones, vf], dim=1))
+
+
+def filter_lanes(lanes, gen, dev):
+    """States and nominal controls of ``lanes`` lanes under the downdraft,
+    drawn from ``gen``: altitude 0.5-8 m, descending at 0.5-4 m/s, ±0.5 m
+    and ±0.3 m/s sideways; controls 0.5-3 up and ±0.3 sideways."""
+    r = torch.rand(lanes, 9, generator=gen, device=gen.device).to(dev)
+    x = torch.stack([torch.full_like(r[:, 0], 2.0), 0.5 + 7.5 * r[:, 0], r[:, 1] - 0.5,
+                     r[:, 2] - 0.5, -4.0 + 3.5 * r[:, 3], 0.3 * (2 * r[:, 4] - 1),
+                     0.3 * (2 * r[:, 5] - 1)], dim=1)
+    u = torch.stack([0.5 + 2.5 * r[:, 6], 0.3 * (2 * r[:, 7] - 1), 0.3 * (2 * r[:, 8] - 1)],
+                    dim=1)
+    return x, u
+
+
+def filter_qp(lanes, gen, dev):
+    """The safety filter's minimal-intervention QP at real data: the rescue
+    campaign's filter (``main_path.safety_rescue_path``: the funnel over
+    emergency braking, N = 5, the downdraft-padded model), its first SCP
+    iteration at :func:`filter_lanes`: n = 4 (u and the slack), m = 6 dense
+    rows (V's linearization, s ≥ 0, the box of [u, s])."""
+    from .main_path import safety_rescue_path
+    from .safety.safety_filter import _intervention_qp, _target, _value_and_grad
+
+    sp = safety_rescue_path(dev)
+    cfg = sp.filter_config
+    x, u = filter_lanes(lanes, gen, dev)
+    V0, g = _value_and_grad(sp.F_filter, sp.backup, sp.invariant, cfg.N, x, u)
+    return _intervention_qp(cfg, u, u, V0, g, _target(cfg, sp.invariant))

@@ -31,6 +31,12 @@ from .online_gp_mpc import (
     make_online_gp_mpc_controller,
     online_controller_info,
 )
+from .online_learner import (
+    IterativeLearningRunner,
+    LearningStatistics,
+    OnlineLearner,
+    OnlineLearningConfig,
+)
 from .pretrain import (
     collect_residuals_3dof,
     collect_residuals_6dof,
@@ -42,7 +48,8 @@ from .pretrain import (
 
 __all__ = [
     "ActiveDataSelector", "AdaptiveHyperparameterScheduler", "BatchedLearningConfig",
-    "DataManager", "HyperparameterConfig", "HyperparameterTuner", "NoveltyConfig",
+    "DataManager", "HyperparameterConfig", "HyperparameterTuner", "IterativeLearningRunner",
+    "LearningStatistics", "NoveltyConfig", "OnlineLearner", "OnlineLearningConfig",
     "NoveltySelector", "OnlineGPMPCConfig", "OnlineGPMPCState", "StreamingDataCollector",
     "TransitionStore", "carry_gp_between_episodes", "collect_residuals_3dof",
     "collect_residuals_6dof", "compute_residual", "distance_novelty", "explore_gp_3dof",

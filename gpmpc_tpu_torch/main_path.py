@@ -33,7 +33,14 @@ kernel selected (``use_pallas="auto"``):
   set, the interior-point solver on the condensed convex-hull QP, the
   successful trajectories joining the set between rounds, for the 3-DoF
   and the 6-DoF model; :func:`fly_lmpc_fleet` flies it and returns the
-  script's result dictionary.
+  script's result dictionary;
+- the safety-filtered campaigns: :func:`safety_rescue_path` (the RTI
+  controller flying into a low-altitude downdraft behind the funnel
+  filter) and :func:`safety_gpmpc_path` (the GP-MPC campaign behind the
+  velocity-ellipsoid filter), each flown with and without its filter by
+  :func:`fly_safety`; :func:`online_safety_path` (the online GP-MPC
+  learner behind a filter that reads each lane's own GP), flown across
+  episodes by :func:`fly_online_safety`.
 
 ``chip_smoke.py`` and ``gpmpc_tpu_torch/profile_cycle.py`` drive them.
 """
@@ -51,16 +58,18 @@ from .dynamics import Rocket3DoFParams, Rocket6DoFParams, rocket3dof as r3, rock
 from .gp import StructuredGPConfig
 from .learning.batched_learner import BatchedLearningConfig, default_mpc, run_batched_learning
 from .lmpc import LMPCConfig, default_stage_cost, fly_episode, lmpc_config_6dof, lmpc_plan_value
-from .learning.online_gp_mpc import (OnlineGPMPCConfig, make_online_gp_mpc_controller,
-                                     online_controller_info)
+from .learning.online_gp_mpc import (OnlineGPMPCConfig, carry_gp_between_episodes,
+                                     make_online_gp_mpc_controller, online_controller_info)
 from .learning.pretrain import gp_fns, pretrain_gp_3dof, pretrain_gp_6dof  # noqa: F401  (gp_fns: re-exported for chip_smoke.py)
 from .experiments import (SimulationConfig, campaign_statistics, run_campaign,
                           sample_initial_conditions, wilson_interval)
-from .mpc import (GPMPCConfig, RTIConfig, gp_mpc_solve, make_gp_mpc_controller, rti_closed_loop,
-                  rti_config_6dof)
+from .mpc import (GPMPCConfig, RTIConfig, gp_mpc_solve, make_gp_mpc_controller,
+                  make_rti_controller, rti_closed_loop, rti_config_6dof)
 from .mpc.constraints import normal_quantile
 from .ops.qp import ADMMConfig
 from .reference import cubic_descent_reference, pad_reference
+from .safety import (DescentFunnelSet, EllipsoidalInvariantSet, EmergencyBrakingController,
+                     SafetyFilterConfig, filtered_controller_info, make_filtered_controller)
 from .terminal import SafeSet, knn_bucket, trim
 from .terminal import prune as prune_safe_set
 
@@ -875,3 +884,285 @@ def fly_gpmpc_campaign(mean_fn: Callable, var_fn: Callable, x0s: torch.Tensor) -
                                           ref_horizon=fp.sim.max_steps)
     res = run_campaign(cinit, cstep, fp.F_true, x0s, fp.sim)
     return res, campaign_statistics(res)
+
+
+# -- the safety-filtered campaigns -------------------------------------------
+
+SAFETY_LANES = 1024  # the rescue and GP-MPC safety artifacts' widths
+RESCUE_STEPS, RESCUE_GUST = 150, -2.0
+SAFETY_GPMPC_STEPS = 130
+ONLINE_SAFETY_LANES, ONLINE_SAFETY_STEPS, ONLINE_SAFETY_GUST = 512, 110, -1.5
+ONLINE_SAFETY_FILTER_N = 8
+SAFETY_GPMPC_COMMIT = "ab18305"  # the commit the GP-MPC safety artifact was flown at
+
+
+def gust_accel(x: torch.Tensor, gust: float) -> torch.Tensor:
+    """The low-altitude downdraft (``run_campaign_tpu.py:68-89``): gust·σ((6 −
+    altitude)/1), on below ~6 m; (B,) from states (B, n_x)."""
+    return gust * torch.sigmoid(6.0 - x[:, 1])
+
+
+def _vertical(a: torch.Tensor, n_x: int = 7) -> torch.Tensor:
+    """(B, n_x) with ``a`` (B,) in the vertical-velocity slot x[4]."""
+    z = a.new_zeros(a.shape[0], 1)
+    return torch.cat([z.expand(-1, 4), a[:, None], z.expand(-1, n_x - 5)], dim=1)
+
+
+def _braking_filter(p: Rocket3DoFParams, N: int, dev: torch.device):
+    """The campaigns' emergency-braking backup and filter configuration
+    (``run_campaign_tpu.py:543-547``): thrust box [0, T_max] × [−T_max, T_max]²."""
+    T = p.T_max
+    return (EmergencyBrakingController(T_max=T, g_I=torch.tensor([-1.0, 0.0, 0.0], device=dev)),
+            SafetyFilterConfig(N=N, dt=DT, u_min=(0.0, -T, -T), u_max=(T, T, T), device=dev))
+
+
+def velocity_ellipsoid_filter(device: DeviceLike = "cuda"):
+    """The altitude-blind velocity-ellipsoid filter of ``scripts/bench_safety_filter.py``
+    and of the GP-MPC safety artifact (flown at ab18305, before the funnel):
+    P = diag(0, 0, 0.3, 0.3, 1, 1, 1), x_eq with v_x = −1, α = 6, N = 5,
+    emergency braking. Returns (invariant, backup, config)."""
+    dev = resolve_device(device)
+    P = torch.diag(torch.tensor([0.0, 0.0, 0.3, 0.3, 1.0, 1.0, 1.0], device=dev))
+    x_eq = torch.tensor([0.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0], device=dev)
+    inv = EllipsoidalInvariantSet(P=P, x_eq=x_eq, alpha=torch.tensor(6.0, device=dev))
+    backup, cfg = _braking_filter(Rocket3DoFParams(device=dev), 5, dev)
+    return inv, backup, cfg
+
+
+class SafetyPath(NamedTuple):
+    controller: tuple  # (cinit, cstep) of the unfiltered controller
+    plant: Callable
+    F_filter: Callable  # the filter's recoverability model
+    invariant: object
+    backup: object
+    filter_config: object
+    sim: SimulationConfig
+
+
+def safety_rescue_path(device: DeviceLike = "cuda") -> SafetyPath:
+    """``scripts/run_campaign_tpu.py --controller rti --safety-filter --gust
+    -2.0 --steps 150``: the condensed RTI controller of ``:46-59`` (state
+    bounds kept: n = 60, m = 200; 50 iterations in two chunks of 25, scaling
+    3, accept 5e-3) tracking 100-step cubic references; the plant carries
+    the downdraft (``:68-89``); the filter is the soft-landing funnel (slope
+    0.6, v_free 1.5) over emergency braking, N = 5, on the nominal model
+    padded with the same downdraft (``:548-558``)."""
+    dev = resolve_device(device)
+    p = Rocket3DoFParams(device=dev)
+    base = RTIConfig(N=N, accept_pri_tol=5e-3, condensed=True,
+                     admm=ADMMConfig(max_iter=ADMM_ITERS, polish=False, adaptive_rho=False,
+                                     scaling=3, use_pallas="auto"),
+                     device=dev)
+    F = lambda x, u: r3.step(p, x, u, DT)
+    pad = lambda x, u: F(x, u) + DT * _vertical(gust_accel(x, RESCUE_GUST))
+    xT = torch.zeros(7, device=dev)
+    xT[0] = 2.0
+    ctrl = make_rti_controller(F, base, xT,
+                               reference_fn=lambda x0: cubic_descent_reference(x0, xT, 100, DT),
+                               ref_horizon=RESCUE_STEPS)
+    backup, fcfg = _braking_filter(p, 5, dev)
+    return SafetyPath(controller=ctrl, plant=pad, F_filter=pad,
+                      invariant=DescentFunnelSet(slope=0.6, v_free=1.5), backup=backup,
+                      filter_config=fcfg,
+                      sim=SimulationConfig(max_steps=RESCUE_STEPS, altitude_mean=30.0,
+                                           altitude_std=2.0))
+
+
+def safety_gpmpc_path(mean_fn: Callable, var_fn: Callable,
+                      device: DeviceLike = "cuda") -> SafetyPath:
+    """``scripts/run_campaign_tpu.py --controller gp_mpc --safety-filter``
+    without ``--rt`` (``:143-180``): two SCP iterations of the condensed
+    GP-MPC (state bounds kept, 100 iterations in chunks of 25, scaling 3,
+    accept 5e-3, chance tightening) with the campaign's GP
+    (:func:`gpmpc_campaign_gp`), 130 steps on the drag + wind plant, and
+    the filter the artifact flew at ab18305: :func:`velocity_ellipsoid_filter`
+    on the nominal model."""
+    dev = resolve_device(device)
+    fp = online_flight_path("3dof", dev)
+    cfg = GPMPCConfig(
+        base=RTIConfig(N=N, accept_pri_tol=5e-3, condensed=True,
+                       admm=ADMMConfig(max_iter=100, polish=False, adaptive_rho=False,
+                                       scaling=3, use_pallas="auto"),
+                       device=dev),
+        scp_iterations=2, tighten=True)
+    ctrl = make_gp_mpc_controller(fp.F, mean_fn, var_fn, cfg, fp.x_target,
+                                  reference_fn=fp.reference_fn,
+                                  ref_horizon=SAFETY_GPMPC_STEPS)
+    inv, backup, fcfg = velocity_ellipsoid_filter(dev)
+    return SafetyPath(controller=ctrl, plant=fp.F_true, F_filter=fp.F, invariant=inv,
+                      backup=backup, filter_config=fcfg,
+                      sim=SimulationConfig(max_steps=SAFETY_GPMPC_STEPS, altitude_mean=30.0,
+                                           altitude_std=2.0))
+
+
+def filtered_controller(sp: SafetyPath):
+    """(finit, fstep) of the path's controller behind its filter, the early
+    half ending at the episode's middle step (``run_campaign_tpu.py:560-563``)."""
+    return make_filtered_controller(*sp.controller, sp.F_filter, sp.backup, sp.invariant,
+                                    sp.filter_config, half_step=sp.sim.max_steps // 2)
+
+
+def fly_safety(sp: SafetyPath, x0s: torch.Tensor) -> Dict:
+    """The campaign with the filter and, on the same initial states, without
+    it. Returns the script's summary (``run_campaign_tpu.py:703-740``) with
+    both arms' statistics and the seconds of each."""
+    t0 = time.time()
+    res = run_campaign(*filtered_controller(sp), sp.plant, x0s, sp.sim,
+                       cstate_info=filtered_controller_info)
+    st = campaign_statistics(res)
+    t1 = time.time()
+    res_u = run_campaign(*sp.controller, sp.plant, x0s, sp.sim)
+    st_u = campaign_statistics(res_u)
+    t2 = time.time()
+    n_int = res["n_interventions"].double().cpu()
+    n_early = res["n_interventions_early"].double().cpu()
+    f = lambda v: float(v)
+    return {
+        "lanes": x0s.shape[0], "steps": sp.sim.max_steps,
+        "success_rate": f(st["success_rate"]),
+        "landing_speed_mean": f(st["landing_speed_mean"]),
+        "landing_error_mean": f(st["landing_error_mean"]),
+        "fuel_used_mean": f(st["fuel_used_mean"]),
+        "outcome_counts": {k: int(c) for k, c in st["outcome_counts"].items()},
+        "intervention_rate": f((n_int > 0).double().mean()),
+        "interventions_per_episode_mean": f(n_int.mean()),
+        "interventions_first_half_mean": f(n_early.mean()),
+        "interventions_second_half_mean": f((n_int - n_early).mean()),
+        "success_rate_unfiltered": f(st_u["success_rate"]),
+        "success_rate_delta": f(st["success_rate"]) - f(st_u["success_rate"]),
+        "crash_count_filtered": int(st["outcome_counts"]["crash"]),
+        "crash_count_unfiltered": int(st_u["outcome_counts"]["crash"]),
+        "landing_speed_mean_unfiltered": f(st_u["landing_speed_mean"]),
+        "seconds_filtered": t1 - t0, "seconds_unfiltered": t2 - t1,
+    }
+
+
+class OnlineSafetyPath(NamedTuple):
+    inner: tuple  # (cinit, cstep) of the online GP-MPC controller
+    controller: tuple  # (finit, fstep): the same behind the filter
+    filter_model: Callable  # inner state -> the filter's lanes-first step function
+    plant: Callable
+    sim: SimulationConfig
+
+
+def online_safety_path(device: DeviceLike = "cuda") -> OnlineSafetyPath:
+    """``scripts/run_online_safety_tpu.py --filter-model gp --filter-n 8``
+    (gust −1.5, v_free 1.5, 110 steps): the online GP-MPC controller
+    (condensed, state bounds kept: n = 60, m = 200, 50 iterations in one
+    chunk, scaling 2, one SCP iteration with the GP tape and the
+    tightening; a GP per lane) tracking 65-step cubic references, on the
+    drag + wind + downdraft plant, behind the funnel filter (N = 8) whose
+    model is the nominal one plus the lane's own gated GP mean, the
+    downdraft pad faded by the same variance gate (``:136-153``). The filter
+    reads every lane's GP through one lanes-first step function a cycle."""
+    dev = resolve_device(device)
+    gust, steps = ONLINE_SAFETY_GUST, ONLINE_SAFETY_STEPS
+    p = Rocket3DoFParams(device=dev)
+    p_true = p.replace(rho=1.0, C_D=1.0, A_ref=0.1)
+    wind = torch.zeros(7, device=dev)
+    wind[5], wind[6] = 0.4, 0.25
+    F = lambda x, u: r3.step(p, x, u, DT)
+    plant = lambda x, u: (r3.step(p_true, x, u, DT)
+                          + DT * (wind + _vertical(gust_accel(x, gust))))
+    base = RTIConfig(N=N, dt=DT, accept_pri_tol=1e-2, condensed=True,
+                     admm=ADMMConfig(max_iter=ADMM_ITERS, check_interval=ADMM_ITERS, scaling=2,
+                                     polish=False, adaptive_rho=False, infeas_certs=False,
+                                     use_pallas="auto"),
+                     device=dev)
+    ocfg = OnlineGPMPCConfig(mpc=GPMPCConfig(base=base, scp_iterations=1, tighten=True,
+                                             rollout_gp_tape=True))
+    xT = torch.zeros(7, device=dev)
+    xT[0] = 2.0
+    inner = make_online_gp_mpc_controller(
+        F, ocfg, xT, lambda x0: cubic_descent_reference(x0, xT, 65, DT), steps, steps)
+
+    def sf_from_inner(st):
+        gp = st.gp
+        prior_v = torch.exp(gp.gp.kernels.log_variance)[..., 0].clamp_min(1e-12)
+
+        def sf(x, u):
+            m, v = gp.predict_gated(x, u)
+            w_vert = (1.0 - v[:, 0] / prior_v).clamp(0.0, 1.0)
+            d = gp.lift_residual(m, 7) + _vertical((1.0 - w_vert) * gust_accel(x, gust))
+            return F(x, u) + DT * d
+
+        return sf
+
+    backup, fcfg = _braking_filter(p, ONLINE_SAFETY_FILTER_N, dev)
+    pad = lambda x, u: F(x, u) + DT * _vertical(gust_accel(x, gust))
+    ctrl = make_filtered_controller(*inner, pad, backup, DescentFunnelSet(0.6, 1.5), fcfg,
+                                    step_fn_from_inner=sf_from_inner)
+    return OnlineSafetyPath(inner=inner, controller=ctrl, filter_model=sf_from_inner, plant=plant,
+                            sim=SimulationConfig(max_steps=steps, altitude_mean=15.0,
+                                                 altitude_std=1.5))
+
+
+def fly_online_safety(op: OnlineSafetyPath, x0s: torch.Tensor, episodes: int = 3) -> Dict:
+    """Every lane flies ``episodes`` landings from the same initial state
+    (``run_online_safety_tpu.py:166-230``), its GP carried between them by
+    ``carry_gp_between_episodes`` and everything else reset; a landed lane
+    is frozen but its controller keeps stepping. Returns the script's result
+    (per episode: success, landed, the lanes whose state is not finite,
+    interventions, touchdown speeds, model error, GP points; the McNemar z
+    of each episode's success against the first; the gate ``:291-293``) and
+    each episode's seconds."""
+    finit, fstep = op.controller
+    cinit = op.inner[0]
+    steps = op.sim.max_steps
+    per_ep, succ_lanes, secs = [], [], []
+    fs = None
+    for e in range(episodes):
+        t0 = time.time()
+        if fs is None:
+            fs = finit(x0s)
+        else:
+            fs = (carry_gp_between_episodes(cinit, fs[0], x0s),) + tuple(
+                torch.zeros_like(s) for s in fs[1:])
+        x = x0s
+        for k in range(steps):
+            u, fs = fstep(fs, x, k)
+            x_next = op.plant(x, u)
+            x = torch.where((x[:, 1] <= 0.1)[:, None], x, x_next)
+        landed = x[:, 1] <= 0.1
+        speed = torch.linalg.vector_norm(x[:, 4:7], dim=1)
+        success = landed & (speed <= 2.0)
+        info = online_controller_info(fs[0])
+        spd = speed[landed].double().cpu()
+        ints = fs[1].double().cpu()
+        per_ep.append({
+            "episode": e + 1,
+            "success_rate": float(success.float().mean()),
+            "landed_rate": float(landed.float().mean()),
+            # a lane that burned its fuel hovering or climbing (mass -> 0)
+            "nonfinite_lanes": int((~torch.isfinite(x).all(-1)).sum()),
+            "interventions_mean": float(ints.mean()),
+            "intervention_rate": float((ints > 0).double().mean()),
+            "touchdown_speed_mean": float(spd.mean()) if spd.numel() else float("nan"),
+            "touchdown_speed_p95": float(spd.quantile(0.95)) if spd.numel() else float("nan"),
+            # over every lane, as the script's nan-padded mean counts it
+            "overspeed_rate": float((landed & (speed > 2.0)).float().mean()),
+            "model_err_mean": float(info["err_hist"].double().nanmean(1).nanmean()),
+            "gp_points_mean": float(info["gp_points"].float().mean()),
+        })
+        succ_lanes.append(success.cpu())
+        secs.append(time.time() - t0)
+    mcnemar = []
+    for e in range(1, episodes):
+        b = float((succ_lanes[0] & ~succ_lanes[e]).sum())  # degraded
+        c = float((~succ_lanes[0] & succ_lanes[e]).sum())  # improved
+        mcnemar.append((b - c) / max((b + c) ** 0.5, 1.0))
+    ints = [r["interventions_mean"] for r in per_ep]
+    out = {
+        "batch": x0s.shape[0], "episodes": episodes, "steps": steps,
+        "per_episode": per_ep, "interventions_by_episode": ints,
+        "interventions_decrease": ints[-1] < ints[0],
+        "model_err_by_episode": [r["model_err_mean"] for r in per_ep],
+        "success_by_episode": [r["success_rate"] for r in per_ep],
+        "success_mcnemar_z_vs_ep1": mcnemar,
+        "success_non_decreasing_within_ci": all(z < 2.0 for z in mcnemar),
+        "final_success_rate": per_ep[-1]["success_rate"],
+        "seconds_by_episode": secs,
+    }
+    out["gate"] = (out["interventions_decrease"] and out["final_success_rate"] > 0.95
+                   and out["success_non_decreasing_within_ci"])
+    return out

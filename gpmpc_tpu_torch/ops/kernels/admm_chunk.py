@@ -49,7 +49,8 @@ applies through its diagonal wherever the segment stands among the rows.
   it and the chip smoke test holds the kernel against it.
 - :func:`variant`, :func:`cluster_size` — which variant a shape and lane
   count launch, and over how many CTAs a lane.
-- ``LAUNCHES`` — incremented once per kernel launch, and nowhere else.
+- ``LAUNCHES`` — incremented once per kernel launch, and nowhere else;
+  ``LAUNCHES_BY_SHAPE`` counts the same launches by (n, m).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from . import _build
 
 KERNEL = "admm_chunk"
 LAUNCHES = 0
+LAUNCHES_BY_SHAPE: dict = {}
 VARIANTS = {3: "cluster", 2: "register", 1: "shared", 0: "global"}
 ROWS_THREADS = 256  # threads a CTA of the shared and cluster variants (kRowsThreads)
 
@@ -320,6 +322,7 @@ def _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
             f"diagonal rows {d0}..{d0 + mg}, variant {variant(n, m, mg, B, A.device)}, "
             f"{cluster_size(n, m, mg, B, A.device)} CTAs a lane)")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(n, m)] = LAUNCHES_BY_SHAPE.get((n, m), 0) + 1
     return xo, zo, yo
 
 

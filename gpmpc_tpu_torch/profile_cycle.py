@@ -36,6 +36,10 @@ Runs one of the cycles of ``gpmpc_tpu_torch/main_path.py``:
   lanes of the campaign's fleet from their initial states, against the safe
   set that two rounds of the campaign grew (the seed and 512 trajectories,
   read through the round's KNN bucket), and the wall time of those rounds;
+- ``--path safety``: the rescue campaign's filtered cycle (the condensed RTI
+  controller with its state bounds, the funnel filter over emergency
+  braking with the downdraft-padded model, + the gusted plant step), 1024
+  lanes of the campaign's fleet;
 
 warms it up and reports:
 
@@ -43,7 +47,8 @@ warms it up and reports:
 - a ``torch.profiler`` trace of a few cycles: for each stage span of the
   cycle (``gpmpc.*``, ``rti.*``, ``admm.*``, ``online.observe`` and
   ``online.refit`` on the online paths, ``fleet.cycle`` on the fleet
-  paths, ``lmpc.*`` on the LMPC paths) its host time, and for the
+  paths, ``lmpc.*`` on the LMPC paths, ``safety.check``, ``safety.grad``,
+  ``safety.qp`` and ``safety.select`` inside the filter on the safety path) its host time, and for the
   whole window the device's busy share (sum of kernel times over wall time),
   the kernel launches per cycle and the kernels that take the most device
   time.
@@ -69,24 +74,25 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from .learning import explore_gp_3dof, run_batched_learning
 from .learning.batched_learner import _gated_fns, _tune_lane, fleet_cycle, fleet_reference
 from .lmpc import lmpc_init, lmpc_solve
-from .main_path import (BATCH, DT, FLEET_LANES, LMPC_LANES, N, calibration_cycle,
+from .experiments import sample_initial_conditions
+from .main_path import (BATCH, DT, FLEET_LANES, LMPC_LANES, N, SAFETY_LANES, calibration_cycle,
                         calibration_path, calibration_x0, fleet_learning_path,
                         fleet_learning_x0, fleet_x0, fly_lmpc_fleet, lmpc_fleet_path,
                         lmpc_fleet_x0,
                         main_path, online_flight_path, online_path, pretrain_path, rti_path,
-                        sixdof_fleet_x0, sixdof_flight_x0, sixdof_path, sixdof_pretrain_path,
-                        with_gust_variance)
+                        filtered_controller, safety_rescue_path, sixdof_fleet_x0,
+                        sixdof_flight_x0, sixdof_path, sixdof_pretrain_path, with_gust_variance)
 from .mpc import (RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti_config_6dof,
                   rti_init, rti_step)
 from .reference import cubic_descent_reference
 from .terminal import knn_bucket, trim
 
-SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.", "fleet.", "lmpc.")
+SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.", "fleet.", "lmpc.", "safety.")
 PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4, "calibration": BATCH,
          "sixdof": BATCH, "pretrain6dof": 4, "online": BATCH,
          "online6dof": BATCH, "fleet": FLEET_LANES["3dof"],
          "fleet6dof": FLEET_LANES["6dof"], "lmpc": LMPC_LANES,
-         "lmpc6dof": LMPC_LANES}  # path → default lanes
+         "lmpc6dof": LMPC_LANES, "safety": SAFETY_LANES}  # path → default lanes
 
 
 def _card() -> str:
@@ -150,6 +156,12 @@ def _cycle_of(path: str, batch: int, dev):
             xs = sixdof_flight_x0(torch.Generator(device=dev).manual_seed(7), batch, dev)
         cinit, cstep = op.controller()
         F_true = op.F_true
+    elif path == "safety":
+        sp = safety_rescue_path(dev)
+        xs = sample_initial_conditions(torch.Generator(device=dev).manual_seed(0), sp.sim, batch,
+                                       device=dev)
+        cinit, cstep = filtered_controller(sp)
+        F_true = sp.plant
     else:
         # the controller collect_residuals_3dof (or _6dof) flies, on the dispersed plant
         if path == "pretrain6dof":

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from gpmpc_tpu_torch.chunk_bench import BOUNDED_SEGS, FLEET6_SEGS, LMPC_SEGS, chunk_inputs
+from gpmpc_tpu_torch.chunk_bench import (BOUNDED_SEGS, FLEET6_SEGS, LMPC_SEGS, chunk_inputs,
+                                         filter_lanes)
 from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 from gpmpc_tpu_torch.ops.qp import QPData, ruiz_equilibrate
 from gpmpc_tpu_torch.ops.qp.admm import _factor, _rho_vec
@@ -471,6 +472,44 @@ def test_lmpc_and_hull_shapes_at_real_data(cuda_device, kind, iters):
     want = {"lmpc": "shared", "hull": "register"}[kind]
     assert K.variant(n, m, 45 if kind == "lmpc" else 0, B) == want
     _assert_within_witness(args, segs, iters)
+
+
+@pytest.mark.parametrize("iters", [1, 25])
+@pytest.mark.parametrize("B", [512, 1024])
+def test_register_variant_at_the_filter_shape(cuda_device, B, iters):
+    """The safety filter's intervention QP at its real data and the
+    campaigns' widths (n = 4, m = 6, every row dense): the register
+    variant, against the plain chunk."""
+    args = chunk_inputs("filter", torch.Generator(device="cuda").manual_seed(0), lanes=B)
+    assert args[1].shape == (B, 6, 4)
+    assert K.variant(4, 6, 0, B) == "register"
+    _assert_matches_plain(args, None, iters)
+
+
+def test_safety_filter_on_the_card_matches_the_cpu(cuda_device):
+    """``filter_control`` of the rescue campaign's filter on 256 lanes under
+    the downdraft: the card (the chunk kernel) and the CPU (the plain chunk)
+    intervene on the same lanes outside 1e-4·α of the threshold, and their
+    controls agree within 1e-3 there; every filter QP launches the kernel
+    (4 chunks × 2 SCP iterations)."""
+    from gpmpc_tpu_torch.main_path import safety_rescue_path
+    from gpmpc_tpu_torch.safety import filter_control
+
+    x, u = filter_lanes(256, torch.Generator(device="cuda").manual_seed(1), cuda_device)
+    out, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        sp = safety_rescue_path(dev)
+        before = K.LAUNCHES
+        out[dev] = filter_control(sp.F_filter, sp.backup, sp.invariant, sp.filter_config,
+                                  x.to(dev), u.to(dev))
+        launches[dev] = K.LAUNCHES - before
+    gpu, cpu = out["cuda"], out["cpu"]
+    alpha = sp.invariant.alpha
+    clear = ((cpu.lyapunov_value - alpha).abs() > 1e-4 * alpha)
+    assert int((~cpu.safe).sum()) > 20
+    assert torch.equal(gpu.intervened.cpu()[clear], cpu.intervened[clear])
+    torch.testing.assert_close(gpu.u.cpu()[clear], cpu.u[clear], rtol=0, atol=1e-3)
+    assert launches == {"cuda": 8, "cpu": 0}
 
 
 def _feasible_qps(B, n=16, m=30, n_eq=3, seed=0):

@@ -40,6 +40,11 @@ def test_import_with_jax_blocked():
         "import gpmpc_tpu_torch.terminal.safe_set, gpmpc_tpu_torch.terminal.local_safe_set\n"
         "import gpmpc_tpu_torch.terminal.convex_hull, gpmpc_tpu_torch.terminal.q_function\n"
         "import gpmpc_tpu_torch.lmpc.lmpc\n"
+        "import gpmpc_tpu_torch.safety, gpmpc_tpu_torch.safety.safety_filter\n"
+        "import gpmpc_tpu_torch.safety.backup_controller, gpmpc_tpu_torch.safety.invariant_sets\n"
+        "import gpmpc_tpu_torch.safety.tube_mpc, gpmpc_tpu_torch.mpc.nominal\n"
+        "import gpmpc_tpu_torch.mpc.constraints, gpmpc_tpu_torch.mpc.uncertainty_prop\n"
+        "import gpmpc_tpu_torch.ops.linalg, gpmpc_tpu_torch.learning.online_learner\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
