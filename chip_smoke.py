@@ -14,8 +14,9 @@ entry points a user calls, and checks the hand-written kernel on the way:
    and at the calibration path's 50 iterations, the 6-DoF QP with cone
    facets (380 rows), the golden shape at 4 and 512 lanes, and Path D's and
    the 6-DoF online campaign's condensed QPs at 30 and 50 iterations, Path F's
-   two QPs, Path G's hull QP and hull projection QP, and the safety filter's
-   intervention QP at 1024 and 512 lanes — with the
+   two QPs, Path G's hull QP and hull projection QP, the safety filter's
+   intervention QP at 1024 and 512 lanes, the experiment suite's two MPC QPs
+   at 256 and 64 lanes and the SCVX library's subproblem at 704 — with the
    variant each launches, its CTAs a lane, its registers and spills, and its
    time beside its bound, the plain version and a cuBLAS chain;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
@@ -58,14 +59,15 @@ entry points a user calls, and checks the hand-written kernel on the way:
    those GPs, 8 lanes' first 10 cycles and their whole round held against
    the CPU, beside the same run through the plain chunk on the card;
 12. Path G, fleet LMPC (``scripts/run_fleet_lmpc_tpu.py``): the 3-DoF
-   campaign at the artifact's widths (256 lanes, 5 rounds of ≤ 150 steps,
+   campaign at the artifact's widths (256 lanes, 3 of its 5 rounds of ≤ 150 steps,
    the interior-point solver, one safe set of 262,144 rows shared by every
    lane), judged by its floors and printed beside the JAX package's TPU
    artifact; 10 teacher-forced solves of 8 lanes on its final set held
    against the CPU; the hull projection of every lane (the ADMM solver,
    the register variant); one round on the ADMM arm (800 iterations in 32
    chunks of 25 on the 62-column hull QP: the shared variant); the 6-DoF
-   campaign (its seed an RTI-flown landing through the kernel; 3 rounds);
+   campaign (its seed an RTI-flown landing through the kernel; 2 of its 5
+   rounds: the cuts that keep the script under ~900 s, see LMPC_ROUNDS);
 13. the 3-DoF GP-MPC campaign of ``scripts/run_campaign_tpu.py --controller
    gp_mpc --rt --elide`` at the artifact's 4096 lanes with its own GP on the
    drag + wind plant, reported beside the artifact;
@@ -77,10 +79,28 @@ entry points a user calls, and checks the hand-written kernel on the way:
    (``--controller rti --safety-filter --gust -2.0``, 1024 lanes, the filter
    and the unfiltered arm), the GP-MPC campaign behind the velocity-ellipsoid
    filter (1024 lanes, phase 13's GP) and the online GP-MPC learning across
-   episodes behind the GP-read funnel filter (512 lanes), each on the
+   episodes behind the GP-read funnel filter (512 lanes, 3 of the
+   artifact's 6 episodes: ONLINE_SAFETY_EPISODES), each on the
    initial states its artifact flew (``tests/fixtures/safety_x0.npz``). The
    filter's QP is the kernel's ``filter`` shape (n = 4, m = 6), eight
-   launches a cycle.
+   launches a cycle;
+15. the experiment suite (``phase_experiments``): ``scripts/run_experiments.py
+   --standard`` on the script's own initial states
+   (``tests/fixtures/experiments_x0.npz``, 256 runs): the GP pretrained on the
+   plant with the unmodelled downdraft, GP-MPC (the condensed QP at N = 15,
+   the shared variant), the GP-free RTI ablation (the sparse form, the
+   cluster variant), the four baselines, the dispersion sweep (low, medium,
+   high, both MPC arms on 64 lanes), the exports (each parsed) and the
+   z-test, judged by the script's own rule (GP-MPC ≥ 0.9 and ≥ RTI) and
+   printed beside the suite's record (a JAX run on a CPU); 10 teacher-forced
+   GP-MPC cycles and 40 steps of each baseline, card against CPU; the SCVX
+   oracle case of ``tests/test_experiments.py`` against the sigma-SCP
+   oracle (NumPy float64 on the host); the SCVX trajectory library of 64
+   states x 11 durations in one batch (n = 407, m = 694: the cluster
+   variant) with its nearest and best-within-radius queries, and 4 of its
+   lanes card against CPU.
+
+Every phase prints its wall seconds (``[time]``).
 
 Everything worth reporting is printed before the last two lines: a JSON
 object with one entry per kernel, the card's name and power limit, and last
@@ -120,17 +140,22 @@ ONLINE_FLOORS = {"3dof": (0.98, 2.0), "6dof": (0.95, 2.0)}
 # moves its own u0 by ~3e-3 under such a change, on the CPU and in the JAX
 # package alike (tests/test_torch_fleet.py); the 3-DoF one by ~2e-4
 FLEET_U0_ATOL, FLEET_ERR_RTOL, FLEET_WITNESS_X = 1e-3, 1e-2, 2.0
-# Path G (fleet LMPC): rounds flown (the 6-DoF campaign flies 3 of the
-# artifact's 5, which keeps this script under ~900 s: with 5 it ran 935 s on
-# an H100 at 700 W), final-success floors (the artifacts read 1.0), and card
-# vs CPU on u0: 5e-3 or twice the CPU's own spread under one-ulp changes of
-# the state, read in the same run
-LMPC_ROUNDS = {"3dof": 5, "6dof": 3}
+# Path G (fleet LMPC): rounds flown, cut to keep this script under ~900 s on
+# an H100 at 700 W. The artifacts fly 5 rounds each; with 5 and 5 the script
+# ran 935 s before the experiment suite came in, with 5 and 3 it ran ~850 s,
+# and the suite's phase adds ~150 s, so the 6-DoF campaign flies 2 rounds
+# and the 3-DoF one 3 (the cut order: first the 6-DoF, then the 3-DoF).
+# Then the final-success floors (the artifacts read 1.0), and card vs CPU on
+# u0: 5e-3 or twice the CPU's own spread under one-ulp changes of the state,
+# read in the same run
+LMPC_ROUNDS = {"3dof": 3, "6dof": 2}
 LMPC_FLOORS = {"3dof": 0.98, "6dof": 0.97}
 LMPC_U0_ATOL, LMPC_WITNESS_X = 5e-3, 2.0
-# the safety campaigns' episodes of online learning: the artifact's 6 (the
-# first cut if the script outgrows ~900 s is to the script's default of 3)
-ONLINE_SAFETY_EPISODES = 6
+# the safety campaigns' episodes of online learning: the script's default of
+# 3, not the artifact's 6. Cut because the script outgrew ~900 s: with 6 it
+# ran 1,163 s on an H100 at 700 W whose host was slow (phase_safety 269.3 s;
+# 6 episodes ran 137 s on a quicker host), and ~906 s on a quicker one
+ONLINE_SAFETY_EPISODES = 3
 # card vs CPU on the filter: u within 1e-3 or twice the CPU's own spread
 # under one-ulp changes of the state (the witness rule)
 SAFETY_U_ATOL, SAFETY_WITNESS_X = 1e-3, 2.0
@@ -219,7 +244,13 @@ def phase_kernels():
     # bounded shape at the rescue campaign's 1024 lanes. filter and filter512
     # are the safety filter's intervention QP (n = 4, m = 6 dense rows) at
     # the rescue and GP-MPC campaigns' 1024 and the online campaign's 512
-    # lanes. On lmpc and hull f32
+    # lanes. suite_gp and suite_rti are the experiment suite's two MPC QPs at
+    # its 256 runs (the GP-MPC arm's condensed QP at N = 15 with every state
+    # bound kept, n = 45, m = 105 blt + 45 diag: LMPC_SEGS; the RTI ablation's
+    # sparse form, n = 157, m = 269 dense), and at the dispersion sweep's 64
+    # lanes; scvx is the SCVX library's first subproblem (704 lanes: 64
+    # states x 11 durations, n = 407, m = 694, every row dense, the largest
+    # lane the kernel takes). On lmpc and hull f32
     # alone moves the iterates by tens of times the tolerance (an
     # ill-conditioned M⁻¹ and near-duplicate vertices; WITNESS_SHAPES).
     shapes = (("main", "main", 0, diag, ITERS, True), ("dense", "dense", 0, None, ITERS, True),
@@ -242,7 +273,12 @@ def phase_kernels():
               ("sparse6dof_b5", "sparse6dof", 5, None, RTI_CHUNK, False),
               ("bounded1024", "bounded", 1024, BOUNDED_SEGS, RTI_CHUNK, True),
               ("filter", "filter", 1024, None, RTI_CHUNK, True),
-              ("filter512", "filter", BATCH, None, RTI_CHUNK, True))
+              ("filter512", "filter", BATCH, None, RTI_CHUNK, True),
+              ("suite_gp", "suite_gp", 256, LMPC_SEGS, RTI_CHUNK, True),
+              ("suite_rti", "suite_rti", 256, None, RTI_CHUNK, True),
+              ("suite_gp64", "suite_gp", 64, LMPC_SEGS, RTI_CHUNK, True),
+              ("suite_rti64", "suite_rti", 64, None, RTI_CHUNK, True),
+              ("scvx", "scvx", 704, None, RTI_CHUNK, True))
     for kind, inputs, lanes, segs, iters, timed in shapes:
         args = chunk_inputs(inputs, gen, golden, lanes)
         B, m, n = args[1].shape
@@ -1554,21 +1590,327 @@ def phase_safety(gp_fns_, dev=torch.device("cuda")):
     return out
 
 
+# the experiment suite's record: scripts/run_experiments.py --standard, a JAX
+# run on a CPU (results/20260820_150709/run.jsonl: TFRT_CPU_0), not the port's
+SUITE_RECORD = os.path.join("results", "20260820_150709")
+SUITE_RECORD_LABEL = "JAX package, CPU, 2026-08-20"
+# card vs CPU on the suite's GP-MPC controller: u0 within 1e-3 or twice the
+# CPU's own spread under one-ulp changes of the state (the witness rule); the
+# baselines are smooth feedback laws, held at 1e-4 over 40 closed-loop steps
+SUITE_U0_ATOL, SUITE_WITNESS_X, BASELINE_ATOL = 1e-3, 2.0, 1e-4
+# card vs CPU on SCVX: 1e-3 or twice the CPU's own spread under one-ulp
+# changes of the initial state, read in the same run
+SCVX_WITNESS_X = 2.0
+# the SCVX oracle case's asserts (tests/test_experiments.py:273-306)
+SCVX_TF_TOL, SCVX_FUEL_RTOL = 0.5, 0.05
+
+
+def _suite_record():
+    import csv
+
+    with open(os.path.join(ROOT, SUITE_RECORD, "metrics.csv")) as f:
+        rows = {r["name"]: r for r in csv.DictReader(f)}
+    with open(os.path.join(ROOT, SUITE_RECORD, "gp_vs_rti_z_test.json")) as f:
+        z = json.load(f)
+    with open(os.path.join(ROOT, SUITE_RECORD, "run.jsonl")) as f:
+        wall = {}
+        for line in f:
+            e = json.loads(line)
+            if e["event"] in ("pretrain", "campaign"):
+                wall[e.get("controller", "pretrain")] = e["wall_s"]
+    return rows, z, wall
+
+
+def _check_exports(files, n_metrics):
+    """Every export exists and parses: CSV rows, JSON, a LaTeX tabular, the
+    prose, the z-test JSON and the JSONL log."""
+    import csv
+
+    with open(files["metrics.csv"]) as f:
+        rows = list(csv.DictReader(f))
+    with open(files["metrics.json"]) as f:
+        js = json.load(f)
+    with open(files["metrics.tex"]) as f:
+        tex = f.read()
+    with open(files["report.txt"]) as f:
+        prose = f.read().splitlines()
+    with open(files["gp_vs_rti_z_test.json"]) as f:
+        z = json.load(f)
+    with open(files["run.jsonl"]) as f:
+        events = [json.loads(line)["event"] for line in f]
+    ok = (len(rows) == n_metrics and len(js) == n_metrics and tex.startswith(r"\begin{tabular}")
+          and tex.rstrip().endswith(r"\end{tabular}") and len(prose) == n_metrics
+          and {"z", "p_value"} <= set(z) and events[0] == "start" and events[-1] == "z_test")
+    if not ok:
+        raise RuntimeError(f"the suite's exports do not parse as written: {sorted(files)}")
+    return dict(csv_rows=len(rows), json_entries=len(js), latex_lines=len(tex.splitlines()),
+                prose_lines=len(prose), log_events=len(events))
+
+
+def _suite_vs_cpu(run, x0s, dev, lanes=8, cycles=10, own_r=4):
+    """The suite's GP-MPC controller on ``lanes`` lanes, teacher forced: each
+    cycle the CPU steps the card's controller state at the card's state with
+    the card's GP, and again under ``own_r`` relative 1e-7 changes of the
+    state. Returns the per-cycle max |Δu0| card−CPU and the CPU's own spread."""
+    from gpmpc_tpu_torch.main_path import experiment_suite_path, gp_fns, suite_controllers
+
+    cpu = torch.device("cpu")
+    sg, sc = experiment_suite_path(device=dev), experiment_suite_path(device=cpu)
+    cinit, cstep = run["controllers"]["gp_mpc"]
+    _, cstep_c = suite_controllers(sc, *gp_fns(_to(run["gp"], cpu)))["gp_mpc"]
+    gen = torch.Generator().manual_seed(0)
+    x = x0s[:lanes]
+    st = cinit(x)
+    du, spread = [], []
+    for k in range(cycles):
+        stc, xc = _to(st, cpu), x.cpu()
+        u_g, st = cstep(st, x, k)
+        u_c, _ = cstep_c(stc, xc, k)
+        xo = xc.repeat(own_r, 1) * (1 + 1e-7 * torch.randn(own_r * lanes, 7, generator=gen))
+        u_o, _ = cstep_c(_repeat_lanes(stc, own_r), xo, k)
+        du.append((u_g.cpu() - u_c).abs().max().item())
+        spread.append((u_o - u_c.repeat(own_r, 1)).abs().max().item())
+        x = sg.plant(x, u_g)
+    return du, spread
+
+
+def _baselines_vs_cpu(x0s, dev, lanes=8, steps=40):
+    """Each baseline's closed loop, ``steps`` steps of ``lanes`` lanes on the
+    suite's plant, card against CPU: the largest |ΔX| and |ΔU|."""
+    from gpmpc_tpu_torch.experiments import SimulationConfig, create_baseline_controllers, run_campaign
+    from gpmpc_tpu_torch.main_path import experiment_suite_path
+
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        sp = experiment_suite_path(device=d)
+        ctrls = create_baseline_controllers(sp.params, sp.x_target, sp.sim.dt)
+        runs.append({n: run_campaign(*c, sp.plant, x0s[:lanes].to(d),
+                                     SimulationConfig(max_steps=steps), store_trajectories=True)
+                     for n, c in ctrls.items()})
+    return {n: max((g["X"].cpu() - c["X"]).abs().max().item(),
+                   (g["U"].cpu() - c["U"]).abs().max().item())
+            for (n, g), c in zip(runs[0].items(), runs[1].values())}
+
+
+def _scvx_vs_cpu(lp, sol, x0s, dev, lanes=4, own_r=4):
+    """SCVX at the library's chosen time steps, ``lanes`` lanes on the card
+    and on the CPU, and on the CPU under ``own_r`` relative 1e-7 changes of
+    the initial states: the largest |ΔU|, |ΔX|, |Δfuel| card−CPU, the CPU's
+    own spread of each, and whether ``converged`` agreed."""
+    from gpmpc_tpu_torch.main_path import scvx_library_path
+    from gpmpc_tpu_torch.reference import scvx_solve
+
+    cpu = torch.device("cpu")
+    lc = scvx_library_path(cpu)
+    cfg_c = lp.config.replace(device=cpu)
+    x0, dts = x0s[:lanes], sol.dt[:lanes]
+    g = scvx_solve(lp.step_dt, lp.config, x0, lp.x_target, dts)
+    c = scvx_solve(lc.step_dt, cfg_c, x0.cpu(), lc.x_target, dts.cpu())
+    gen = torch.Generator().manual_seed(0)
+    xo = x0.cpu().repeat(own_r, 1) * (1 + 1e-7 * torch.randn(own_r * lanes, 7, generator=gen))
+    o = scvx_solve(lc.step_dt, cfg_c, xo, lc.x_target, dts.cpu().repeat(own_r))
+    diff = lambda a, b: (a - b).abs().max().item()
+    d = {k: diff(getattr(g, k).cpu(), getattr(c, k)) for k in ("U", "X", "fuel_used")}
+    w = {k: diff(getattr(o, k), getattr(c, k).repeat(own_r, *([1] * (getattr(c, k).dim() - 1))))
+         for k in ("U", "X", "fuel_used")}
+    return d, w, bool(torch.equal(g.converged.cpu(), c.converged))
+
+
+def phase_experiments(dev=torch.device("cuda")):
+    """The experiment suite (scripts/run_experiments.py --standard, 256 runs)
+    and the SCVX trajectory library, each judged by its own rule."""
+    import importlib.util
+
+    from gpmpc_tpu_torch.main_path import scvx_library_path
+
+    # the SCVX oracle (NumPy float64, ~16-23 s on the host) runs in a process
+    # of its own while the card flies the suite; it is waited for below
+    lp = scvx_library_path(dev)
+    oracle = _start_sigma_oracle(lp)
+    try:
+        return _experiments(dev, lp, oracle, importlib.util.find_spec("matplotlib") is not None)
+    finally:
+        if oracle.poll() is None:
+            oracle.kill()
+        oracle.wait()
+
+
+def _start_sigma_oracle(lp):
+    """``tests/_oracles.py::sigma_scp`` on the oracle case, in a child
+    process (two BLAS threads) that prints its (sigma*, fuel*) as JSON. The
+    module is loaded from its path: a ``tests`` package installed on the
+    machine would shadow the checkout's ``tests/`` directory."""
+    from gpmpc_tpu_torch.main_path import SCVX_ORACLE_X0
+
+    code = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "from _oracles import sigma_scp\n"
+        f"xT = np.array({lp.x_target.tolist()!r})\n"
+        f"_, _, s, f = sigma_scp(np.array({list(SCVX_ORACLE_X0)!r}), xT, "
+        f"alpha_mdot={float(lp.params.alpha)!r}, m_dry={float(lp.params.m_dry)!r})\n"
+        "print(json.dumps([float(s), float(f)]))\n")
+    env = dict(os.environ, OMP_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2", MKL_NUM_THREADS="2")
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _experiments(dev, lp, oracle, has_mpl):
+    import shutil
+    import tempfile
+
+    from gpmpc_tpu_torch.main_path import (SCVX_LIBRARY_STATES, SUITE_SEED, experiment_suite_path,
+                                           experiments_x0, fly_experiments, fly_scvx_library,
+                                           scvx_oracle_case)
+
+    out = {}
+    sp = experiment_suite_path(device=dev)
+    x0s = experiments_x0(sp.n_runs, dev)
+    log(f"[experiments] the summary figure: matplotlib "
+        f"{'imports, so it is drawn' if has_mpl else 'is not installed, so it is not drawn'}")
+    tmp = tempfile.mkdtemp(prefix="suite_")
+    try:
+        _reset_launches()
+        t0 = time.time()
+        run = fly_experiments(sp, x0s, torch.Generator(device=dev).manual_seed(SUITE_SEED + 42),
+                              tmp)
+        torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        launches, by_shape = _launches()
+        exports = _check_exports(run["files"], len(run["metrics"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec, rec_z, rec_wall = _suite_record()
+    log(f"[experiments] suite (scripts/run_experiments.py --standard --seed 0), {sp.n_runs} runs "
+        f"on the script's initial states, {wall:.1f} s; admm_chunk launches {launches}, by "
+        f"shape {by_shape}; exports {exports}")
+    for m in run["metrics"]:
+        r = rec.get(m.name, {})
+        log(f"[experiments] {m.name}: success {m.success_rate:.4f} [{m.ci_low:.4f}, "
+            f"{m.ci_high:.4f}], fuel {m.fuel_mean:.4f}, touchdown {m.landing_speed_mean:.4f} m/s, "
+            f"error {m.landing_error_mean:.4f} m, {run['seconds'][m.name]:.2f} s | "
+            f"{SUITE_RECORD_LABEL}: success {r.get('success_rate')} [{r.get('ci_low')}, "
+            f"{r.get('ci_high')}], fuel {r.get('fuel_mean')}, touchdown "
+            f"{r.get('landing_speed_mean')}, error {r.get('landing_error_mean')}, "
+            f"{rec_wall.get(m.name, '-')} s")
+    log(f"[experiments] pretrain {run['seconds']['pretrain']:.2f} s ({SUITE_RECORD_LABEL}: "
+        f"{rec_wall['pretrain']} s); z-test {json.dumps(run['z_test'])} | {SUITE_RECORD_LABEL}: "
+        f"{json.dumps(rec_z)}")
+    if launches <= 0 or by_shape.get("n45_m150", 0) <= 0 or by_shape.get("n157_m269", 0) <= 0:
+        raise RuntimeError("the suite's MPC arms did not go through the kernel at both shapes")
+    if not run["passed"]:
+        raise RuntimeError(f"the suite misses the script's rule: GP-MPC "
+                           f"{run['z_test']['gp_mpc_success']:.4f} (≥ 0.9) and ≥ RTI "
+                           f"{run['z_test']['rti_mpc_success']:.4f}")
+    out["suite"] = dict(seconds=run["seconds"], wall_s=wall, z_test=run["z_test"],
+                        launches=launches, launches_by_shape=by_shape, exports=exports,
+                        figure=run["figure"],
+                        metrics=[dict(m.__dict__) for m in run["metrics"]])
+
+    du, spread = _suite_vs_cpu(run, x0s, dev)
+    lim = max(SUITE_U0_ATOL, SUITE_WITNESS_X * max(spread))
+    fmt = lambda xs: [f"{d:.2e}" for d in xs]
+    log(f"[experiments] card vs CPU, 10 teacher-forced GP-MPC cycles, 8 lanes: max|du0| by "
+        f"cycle {fmt(du)} (limit {lim:.2e}); the CPU under a 1e-7 relative change of the state "
+        f"(max of 4) {fmt(spread)}")
+    if max(du) > lim:
+        raise RuntimeError("the card's suite GP-MPC cycles disagree with the CPU reference")
+    bl = _baselines_vs_cpu(x0s, dev)
+    log(f"[experiments] card vs CPU, 40 closed-loop steps of each baseline, 8 lanes: max "
+        f"|dX|, |dU| {json.dumps({k: f'{v:.2e}' for k, v in bl.items()})} (atol {BASELINE_ATOL})")
+    if max(bl.values()) > BASELINE_ATOL:
+        raise RuntimeError("a baseline's closed loop on the card disagrees with the CPU")
+    out["card_vs_cpu"] = dict(du0=du, cpu_own=spread, limit=lim, baselines=bl)
+
+    # the SCVX oracle case, judged by tests/test_experiments.py's own asserts
+    t0 = time.time()
+    sol = scvx_oracle_case(lp)
+    torch.cuda.synchronize(dev)
+    t_solve = time.time() - t0
+    t0 = time.time()
+    stdout, stderr = oracle.communicate(timeout=600)
+    if oracle.returncode != 0:
+        raise RuntimeError(f"the sigma-SCP oracle failed: {stderr[-2000:]}")
+    sigma_star, fuel_star = json.loads(stdout.strip().splitlines()[-1])
+    t_oracle = time.time() - t0
+    t_f, fuel = float(sol.dt) * lp.config.N, float(sol.fuel_used)
+    log(f"[experiments] SCVX oracle case (N = 40, 11 durations): converged {bool(sol.converged)}, "
+        f"t_f {t_f:.3f} s vs the sigma-SCP oracle's {sigma_star:.3f} s (tol {SCVX_TF_TOL}), fuel "
+        f"{fuel:.5f} vs {fuel_star:.5f} (rtol {SCVX_FUEL_RTOL}); solve {t_solve:.2f} s on the "
+        f"card; the oracle (NumPy float64, a host process started with the phase) waited for "
+        f"{t_oracle:.2f} s more")
+    if not (bool(sol.converged) and abs(t_f - sigma_star) <= SCVX_TF_TOL + 1e-6
+            and abs(fuel - fuel_star) / fuel_star < SCVX_FUEL_RTOL):
+        raise RuntimeError("the SCVX oracle case fails the JAX test's asserts")
+    out["scvx_oracle"] = dict(t_f=t_f, sigma_star=sigma_star, fuel=fuel, fuel_star=fuel_star,
+                              seconds=t_solve)
+
+    # the library: 64 of the suite's states × 11 durations, one batch
+    _reset_launches()
+    lib = fly_scvx_library(lp, x0s[:SCVX_LIBRARY_STATES], queries=x0s)
+    torch.cuda.synchronize(dev)
+    llaunch, lshape = _launches()
+    near, best = lib["nearest"], lib["best_within_radius"]
+    log(f"[experiments] SCVX library, {SCVX_LIBRARY_STATES} states x "
+        f"{lp.dt_candidates.shape[0]} durations ({SCVX_LIBRARY_STATES * lp.dt_candidates.shape[0]} "
+        f"lanes): {lib['seconds']:.2f} s, converged share {lib['converged_share']:.4f}, largest "
+        f"defect {lib['max_defect']:.4e}, chosen t_f histogram {lib['duration_histogram']}; "
+        f"admm_chunk launches {llaunch} {lshape}; {x0s.shape[0]} queries: nearest covers "
+        f"{int(near.unique().numel())} trajectories, best-within-2 by fuel "
+        f"{int(best.unique().numel())}")
+    if llaunch <= 0 or lshape.get("n407_m694", 0) <= 0:
+        raise RuntimeError("the SCVX library did not go through the kernel")
+    if not (bool(torch.isfinite(lib["library"].X).all()) and near.shape == best.shape
+            and int(near.max()) < SCVX_LIBRARY_STATES):
+        raise RuntimeError("the SCVX library or its queries are malformed")
+    d, w, conv_same = _scvx_vs_cpu(lp, lib["solution"], x0s, dev)
+    limits = {k: max(1e-3, SCVX_WITNESS_X * w[k]) for k in d}
+    log(f"[experiments] SCVX card vs CPU, 4 lanes at their chosen durations: max|d| "
+        f"{json.dumps({k: f'{v:.2e}' for k, v in d.items()})}, the CPU under a 1e-7 relative "
+        f"change of x0 {json.dumps({k: f'{v:.2e}' for k, v in w.items()})}, limits "
+        f"{json.dumps({k: f'{v:.2e}' for k, v in limits.items()})}; converged equal {conv_same}")
+    if any(d[k] > limits[k] for k in d) or not conv_same:
+        raise RuntimeError("the card's SCVX solves disagree with the CPU reference")
+    out["scvx_library"] = dict(seconds=lib["seconds"], converged_share=lib["converged_share"],
+                               max_defect=lib["max_defect"],
+                               histogram=lib["duration_histogram"], launches=llaunch,
+                               launches_by_shape=lshape, card_vs_cpu=d, cpu_own=w)
+    return out
+
+
+PHASE_SECONDS = {}
+
+
+def _phase(fn, *args):
+    """Run a phase and print its wall seconds on a line of its own."""
+    t0 = time.time()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    PHASE_SECONDS[fn.__name__] = time.time() - t0
+    log(f"[time] {fn.__name__}: {PHASE_SECONDS[fn.__name__]:.1f} s")
+    return out
+
+
 def main():
+    t_start = time.time()
     smi = phase_card()
-    phase_build()
-    timings = phase_kernels()
-    main_res, fns = phase_main_path()
-    land = phase_landing(fns)
-    rti_res = phase_rti()
-    pre_res, production_gp = phase_pretrain()
-    cal_res = phase_calibration(production_gp)
-    six_res = phase_sixdof()
-    onl_res = phase_online()
-    flt_res = phase_fleet()
-    lmpc_res = phase_lmpc()
-    camp_res, camp_gp = phase_gpmpc_campaign()
-    saf_res = phase_safety(camp_gp)
+    _phase(phase_build)
+    timings = _phase(phase_kernels)
+    main_res, fns = _phase(phase_main_path)
+    land = _phase(phase_landing, fns)
+    rti_res = _phase(phase_rti)
+    pre_res, production_gp = _phase(phase_pretrain)
+    cal_res = _phase(phase_calibration, production_gp)
+    six_res = _phase(phase_sixdof)
+    onl_res = _phase(phase_online)
+    flt_res = _phase(phase_fleet)
+    lmpc_res = _phase(phase_lmpc)
+    camp_res, camp_gp = _phase(phase_gpmpc_campaign)
+    saf_res = _phase(phase_safety, camp_gp)
+    exp_res = _phase(phase_experiments)
+    log(f"[time] every phase: {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}; "
+        f"the script so far {time.time() - t_start:.1f} s")
     log(f"[summary] main path {main_res['ms_per_cycle']:.3f} ms/cycle, "
         f"{main_res['solves_per_s']:.1f} solves/s, landing success {land['success_share']:.4f}; "
         f"RTI path {rti_res['ms_per_cycle']:.3f} ms/cycle, landing success "
@@ -1601,7 +1943,12 @@ def main():
         f"{saf_res['rescue']['success_rate_unfiltered']:.4f} unfiltered, GP-MPC behind the filter "
         f"{saf_res['gpmpc']['success_rate']:.4f} (intervention rate "
         f"{saf_res['gpmpc']['intervention_rate']:.4f}), online interventions by episode "
-        f"{[round(v, 3) for v in saf_res['online']['interventions_by_episode']]}")
+        f"{[round(v, 3) for v in saf_res['online']['interventions_by_episode']]}; experiment "
+        f"suite GP-MPC {exp_res['suite']['z_test']['gp_mpc_success']:.4f} vs RTI "
+        f"{exp_res['suite']['z_test']['rti_mpc_success']:.4f} (z {exp_res['suite']['z_test']['z']}), "
+        f"{exp_res['suite']['wall_s']:.1f} s; SCVX library converged "
+        f"{exp_res['scvx_library']['converged_share']:.4f}, oracle t_f "
+        f"{exp_res['scvx_oracle']['t_f']:.3f} s vs {exp_res['scvx_oracle']['sigma_star']:.3f} s")
     main_t = timings[0]
     kernels = [{
         "name": "admm_chunk",
@@ -1630,6 +1977,9 @@ def main():
                              "safety_rescue": saf_res["rescue"]["launches"],
                              "safety_gpmpc": saf_res["gpmpc"]["launches"],
                              "safety_online": saf_res["online"]["launches"],
+                             "experiments": exp_res["suite"]["launches"],
+                             "experiments_by_shape": exp_res["suite"]["launches_by_shape"],
+                             "scvx_library": exp_res["scvx_library"]["launches"],
                              "safety_filter_shape": {
                                  k: saf_res[k]["launches_by_shape"].get("n4_m6", 0)
                                  for k in ("rescue", "gpmpc", "online")}},

@@ -209,7 +209,9 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     QP with its rows' structure (n = 62, LMPC_SEGS and 18 dense rows);
     "hull": ``lanes`` lanes of the hull projection QP (:func:`hull_qp`);
     "filter": ``lanes`` lanes of the safety filter's intervention QP
-    (:func:`filter_qp`)."""
+    (:func:`filter_qp`); "suite_gp" and "suite_rti": the experiment suite's
+    two MPC QPs (:func:`suite_qp`); "scvx": the SCVX library's first
+    subproblem (:func:`scvx_library_qp`)."""
     from .ops.qp import QPData, ruiz_equilibrate
     from .ops.qp.admm import _factor, _rho_vec
 
@@ -220,6 +222,10 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
         data = fleet_qp(kind, lanes, gen, dev)
     elif kind == "filter":
         data = filter_qp(lanes, gen, dev)
+    elif kind in ("suite_gp", "suite_rti"):
+        data = suite_qp(kind, lanes, dev)
+    elif kind == "scvx":
+        data = scvx_library_qp(lanes, dev)
     elif kind in ("lmpc", "hull"):
         data = lmpc_qp(lanes, gen, dev) if kind == "lmpc" else hull_qp(lanes, gen, dev)
     elif kind == "lmpc_rows":
@@ -633,3 +639,57 @@ def filter_qp(lanes, gen, dev):
     x, u = filter_lanes(lanes, gen, dev)
     V0, g = _value_and_grad(sp.F_filter, sp.backup, sp.invariant, cfg.N, x, u)
     return _intervention_qp(cfg, u, u, V0, g, _target(cfg, sp.invariant))
+
+
+def suite_qp(kind, lanes, dev):
+    """The first-cycle QP of the experiment suite's MPC arms at their real
+    data, the first ``lanes`` of its initial states (``main_path.experiments_x0``):
+    "suite_gp", GP-MPC's condensed QP at N = 15 with every state bound kept
+    (n = 45, m = 105 block-lower-triangular + 45 diagonal rows: LMPC_SEGS),
+    linearized along the rollout of hover thrust with the trust region;
+    "suite_rti", the RTI ablation's sparse-form QP (n = 157, m = 269, every
+    row dense)."""
+    from .dynamics import trajectory_jacobians
+    from .main_path import experiment_suite_path, experiments_x0
+    from .mpc import gp_mpc_init, rti_init
+    from .mpc.rti import _build_rti_qp, _rollout
+    from .ops.qp import build_condensed_qp
+
+    sp = experiment_suite_path(device=dev)
+    x0s = experiments_x0(lanes, dev)
+    if kind == "suite_rti":
+        cfg = sp.rti_config
+        st = rti_init(cfg, x0s, sp.x_target)
+        X = _rollout(sp.F, x0s, st.U_lin)
+        Aks, Bks, cks = trajectory_jacobians(sp.F, X, st.U_lin)
+        return _build_rti_qp(cfg, Aks, Bks, cks, x0s, st.x_ref)
+    gcfg = sp.gp_config
+    cfg = gcfg.base
+    st = gp_mpc_init(gcfg, x0s, sp.x_target, device=dev)
+    X = _rollout(sp.F, x0s, st.U_lin)
+    Aks, Bks, cks = trajectory_jacobians(sp.F, X, st.U_lin)
+    ref = sp.reference_fn(x0s)[:, :cfg.N + 1]
+    tx, tu = gcfg.trust_region_x, gcfg.trust_region_u
+    return build_condensed_qp(Aks, Bks, cks, x0s, cfg.Q, cfg.R, cfg.Qf, ref,
+                              torch.maximum(cfg.x_min, X - tx), torch.minimum(cfg.x_max, X + tx),
+                              torch.maximum(cfg.u_min, st.U_lin - tu),
+                              torch.minimum(cfg.u_max, st.U_lin + tu),
+                              x_bound_mask=cfg.x_bound_mask)[0]
+
+
+def scvx_library_qp(lanes, dev):
+    """The SCVX library's first subproblem at its real data
+    (``main_path.scvx_library_path``): the first ``lanes`` of its (initial
+    state, duration) lanes, states from ``main_path.experiments_x0`` and each
+    state's 11 candidate time steps; N = 40, n = 407, m = 694 (7 initial-
+    state rows, 280 dynamics rows, 407 bound rows, every row dense)."""
+    from .main_path import SCVX_LIBRARY_STATES, experiments_x0, scvx_library_path
+    from .reference.scvx import scvx_qp
+
+    lp = scvx_library_path(dev)
+    C = lp.dt_candidates.shape[0]
+    x0s = experiments_x0(SCVX_LIBRARY_STATES, dev).repeat_interleave(C, dim=0)[:lanes]
+    dts = lp.dt_candidates.repeat(SCVX_LIBRARY_STATES)[:lanes]
+    U = x0s.new_zeros(x0s.shape[0], lp.config.N, 3)
+    U[:, :, 0] = x0s[:, :1]
+    return scvx_qp(lp.step_dt, lp.config, x0s, lp.x_target, dts, U)[0]

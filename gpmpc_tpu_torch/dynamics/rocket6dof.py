@@ -1,6 +1,5 @@
 """6-DoF quaternion rigid-body powered-descent dynamics (counterpart of
-``gpmpc_tpu/dynamics/rocket6dof.py``; the OO facade ``Rocket6DoF`` is not
-ported yet).
+``gpmpc_tpu/dynamics/rocket6dof.py``, with its object facade ``Rocket6DoF``).
 
 State  x = [m, r_I(3), v_I(3), q_BI(4, scalar-first), ω_B(3)]  (n_x = 14)
 Control u = T_B(3)  thrust in the body frame                   (n_u = 3)
@@ -28,6 +27,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from .integrators import get_step_fn
+from .linearize import ad_jacobians
 
 N_STATE = 14
 N_CONTROL = 3
@@ -100,8 +100,16 @@ class Rocket6DoFParams:
     def g(self) -> torch.Tensor:
         return torch.linalg.vector_norm(self.g_I)
 
+    @classmethod
+    def szmuk_defaults(cls, device: DeviceLike = "cuda") -> "Rocket6DoFParams":
+        return cls(device=device)
+
     def replace(self, **kw) -> "Rocket6DoFParams":
         return replace(self, **kw)
+
+
+# the JAX package's name for the parameters
+Rocket6DoFConfig = Rocket6DoFParams
 
 
 def dcm_from_quaternion(q: torch.Tensor) -> torch.Tensor:
@@ -276,3 +284,130 @@ def create_initial_state(
     m = params.m_wet if mass is None else mass
     return torch.tensor([m, altitude, *horizontal, *velocity, *quaternion, *omega],
                         dtype=torch.float32, device=dev)
+
+
+# Jacobians (forward-mode AD, exact)
+
+
+def linearize_continuous(params: Rocket6DoFParams, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(A_c, B_c) = (∂f/∂x, ∂f/∂u) at (x, u)."""
+    return ad_jacobians(partial(f, params), x, u)
+
+
+def linearize_discrete(params: Rocket6DoFParams, x, u, dt=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact discrete linearization of the renormalized step."""
+    dt = params.default_dt if dt is None else dt
+    F = lambda xx, uu: step(params, xx, uu, dt)
+    A_d, B_d = ad_jacobians(F, x, u)
+    return A_d, B_d, F(x, u) - _mv(A_d, x) - _mv(B_d, u)
+
+
+class Rocket6DoF:
+    """Object facade with the JAX package's method names; every method takes
+    any leading batch dimensions."""
+
+    N_STATE = N_STATE
+    N_CONTROL = N_CONTROL
+    IDX_MASS = IDX_MASS
+    IDX_POS = IDX_POS
+    IDX_VEL = IDX_VEL
+    IDX_QUAT = IDX_QUAT
+    IDX_OMEGA = IDX_OMEGA
+
+    def __init__(self, params: Optional[Rocket6DoFParams] = None, device: DeviceLike = "cuda"):
+        self.params = params or Rocket6DoFParams(device=device)
+
+    @property
+    def config(self):
+        return self.params
+
+    @property
+    def n_state(self):
+        return N_STATE
+
+    @property
+    def n_control(self):
+        return N_CONTROL
+
+    def f(self, x, u):
+        return f(self.params, x, u)
+
+    dynamics = f
+
+    def step(self, x, u, dt=None):
+        return step(self.params, x, u, dt)
+
+    f_discrete = step
+
+    def simulate(self, x0, U, dt=None):
+        return simulate(self.params, x0, U, dt)
+
+    def jacobian_x(self, x, u):
+        return linearize_continuous(self.params, x, u)[0]
+
+    def jacobian_u(self, x, u):
+        return linearize_continuous(self.params, x, u)[1]
+
+    A = jacobian_x
+    B = jacobian_u
+
+    def linearize(self, x, u, dt=None):
+        A_c, B_c = linearize_continuous(self.params, x, u)
+        if dt is not None:
+            return torch.eye(N_STATE, dtype=x.dtype, device=x.device) + A_c * dt, B_c * dt
+        return A_c, B_c
+
+    def linearize_discrete(self, x, u, dt=None):
+        return linearize_discrete(self.params, x, u, dt)
+
+    def get_dcm(self, x):
+        return dcm_from_quaternion(x[..., 7:11])
+
+    def get_tilt_angle(self, x):
+        return tilt_angle(x[..., 7:11])
+
+    def thrust_constraint(self, u):
+        return thrust_constraint(self.params, u)
+
+    def gimbal_constraint(self, u):
+        return gimbal_constraint(self.params, u)
+
+    def tilt_constraint(self, x):
+        return tilt_constraint(self.params, x)
+
+    def glide_slope_constraint(self, x):
+        return glide_slope_constraint(self.params, x)
+
+    def angular_rate_constraint(self, x):
+        return angular_rate_constraint(self.params, x)
+
+    def evaluate_constraints(self, x, u):
+        return evaluate_constraints(self.params, x, u)
+
+    def hover_thrust(self, x):
+        return hover_thrust(self.params, x)
+
+    def clamp_thrust(self, u):
+        return clamp_thrust(self.params, u)
+
+    def clamp_gimbal(self, u):
+        return clamp_gimbal(self.params, u)
+
+    def fuel_remaining(self, x):
+        return x[..., 0] - self.params.m_dry
+
+    def fuel_fraction(self, x):
+        return (x[..., 0] - self.params.m_dry) / (self.params.m_wet - self.params.m_dry)
+
+    def create_initial_state(self, **kw):
+        return create_initial_state(self.params, **kw)
+
+
+def create_szmuk_rocket(device: DeviceLike = "cuda") -> Rocket6DoF:
+    """A facade with the Szmuk-normalized parameters."""
+    return Rocket6DoF(Rocket6DoFParams.szmuk_defaults(device))
+
+
+# the JAX package's name for the facade
+Rocket6DoFDynamics = Rocket6DoF

@@ -6,8 +6,9 @@ and its statistics, and the Wilson score interval.
 
 The fleet is the batch axis: :func:`run_episode` flies every lane in
 lockstep, and a lane whose outcome is decided is frozen (its state, its
-controller state and its plant state stop changing). ``compare_controllers``
-and ``summarize`` are not ported yet.
+controller state and its plant state stop changing). ``summarize`` prints a
+campaign's statistics and ``compare_controllers`` flies several
+controllers on shared initial states.
 """
 
 from __future__ import annotations
@@ -115,10 +116,13 @@ def wilson_interval(successes, n, z: float = 1.96) -> Tuple[Tensor, Tensor]:
     or numbers, broadcast together."""
     successes = torch.as_tensor(successes, dtype=torch.float32)
     n = torch.as_tensor(n, dtype=torch.float32, device=successes.device).clamp_min(1.0)
+    # the constants as f32 tensors: torch evaluates number / tensor as a
+    # reciprocal times the number, which rounds differently from a division
+    z_, z2 = (torch.tensor(v, dtype=torch.float32, device=n.device) for v in (z, z**2))
     p = successes / n
-    denom = 1.0 + z**2 / n
-    center = (p + z**2 / (2 * n)) / denom
-    half = (z / denom) * torch.sqrt(p * (1 - p) / n + z**2 / (4 * n**2))
+    denom = 1.0 + z2 / n
+    center = (p + z2 / (2 * n)) / denom
+    half = (z_ / denom) * torch.sqrt(p * (1 - p) / n + z2 / (4 * n**2))
     return (center - half).clamp(0.0, 1.0), (center + half).clamp(0.0, 1.0)
 
 
@@ -258,3 +262,37 @@ def campaign_statistics(results: Dict) -> Dict:
         "landing_error_mean": succ_mean(results["landing_error"]),
         "steps_mean": succ_mean(results["steps"].to(torch.float32)),
     }
+
+
+def summarize(stats: Dict) -> str:
+    """Human-readable campaign report of :func:`campaign_statistics`."""
+    num = lambda v: v.item() if isinstance(v, Tensor) else v
+    s = {k: num(v) for k, v in stats.items() if k not in ("success_ci", "outcome_counts")}
+    lo, hi = (float(num(v)) for v in stats["success_ci"])
+    lines = [
+        "Monte-Carlo campaign summary",
+        "============================",
+        f"runs:          {int(s['n_runs'])}",
+        f"success rate:  {float(s['success_rate']):.3f}"
+        f"  (95% CI [{lo:.3f}, {hi:.3f}])",
+    ]
+    for name, cnt in stats["outcome_counts"].items():
+        lines.append(f"  {name:22s} {int(num(cnt))}")
+    lines += [
+        f"fuel used (success): {float(s['fuel_used_mean']):.3f} ± {float(s['fuel_used_std']):.3f}",
+        f"landing speed:       {float(s['landing_speed_mean']):.3f}",
+        f"landing error:       {float(s['landing_error_mean']):.3f}",
+        f"episode steps:       {float(s['steps_mean']):.1f}",
+    ]
+    return "\n".join(lines)
+
+
+def compare_controllers(controllers: Dict[str, Tuple], plant_step, x0s: Tensor,
+                        sim: SimulationConfig, criteria: Optional[LandingCriteria] = None
+                        ) -> Dict[str, Dict]:
+    """Fly several controllers on shared initial states: ``controllers`` maps
+    a name to (controller_init, controller_step); returns each one's
+    :func:`campaign_statistics`."""
+    return {name: campaign_statistics(run_campaign(cinit, cstep, plant_step, x0s, sim,
+                                                   criteria))
+            for name, (cinit, cstep) in controllers.items()}

@@ -40,7 +40,13 @@ kernel selected (``use_pallas="auto"``):
   velocity-ellipsoid filter), each flown with and without its filter by
   :func:`fly_safety`; :func:`online_safety_path` (the online GP-MPC
   learner behind a filter that reads each lane's own GP), flown across
-  episodes by :func:`fly_online_safety`.
+  episodes by :func:`fly_online_safety`;
+- :func:`experiment_suite_path` — the experiment suite,
+  ``scripts/run_experiments.py`` (a GP pretrained on a plant with an
+  unmodelled downdraft; GP-MPC, the GP-free RTI ablation and four
+  baselines; the dispersion sweep; the exports and the z-test), flown by
+  :func:`fly_experiments`; :func:`scvx_library_path` — the SCVX free-time
+  trajectory library, flown by :func:`fly_scvx_library`.
 
 ``chip_smoke.py`` and ``gpmpc_tpu_torch/profile_cycle.py`` drive them.
 """
@@ -48,6 +54,7 @@ kernel selected (``use_pallas="auto"``):
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -1166,3 +1173,303 @@ def fly_online_safety(op: OnlineSafetyPath, x0s: torch.Tensor, episodes: int = 3
     out["gate"] = (out["interventions_decrease"] and out["final_success_rate"] > 0.95
                    and out["success_non_decreasing_within_ci"])
     return out
+
+
+# -- the experiment suite (scripts/run_experiments.py) -----------------------
+
+SUITE_RUNS = {"quick": 64, "standard": 256, "full": 1024}
+SUITE_DISPERSION_LANES = 64  # the dispersion sweep's lanes (:193)
+SUITE_DISPERSION_LEVELS = ("low", "medium", "high")
+SUITE_REF_STEPS = 96  # the 9.6 s cubic reference (:135)
+SUITE_REF_HORIZON = 180
+SUITE_SEED = 0  # --seed: the GP fit's generator takes SUITE_SEED + 42, the dispersion's + 1
+
+
+class SuitePath(NamedTuple):
+    params: Rocket3DoFParams  # the controllers' nominal model (config/rocket_params.yaml)
+    F: Callable  # nominal step
+    plant: Callable  # drag + steady wind + the low-altitude downdraft
+    sim: SimulationConfig
+    x_target: torch.Tensor
+    reference_fn: Callable
+    gp_config: GPMPCConfig
+    rti_config: RTIConfig
+    baselines: Optional[tuple]  # None: all four
+    n_runs: int
+    dispersion: bool
+    pretrain: Dict  # pretrain_gp_3dof's episode counts
+
+
+def suite_downdraft(x: torch.Tensor) -> torch.Tensor:
+    """The unmodelled sink below ~6 m (``run_experiments.py:110-111``): (B,)
+    from states (B, 7)."""
+    return -2.0 * torch.sigmoid((6.0 - x[:, 1]) / 1.0)
+
+
+def experiment_suite_path(n_runs: Optional[int] = None, preset: str = "standard",
+                          device: DeviceLike = "cuda", max_steps: int = 200, n_episodes: int = 6,
+                          episode_len: int = 120, tune_steps: int = 150) -> SuitePath:
+    """``scripts/run_experiments.py --<preset> --seed 0``, its set-up
+    step by step: the configuration from ``config/`` through the port's
+    ``load_experiment_config`` (``:81-83``); the campaign scenario of
+    ``:86-91`` (``max_steps`` steps, 30 ± 2 m, −3 m/s); the plant of
+    ``:101-117`` (drag, a steady wind, the −2.0 m/s sigmoid downdraft below
+    6 m) the nominal model does not know; the GP fit's size (``:127-130``,
+    6 episodes of 120 steps); the 9.6 s cubic reference (``:135``); the
+    GP-MPC configuration of ``:141-148`` (condensed, 100 fixed-ρ iterations,
+    scaling 3, 2 SCP iterations, tightened); the RTI ablation on the YAML's
+    ``RTIConfig`` (N = 15, sparse form, 100 iterations, polish); the
+    baselines (``:155-157``: two at --quick, all four otherwise) and the
+    dispersion sweep (--standard and --full). ``n_runs`` defaults to the
+    preset's; ``max_steps`` and the GP fit's sizes are cut only by the CPU
+    tests."""
+    from .utils import load_experiment_config
+
+    dev = resolve_device(device)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_experiment_config(os.path.join(root, "config"), device=dev)
+    params = cfg["rocket_params"]
+    rti_cfg = cfg["mpc_config"] if isinstance(cfg["mpc_config"], RTIConfig) else RTIConfig(
+        device=dev)
+    sim = SimulationConfig(max_steps=max_steps, dt=rti_cfg.dt, altitude_mean=30.0,
+                           altitude_std=2.0, vertical_velocity_mean=-3.0,
+                           m_dry=float(params.m_dry))
+    dt = sim.dt
+    xT = torch.zeros(7, device=dev)
+    xT[0] = float(params.m_wet)
+    p_true = params.replace(rho=1.0, C_D=1.0, A_ref=0.1)
+    # the steady wind, held in both precisions (0.4 is not a float32 number)
+    wind = {}
+    for dtype in (torch.float32, torch.float64):
+        wind[dtype] = torch.zeros(7, dtype=dtype, device=dev)
+        wind[dtype][5], wind[dtype][6] = 0.4, 0.25
+
+    def plant(x, u):
+        return r3.step(p_true, x, u, dt) + dt * (wind[x.dtype] + _vertical(suite_downdraft(x)))
+
+    gp_cfg = GPMPCConfig(
+        base=rti_cfg.replace(accept_pri_tol=5e-3, condensed=True,
+                             admm=ADMMConfig(max_iter=100, polish=False, adaptive_rho=False,
+                                             scaling=3)),
+        scp_iterations=2, tighten=True)
+    return SuitePath(
+        params=params, F=lambda x, u: r3.step(params, x, u, dt), plant=plant, sim=sim,
+        x_target=xT,
+        reference_fn=lambda x0: cubic_descent_reference(x0, xT, SUITE_REF_STEPS, dt),
+        gp_config=gp_cfg, rti_config=rti_cfg,
+        baselines=("gravity_turn", "pid") if preset == "quick" else None,
+        n_runs=n_runs or SUITE_RUNS.get(preset, 64), dispersion=preset in ("standard", "full"),
+        pretrain=dict(n_episodes=n_episodes, episode_len=episode_len, tune_steps=tune_steps))
+
+
+def experiments_x0(n_runs: int = 256, device: DeviceLike = "cuda") -> torch.Tensor:
+    """The suite's initial states as the script draws them (``--seed 0``,
+    ``tests/fixtures/experiments_x0.npz``), the first ``n_runs``."""
+    import numpy as np
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    x0 = np.load(os.path.join(root, "tests", "fixtures", "experiments_x0.npz"))["x0"]
+    return torch.as_tensor(x0[:n_runs]).to(resolve_device(device))
+
+
+def suite_controllers(sp: SuitePath, mean_fn: Callable, var_fn: Callable) -> Dict:
+    """Name → (cinit, cstep) of the suite's arms (``:150-158``): GP-MPC, the
+    RTI ablation, the baselines."""
+    from .experiments import create_baseline_controllers
+
+    ctrls = {
+        "gp_mpc": make_gp_mpc_controller(sp.F, mean_fn, var_fn, sp.gp_config, sp.x_target,
+                                         reference_fn=sp.reference_fn,
+                                         ref_horizon=SUITE_REF_HORIZON),
+        "rti_mpc": make_rti_controller(sp.F, sp.rti_config, sp.x_target,
+                                       reference_fn=sp.reference_fn,
+                                       ref_horizon=SUITE_REF_HORIZON),
+    }
+    ctrls.update(create_baseline_controllers(sp.params, sp.x_target, sp.sim.dt,
+                                             include=sp.baselines))
+    return ctrls
+
+
+def fly_experiments(sp: SuitePath, x0s: torch.Tensor, generator: torch.Generator,
+                    out_dir: str) -> Dict:
+    """``scripts/run_experiments.py`` from its GP fit to its verdict: fit the
+    GP on the plant (``pretrain_gp_3dof``, its draws from ``generator``, the
+    script's seed + 42), fly every arm through ``run_campaign`` on ``x0s``,
+    sweep the dispersion levels for both MPC arms on the first 64 lanes
+    (each level's draws from a generator seeded SUITE_SEED + 1 on
+    ``generator``'s device, the same for both arms), write the exports
+    (CSV, JSON, LaTeX, prose; ``:206-214``), the summary figure
+    (``:217-223``: where matplotlib imports, inside the script's own
+    guard), the z-test and its JSON (``:234-249``)
+    and the JSONL run log. Returns the metrics, per-arm results and
+    statistics, the z-test, each stage's wall seconds, the files written and
+    the script's verdict (GP-MPC ≥ 0.9 and GP-MPC ≥ RTI, ``:251-252``)."""
+    import importlib.util
+    import json as _json
+
+    from .experiments import (DispersionConfig, PerformanceMetrics, ResultsExporter,
+                              create_summary_figure, make_dispersed_plant,
+                              two_proportion_z_test)
+    from .utils import RunLogger
+
+    os.makedirs(out_dir, exist_ok=True)
+    log = RunLogger(os.path.join(out_dir, "run.jsonl"))
+    dev = x0s.device
+    log.log("start", n_runs=x0s.shape[0], devices=[str(dev)])
+    seconds: Dict[str, float] = {}
+    t0 = time.time()
+    gp, mean_fn, var_fn = pretrain_gp_3dof(generator, sp.params, sp.plant, dt=sp.sim.dt,
+                                           device=dev, **sp.pretrain)
+    seconds["pretrain"] = time.time() - t0
+    log.log("pretrain", wall_s=round(seconds["pretrain"], 2))
+
+    controllers = suite_controllers(sp, mean_fn, var_fn)
+    metrics, results, stats = [], {}, {}
+    for name, (cinit, cstep) in controllers.items():
+        t0 = time.time()
+        res = run_campaign(cinit, cstep, sp.plant, x0s, sp.sim)
+        stats[name] = campaign_statistics(res)
+        m = PerformanceMetrics.from_results(name, res)
+        seconds[name] = time.time() - t0
+        metrics.append(m)
+        results[name] = res
+        log.log("campaign", controller=name, success_rate=m.success_rate,
+                wall_s=round(seconds[name], 2))
+
+    dispersion = {}
+    if sp.dispersion:
+        xd = x0s[:min(SUITE_DISPERSION_LANES, x0s.shape[0])]
+        for level in SUITE_DISPERSION_LEVELS:
+            dcfg = DispersionConfig.preset(level)
+            for name in ("gp_mpc", "rti_mpc"):
+                t0 = time.time()
+                g = torch.Generator(device=generator.device).manual_seed(SUITE_SEED + 1)
+                cinit, cstep = controllers[name]
+                res = run_campaign(cinit, cstep, make_dispersed_plant(sp.plant, dcfg, g,
+                                                                      sp.sim.dt), xd, sp.sim)
+                m = PerformanceMetrics.from_results(f"{name}_disp_{level}", res)
+                key = f"{name}_disp_{level}"
+                seconds[key] = time.time() - t0
+                metrics.append(m)
+                dispersion[key] = res
+                log.log("dispersion", controller=name, level=level,
+                        success_rate=m.success_rate)
+
+    exp = ResultsExporter()
+    files = {}
+    for fname, text in (("metrics.csv", exp.to_csv(metrics)), ("metrics.json", exp.to_json(metrics)),
+                        ("metrics.tex", exp.to_latex(metrics)),
+                        ("report.txt", exp.to_prose(metrics))):
+        files[fname] = os.path.join(out_dir, fname)
+        with open(files[fname], "w") as f:
+            f.write(text)
+    figure = importlib.util.find_spec("matplotlib") is not None
+    if figure:
+        try:
+            create_summary_figure(results["gp_mpc"], path=os.path.join(out_dir, "summary.png"))
+            files["summary.png"] = os.path.join(out_dir, "summary.png")
+        except Exception as e:  # plotting must never fail the campaign
+            log.log("figure_error", error=str(e))
+    log.log("done", out_dir=out_dir)
+
+    gp_m = next(m for m in metrics if m.name == "gp_mpc")
+    rti_m = next(m for m in metrics if m.name == "rti_mpc")
+    z = two_proportion_z_test(gp_m.successes, gp_m.n_runs, rti_m.successes, rti_m.n_runs)
+    comparison = {
+        "gp_mpc_success": gp_m.success_rate,
+        "rti_mpc_success": rti_m.success_rate,
+        "z": round(float(z["z"]), 3),
+        "p_value": round(float(z["p_value"]), 6),
+        "significant_05": bool(z["significant_05"]),
+    }
+    files["gp_vs_rti_z_test.json"] = os.path.join(out_dir, "gp_vs_rti_z_test.json")
+    with open(files["gp_vs_rti_z_test.json"], "w") as f:
+        _json.dump(comparison, f, indent=1)
+    log.log("z_test", **comparison)
+    log.close()
+    files["run.jsonl"] = os.path.join(out_dir, "run.jsonl")
+    return {
+        "metrics": metrics, "results": results, "dispersion": dispersion, "stats": stats,
+        "z_test": comparison, "seconds": seconds, "files": files, "figure": figure,
+        "gp": gp, "gp_fns": (mean_fn, var_fn), "controllers": controllers,
+        "passed": gp_m.success_rate >= 0.9 and gp_m.success_rate >= rti_m.success_rate,
+    }
+
+
+# -- the SCVX trajectory library ---------------------------------------------
+
+SCVX_N = 40
+SCVX_LIBRARY_STATES = 64
+SCVX_LIBRARY_DTS = (0.15, 0.35, 11)  # t_f from 6 to 14 s, bracketing the suite's 9.6 s
+SCVX_ORACLE_DTS = (0.125, 0.25, 11)  # tests/test_experiments.py:295, t_f from 5 to 10 s
+SCVX_ORACLE_X0 = (2.0, 25.0, 1.0, -0.5, -3.0, 0.0, 0.0)
+
+
+class SCVXLibraryPath(NamedTuple):
+    params: Rocket3DoFParams
+    step_dt: Callable  # step_dt(x, u, dt) → x⁺
+    config: object  # SCVXConfig
+    x_target: torch.Tensor
+    dt_candidates: torch.Tensor  # the library's sweep
+    oracle_dts: torch.Tensor  # the oracle case's sweep
+
+
+def scvx_library_path(device: DeviceLike = "cuda") -> SCVXLibraryPath:
+    """The SCVX free-time sweep of ``tests/test_experiments.py:273-306`` at
+    ``SCVXConfig(N=40)`` on the default 3-DoF model, landing at m = 2 at
+    the origin; the library sweeps dt ∈ linspace(0.15, 0.35, 11)."""
+    from .reference import SCVXConfig
+
+    dev = resolve_device(device)
+    p = Rocket3DoFParams(device=dev)
+    xT = torch.zeros(7, device=dev)
+    xT[0] = 2.0
+    return SCVXLibraryPath(params=p, step_dt=lambda x, u, dt: r3.step(p, x, u, dt),
+                           config=SCVXConfig(N=SCVX_N, device=dev), x_target=xT,
+                           dt_candidates=torch.linspace(*SCVX_LIBRARY_DTS[:2],
+                                                        SCVX_LIBRARY_DTS[2], device=dev),
+                           oracle_dts=torch.linspace(*SCVX_ORACLE_DTS[:2], SCVX_ORACLE_DTS[2],
+                                                     device=dev))
+
+
+def fly_scvx_library(lp: SCVXLibraryPath, x0s: torch.Tensor, queries: torch.Tensor) -> Dict:
+    """``generate_trajectory_library`` over ``x0s``: every state's
+    ``scvx_free_time`` sweep over ``lp.dt_candidates``, all of them lanes of
+    one batch (states × candidates); each trajectory stamped with its own
+    chosen dt, its fuel as its cost. Then ``nearest`` and
+    ``best_within_radius`` (radius 2, by fuel) for every state of
+    ``queries``. Returns the library, the chosen solutions, the converged
+    share, the largest defect, the chosen-duration histogram, the query
+    answers and the seconds."""
+    from .reference import generate_trajectory_library, scvx_free_time
+
+    chosen = {}
+
+    def solver(xs):
+        sol = scvx_free_time(lp.step_dt, lp.config, xs, lp.x_target, lp.dt_candidates)
+        chosen["sol"] = sol
+        return sol.X, sol.U, sol.fuel_used, sol.fuel_used
+
+    t0 = time.time()
+    lib = generate_trajectory_library(solver, x0s)
+    sol = chosen["sol"]
+    T1 = sol.X.shape[1]
+    lib = lib.replace(times=torch.arange(T1, device=x0s.device) * sol.dt[:, None])
+    seconds = time.time() - t0
+    out = {"library": lib, "solution": sol, "seconds": seconds,
+           "converged_share": float(sol.converged.float().mean()),
+           "max_defect": float(sol.defect.max()),
+           "duration_histogram": {round(float(d) * lp.config.N, 3): int((
+               (sol.dt - d).abs() < 1e-6).sum()) for d in lp.dt_candidates}}
+    out["nearest"] = lib.nearest(queries)
+    out["best_within_radius"] = lib.best_within_radius(queries, 2.0, by="fuel")
+    return out
+
+
+def scvx_oracle_case(lp: SCVXLibraryPath):
+    """The oracle case of ``tests/test_experiments.py:273-306``: one initial
+    state, dt over ``lp.oracle_dts``; returns the chosen solution."""
+    from .reference import scvx_free_time
+
+    x0 = torch.tensor(SCVX_ORACLE_X0, device=lp.x_target.device)
+    return scvx_free_time(lp.step_dt, lp.config, x0, lp.x_target, lp.oracle_dts)

@@ -593,3 +593,46 @@ def test_knn_on_the_card_matches_the_cpu(cuda_device):
     same = rd.indices.cpu() == rc.indices
     assert float(same.float().mean()) > 0.99  # near-ties may swap
     torch.testing.assert_close(rd.q_values.cpu()[same], rc.q_values[same])
+
+
+@pytest.mark.parametrize("iters", [1, 25])
+@pytest.mark.parametrize("kind,lanes,want", [("suite_gp", 256, "shared"), ("suite_gp", 64, "shared"),
+                                             ("suite_rti", 256, "cluster"),
+                                             ("suite_rti", 64, "cluster"), ("scvx", 704, "cluster")])
+def test_experiment_suite_and_scvx_shapes_at_real_data(cuda_device, kind, lanes, want, iters):
+    """The experiment suite's two MPC QPs at their real data, at its 256
+    runs and the dispersion sweep's 64 lanes — GP-MPC's condensed QP at
+    N = 15 with every state bound kept (n = 45, m = 105 blt + 45 diag:
+    LMPC_SEGS), the RTI ablation's sparse form (n = 157, m = 269 dense) —
+    and the SCVX library's first subproblem (704 lanes, n = 407, m = 694
+    dense), none on the global variant, against the plain chunk."""
+    args = chunk_inputs(kind, torch.Generator(device="cuda").manual_seed(0), lanes=lanes)
+    B, m, n = args[1].shape
+    segs = LMPC_SEGS if kind == "suite_gp" else None
+    assert (B, n, m) == {"suite_gp": (lanes, 45, 150), "suite_rti": (lanes, 157, 269),
+                         "scvx": (704, 407, 694)}[kind]
+    assert K.variant(n, m, 45 if segs else 0, B) == want
+    _assert_matches_plain(args, segs, iters, scaled=True)
+
+
+def test_scvx_on_the_card_matches_the_cpu(cuda_device):
+    """SCVX at N = 40 (15 SCP iterations, each a batched solve through the
+    cluster variant) for 2 of the suite's initial states at t_f = 8 s, card
+    against CPU: X, U and fuel within 1e-3 or twice the CPU's own spread
+    under a 1e-7 relative change of x0; converged equal."""
+    from gpmpc_tpu_torch.main_path import experiments_x0, scvx_library_path
+    from gpmpc_tpu_torch.reference import scvx_solve
+
+    cpu = torch.device("cpu")
+    lg, lc = scvx_library_path("cuda"), scvx_library_path(cpu)
+    x0 = experiments_x0(2, "cuda")
+    g = scvx_solve(lg.step_dt, lg.config, x0, lg.x_target, 0.2)
+    c = scvx_solve(lc.step_dt, lc.config, x0.cpu(), lc.x_target, 0.2)
+    gen = torch.Generator().manual_seed(0)
+    o = scvx_solve(lc.step_dt, lc.config, x0.cpu() * (1 + 1e-7 * torch.randn(2, 7, generator=gen)),
+                   lc.x_target, 0.2)
+    for k in ("X", "U", "fuel_used"):
+        d = (getattr(g, k).cpu() - getattr(c, k)).abs().max().item()
+        w = (getattr(o, k) - getattr(c, k)).abs().max().item()
+        assert d <= max(1e-3, 2.0 * w), (k, d, w)
+    assert torch.equal(g.converged.cpu(), c.converged) and bool(c.converged.all())

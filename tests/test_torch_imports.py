@@ -45,6 +45,14 @@ def test_import_with_jax_blocked():
         "import gpmpc_tpu_torch.safety.tube_mpc, gpmpc_tpu_torch.mpc.nominal\n"
         "import gpmpc_tpu_torch.mpc.constraints, gpmpc_tpu_torch.mpc.uncertainty_prop\n"
         "import gpmpc_tpu_torch.ops.linalg, gpmpc_tpu_torch.learning.online_learner\n"
+        "import gpmpc_tpu_torch.dynamics.integrators, gpmpc_tpu_torch.dynamics.linearize\n"
+        "import gpmpc_tpu_torch.dynamics.rocket3dof\n"
+        "import gpmpc_tpu_torch.utils, gpmpc_tpu_torch.utils.config_loader\n"
+        "import gpmpc_tpu_torch.utils.logging_utils, gpmpc_tpu_torch.utils.profiler\n"
+        "import gpmpc_tpu_torch.experiments.analysis, gpmpc_tpu_torch.experiments.baselines\n"
+        "import gpmpc_tpu_torch.experiments.dispersion, gpmpc_tpu_torch.experiments.ablation\n"
+        "import gpmpc_tpu_torch.experiments.visualization\n"
+        "import gpmpc_tpu_torch.reference.scvx, gpmpc_tpu_torch.reference.trajectory_library\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
