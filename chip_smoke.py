@@ -16,9 +16,11 @@ entry points a user calls, and checks the hand-written kernel on the way:
    the 6-DoF online campaign's condensed QPs at 30 and 50 iterations, Path F's
    two QPs, Path G's hull QP and hull projection QP, the safety filter's
    intervention QP at 1024 and 512 lanes, the experiment suite's two MPC QPs
-   at 256 and 64 lanes and the SCVX library's subproblem at 704 — with the
-   variant each launches, its CTAs a lane, its registers and spills, and its
-   time beside its bound, the plain version and a cuBLAS chain;
+   at 256 and 64 lanes, the SCVX library's subproblem at 704, the warm-KKT
+   RTI cycle's sparse QP at 512 lanes and the sharded campaign's condensed QP
+   with its state-bound rows at 2048 and 256 lanes — with the variant each
+   launches, its CTAs a lane, its registers and spills, and its time beside
+   its bound, the plain version and a cuBLAS chain;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
    steps with the launch counters reset just before and read just after,
    and hold one cycle on the card against the same cycle on the CPU;
@@ -26,7 +28,12 @@ entry points a user calls, and checks the hand-written kernel on the way:
    the landing demo's pass criteria;
 6. the RTI path: the GP-free RTI cycle on the nominal plant, timed and
    counted the same way, held against the CPU, then a closed-loop landing
-   of the fleet along per-lane descent references;
+   of the fleet along per-lane descent references; then
+   ``phase_rti_warm``: the sparse-form RTI cycle with the KKT inverse
+   carried across cycles (``bench_variants.py``'s ``"sparse_warm"``, 512
+   lanes along their references), timed beside the same cycle factoring by
+   Cholesky, both landed and judged by ``tests/test_mpc.py``'s warm-KKT
+   criteria, 10 teacher-forced cycles card vs CPU;
 7. the production GP fit: ``pretrain_gp_3dof`` on the card (sparse-form RTI
    episodes through the kernel's cluster variant, FITC fit, Adam tuning),
    then the GP-MPC landing of the fleet with that GP;
@@ -60,8 +67,9 @@ entry points a user calls, and checks the hand-written kernel on the way:
    the CPU, beside the same run through the plain chunk on the card;
 12. Path G, fleet LMPC (``scripts/run_fleet_lmpc_tpu.py``): the 3-DoF
    campaign at the artifact's widths (256 lanes, 3 of its 5 rounds of ≤ 150 steps,
-   the interior-point solver, one safe set of 262,144 rows shared by every
-   lane), judged by its floors and printed beside the JAX package's TPU
+   the interior-point solver, one safe set of 131,072 rows shared by every
+   lane; flown as an interrupted campaign: its first rounds into a
+   checkpoint directory, then resumed from it for the last), judged by its floors and printed beside the JAX package's TPU
    artifact; 10 teacher-forced solves of 8 lanes on its final set held
    against the CPU; the hull projection of every lane (the ADMM solver,
    the register variant); one round on the ADMM arm (800 iterations in 32
@@ -70,7 +78,14 @@ entry points a user calls, and checks the hand-written kernel on the way:
    rounds: the cuts that keep the script under ~900 s, see LMPC_ROUNDS);
 13. the 3-DoF GP-MPC campaign of ``scripts/run_campaign_tpu.py --controller
    gp_mpc --rt --elide`` at the artifact's 4096 lanes with its own GP on the
-   drag + wind plant, reported beside the artifact;
+   drag + wind plant, reported beside the artifact; then ``phase_sharded``,
+   the same campaign with its state-bound rows kept and its lanes sharded
+   (``--sharded --parity``): 2048 lanes on a one-rank NCCL group and
+   ``hosts_chips_mesh``, the all-reduced statistics timed and held against
+   the local ones; then 2 gloo ranks on the card, 256 lanes each, the GP
+   checkpointed here, restored by rank 0 and broadcast, rank 0's lanes
+   flown again unsharded (outcomes identical, |Δfuel| ≤ 3e-5), the
+   statistics and the global safe-set gather checked;
 14. the safety layer (``phase_safety``): 10 teacher-forced filtered cycles of
    the rescue composition, 8 lanes, card against CPU; the filter's latency
    per cycle as ``scripts/bench_safety_filter.py`` measures it (512 lanes,
@@ -250,7 +265,10 @@ def phase_kernels():
     # sparse form, n = 157, m = 269 dense), and at the dispersion sweep's 64
     # lanes; scvx is the SCVX library's first subproblem (704 lanes: 64
     # states x 11 durations, n = 407, m = 694, every row dense, the largest
-    # lane the kernel takes). On lmpc and hull f32
+    # lane the kernel takes). rti_warm is the golden shape at 512 lanes, the
+    # warm-KKT RTI cycle's; sharded and sharded256 the sharded campaign's
+    # condensed QP with its state-bound rows (n = 60, m = 200) at its 2048
+    # lanes and at its 256-lane shards. On lmpc and hull f32
     # alone moves the iterates by tens of times the tolerance (an
     # ill-conditioned M⁻¹ and near-duplicate vertices; WITNESS_SHAPES).
     shapes = (("main", "main", 0, diag, ITERS, True), ("dense", "dense", 0, None, ITERS, True),
@@ -261,7 +279,7 @@ def phase_kernels():
               ("bounded50", "bounded", 0, BOUNDED_SEGS, ITERS, True),
               ("facets", "facets", 0, FACETS_SEGS, 30, True),
               ("golden_b4", "golden", 4, None, RTI_CHUNK, True),
-              ("golden_b512", "golden", BATCH, None, RTI_CHUNK, True),
+              ("rti_warm", "golden", BATCH, None, RTI_CHUNK, True),
               ("sixdof", "sixdof", BATCH, BOUNDED_SEGS, 30, True),
               ("sixdof50", "sixdof", BATCH, BOUNDED_SEGS, ITERS, True),
               ("sparse6dof", "sparse6dof", 4, None, RTI_CHUNK, True),
@@ -278,7 +296,9 @@ def phase_kernels():
               ("suite_rti", "suite_rti", 256, None, RTI_CHUNK, True),
               ("suite_gp64", "suite_gp", 64, LMPC_SEGS, RTI_CHUNK, True),
               ("suite_rti64", "suite_rti", 64, None, RTI_CHUNK, True),
-              ("scvx", "scvx", 704, None, RTI_CHUNK, True))
+              ("scvx", "scvx", 704, None, RTI_CHUNK, True),
+              ("sharded", "campaign", 2048, BOUNDED_SEGS, ITERS, True),
+              ("sharded256", "campaign", 256, BOUNDED_SEGS, ITERS, True))
     for kind, inputs, lanes, segs, iters, timed in shapes:
         args = chunk_inputs(inputs, gen, golden, lanes)
         B, m, n = args[1].shape
@@ -409,6 +429,7 @@ def _time_cycles(cycle, state, xs, cycles, dev, what):
         sol, state, xs = cycle(state, xs)
     torch.cuda.synchronize(dev)
     K.LAUNCHES = 0  # counts from here on are this path's
+    K.LAUNCHES_BY_SHAPE.clear()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.time()
     start.record()
@@ -567,6 +588,114 @@ def phase_rti(dev=torch.device("cuda")):
     land = _judge("rti landing", out["x_final"], out["landed"], steps, time.time() - t0)
     return dict(launches=launches, ms_per_cycle=dev_ms, host_ms_per_cycle=host_ms,
                 solves_per_s=BATCH * 1000.0 / host_ms, landing=land)
+
+
+def phase_rti_warm(dev=torch.device("cuda")):
+    """The warm-KKT RTI cycle (``bench_variants.py``'s ``"sparse_warm"``,
+    the sparse golden shape at 512 lanes), every lane tracking its cubic
+    descent reference: 20 cycles timed beside the same configuration
+    factoring by Cholesky every cycle; both flown to touchdown on the 512
+    lanes and judged by ``tests/test_mpc.py::TestWarmKKT``'s criteria; 10
+    teacher-forced cycles of 8 lanes card vs CPU by the witness rule (the
+    card's plain chunk, the CPU under one-ulp changes). Without a reference
+    (``bench_variants.py``'s constant target) no lane's QP meets the
+    acceptance test in 50 iterations and every lane flies its fallback."""
+    from gpmpc_tpu_torch.main_path import fleet_x0, rti_warm_path
+    from gpmpc_tpu_torch.mpc import rti_closed_loop, rti_init, rti_step
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+    from gpmpc_tpu_torch.reference import cubic_descent_reference, pad_reference
+
+    out = {}
+    n, m = 207, 354
+    variant = K.variant(n, m, 0, BATCH)
+    x0s = fleet_x0(BATCH, dev)
+    N_ = rti_warm_path(dev).config.N
+    ref = pad_reference(cubic_descent_reference(x0s, rti_warm_path(dev).x_target, 100, DT),
+                        N_ + 20)
+    window = lambda state, k, lanes=BATCH: state.replace(x_ref=ref[:lanes, k:k + N_ + 1])
+    for tag, warm in (("warm", True), ("cholesky", False)):
+        wp = rti_warm_path(dev, warm_kkt=warm)
+        state = rti_init(wp.config, x0s, wp.x_target, step_fn=wp.F)
+        step = [0]
+
+        def cycle(state, xs, wp=wp, step=step):
+            step[0] += 1
+            sol, state = rti_step(wp.F, wp.config, window(state, step[0] - 1), xs)
+            return sol, state, wp.F(xs, sol.u0)
+
+        sol, state, xs, dev_ms, host_ms, launches = _time_cycles(
+            cycle, state, x0s, 20, dev, f"the {tag} RTI cycle")
+        by_shape = dict(K.LAUNCHES_BY_SHAPE)
+        if warm and not bool(torch.isfinite(state.kkt_inv).all()):
+            raise RuntimeError("the carried KKT inverse is not finite")
+        out[tag] = dict(ms_per_cycle=dev_ms, host_ms_per_cycle=host_ms, launches=launches,
+                        launches_by_shape={f"n{a}_m{b}": c for (a, b), c in by_shape.items()},
+                        accepted=float(sol.success.float().mean()))
+    log(f"[rti_warm] 20 cycles x {BATCH} lanes, n = {n}, m = {m} ({variant} variant, "
+        f"{K.cluster_size(n, m, 0, BATCH)} CTAs a lane): warm KKT {out['warm']['ms_per_cycle']:.3f} "
+        f"ms/cycle (host {out['warm']['host_ms_per_cycle']:.3f}), Cholesky "
+        f"{out['cholesky']['ms_per_cycle']:.3f} ms/cycle (host "
+        f"{out['cholesky']['host_ms_per_cycle']:.3f}); launches {out['warm']['launches_by_shape']} "
+        f"and {out['cholesky']['launches_by_shape']}; accepted {out['warm']['accepted']:.4f} and "
+        f"{out['cholesky']['accepted']:.4f}")
+    if out["warm"]["launches"] <= 0:
+        raise RuntimeError("the warm RTI cycle did not go through the kernel")
+
+    # both to touchdown along the references (tests/test_mpc.py:455-488)
+    steps = 110
+    finals = {}
+    for tag, warm in (("warm", True), ("cholesky", False)):
+        wp = rti_warm_path(dev, warm_kkt=warm)
+        _reset_launches()
+        t0 = time.time()
+        res = rti_closed_loop(wp.F, wp.config, x0s, wp.x_target, steps, X_ref_full=ref)
+        torch.cuda.synchronize(dev)
+        v = torch.linalg.vector_norm(res["x_final"][:, 4:7], dim=1)
+        out[tag]["landing"] = dict(
+            seconds=time.time() - t0, launches=_launches()[0], landed=int(res["landed"].sum()),
+            max_speed=float(v.max()), solver_success=float(res["solver_success"].float().mean()))
+        finals[tag] = res["x_final"]
+        log(f"[rti_warm] {tag} landing of {BATCH} lanes, {steps} steps: {json.dumps(out[tag]['landing'])}")
+        if (out[tag]["landing"]["landed"] < BATCH or out[tag]["landing"]["max_speed"] >= 1.0
+                or out[tag]["landing"]["solver_success"] <= 0.99):
+            raise RuntimeError(f"the {tag} RTI landing misses tests/test_mpc.py's criteria")
+    dx = (finals["warm"] - finals["cholesky"]).abs().max().item()
+    out["final_state_diff"] = dx
+    log(f"[rti_warm] warm vs Cholesky touchdown states: max|dx| {dx:.3e} (limit 0.05)")
+    if dx > 0.05:
+        raise RuntimeError("the warm-KKT landings part from the Cholesky ones")
+
+    # card vs CPU: 10 teacher-forced cycles of 8 lanes, u0 within 1e-3 or
+    # twice the largest witness of f32 alone read here
+    lanes, own_r, cpu = 8, 4, torch.device("cpu")
+    wp, wc = rti_warm_path(dev), rti_warm_path(cpu)
+    plain = wp.config.replace(admm=dataclasses.replace(wp.config.admm, use_pallas="off"))
+    gen = torch.Generator().manual_seed(0)
+    xg = x0s[:lanes]
+    sg = rti_init(wp.config, xg, wp.x_target, step_fn=wp.F)
+    du = {"kernel_cpu": [], "plain_cpu": [], "cpu_own": []}
+    for k in range(10):
+        sg = window(sg, k, lanes)
+        sol_g, sg_next = rti_step(wp.F, wp.config, sg, xg)
+        sol_p, _ = rti_step(wp.F, plain, sg, xg)
+        sc, xc = _to(sg, cpu), xg.cpu()
+        uc = rti_step(wc.F, wc.config, sc, xc)[0].u0
+        xo = xc.repeat(own_r, 1) * (1 + 1e-7 * torch.randn(own_r * lanes, 7, generator=gen))
+        uo = rti_step(wc.F, wc.config, _repeat_lanes(sc, own_r), xo)[0].u0
+        du["kernel_cpu"].append((sol_g.u0.cpu() - uc).abs().max().item())
+        du["plain_cpu"].append((sol_p.u0.cpu() - uc).abs().max().item())
+        du["cpu_own"].append((uo - uc.repeat(own_r, 1)).abs().max().item())
+        xg, sg = wp.F(xg, sol_g.u0), sg_next
+    lim = max(1e-3, 2.0 * max(du["plain_cpu"] + du["cpu_own"]))
+    fmt = lambda xs: [f"{d:.2e}" for d in xs]
+    log(f"[rti_warm] card vs CPU, 10 teacher-forced cycles of {lanes} lanes, max|du0|: kernel-CPU "
+        f"{fmt(du['kernel_cpu'])} (limit {lim:.2e}); witnesses: plain-CPU {fmt(du['plain_cpu'])}, "
+        f"the CPU under a 1e-7 relative change of the state {fmt(du['cpu_own'])}")
+    if max(du["kernel_cpu"]) > lim:
+        raise RuntimeError("the card's warm RTI cycles disagree with the CPU reference")
+    out["card_vs_cpu"] = dict(du0=du, limit=lim)
+    out["variant"] = variant
+    return out
 
 
 def phase_pretrain(dev=torch.device("cuda")):
@@ -997,7 +1126,8 @@ def _fleet_vs_cpu(fp, gps, use_gp, x0s, lanes, gen):
     four relative 1e-7 (about one ulp) changes of the state; then the whole
     round of those lanes on the card (kernel and plain) and on the CPU
     (as flown, and from three such changes of the initial states). The
-    changed copies fly side by side as extra lanes of one CPU batch. Returns
+    lanes as flown and their changed copies fly side by side in one CPU
+    batch. Returns
     the readings: per cycle kernel−CPU, plain−CPU, kernel−plain and the
     CPU's own spread of u0; per lane the model error's relative distances."""
     from gpmpc_tpu_torch.learning.batched_learner import (_gated_fns, fleet_cycle,
@@ -1041,11 +1171,14 @@ def _fleet_vs_cpu(fp, gps, use_gp, x0s, lanes, gen):
     def episode(f, mpc, g, use, x0):
         return fleet_episode(f.F, f.plant, mpc, g, use, x0, f.x_target, f.config)
 
-    ep_c = episode(fp_c, fp_c.mpc, gps_c, use_c, x0c)
+    # one CPU batch: the lanes as flown, then three one-ulp copies of them
+    ep_all = episode(fp_c, fp_c.mpc, _repeat_lanes(gps_c, 4), use_c.repeat(4),
+                     torch.cat([x0c, ulp(x0c.repeat(3, 1))]))
+    ep_c = {k: v[:lanes] for k, v in ep_all.items()}
+    ep_o = {k: v[lanes:] for k, v in ep_all.items()}
     rel = lambda e, r=1: ((e["model_err"].cpu() - ep_c["model_err"].repeat(r)).abs()
                           / ep_c["model_err"].repeat(r).abs()).max().item()
     ep_g, ep_p = episode(fp, fp.mpc, gps_g, use_g, x0g), episode(fp, mpc_off, gps_g, use_g, x0g)
-    ep_o = episode(fp_c, fp_c.mpc, _repeat_lanes(gps_c, 3), use_c.repeat(3), ulp(x0c.repeat(3, 1)))
     return dict(
         du0=du, cpu=ep_c, kernel=ep_g,
         err_rel={"kernel_cpu": rel(ep_g), "plain_cpu": rel(ep_p), "cpu_own": rel(ep_o, 3)},
@@ -1172,16 +1305,34 @@ def lmpc_artifact(model):
     return out
 
 
-def _lmpc_flight(model, lp, x0s, rounds, floor):
+def _lmpc_flight(model, lp, x0s, rounds, floor, resume=False):
     """One fleet-LMPC campaign, judged by its floors: final success share ≥
     ``floor``, every round ≥ 0.95 of the lanes landed, the probe's realized
-    cost under the seed's (3-DoF)."""
-    from gpmpc_tpu_torch.main_path import fly_lmpc_fleet
+    cost under the seed's (3-DoF). With ``resume``, flown as the script's
+    ``--checkpoint`` flies an interrupted campaign: rounds 1 to R − 1 into a
+    checkpoint directory, then a second call to R that must resume after
+    round R − 1 (the capacity is R rounds' in both)."""
+    import tempfile
+
+    from gpmpc_tpu_torch.main_path import fly_lmpc_fleet, lmpc_capacity, lmpc_fleet_path
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
     K.LAUNCHES = 0
     t0 = time.time()
-    res, ss = fly_lmpc_fleet(lp, x0s, rounds=rounds)
+    if resume:
+        cap = lmpc_capacity(lp, x0s.shape[0], rounds)
+        with tempfile.TemporaryDirectory() as ck:
+            first, _ = fly_lmpc_fleet(lp, x0s, rounds=rounds - 1, capacity=cap, checkpoint=ck)
+            lp_r = lmpc_fleet_path(model, x0s.device, checkpoint=ck)
+            res, ss = fly_lmpc_fleet(lp_r, x0s, rounds=rounds, capacity=cap, checkpoint=ck)
+        if res["resumed_after_round"] != rounds - 1 or len(res["per_round"]) != rounds:
+            raise RuntimeError(f"the {model} campaign did not resume after round {rounds - 1}: "
+                               f"{res['resumed_after_round']}")
+        log(f"[lmpc] {model} campaign flown as {rounds - 1} rounds ({first['wall_s']} s), then "
+            f"resumed after round {res['resumed_after_round']} from its checkpoint to {rounds} "
+            f"({res['wall_s']} s)")
+    else:
+        res, ss = fly_lmpc_fleet(lp, x0s, rounds=rounds)
     torch.cuda.synchronize()
     wall_s, launches = time.time() - t0, K.LAUNCHES
     B = x0s.shape[0]
@@ -1198,7 +1349,7 @@ def _lmpc_flight(model, lp, x0s, rounds, floor):
         ms_per_step_by_round=[round(r["ms_per_step"], 3) for r in res["per_round"]],
         knn_bucket_by_round=[r["knn_bucket"] for r in res["per_round"]],
         safe_set_states=res["per_round"][-1]["safe_set_states"],
-        wall_s=wall_s, launches=launches)
+        resumed_after_round=res["resumed_after_round"], wall_s=wall_s, launches=launches)
     log(f"[lmpc] {model} campaign, {B} lanes x {rounds} rounds of <= {res['max_steps']} steps, "
         f"solver {res['solver']}, in {wall_s:.1f} s ({launches} chunk launches): {json.dumps(summ)}")
     log(f"[lmpc] {model} the JAX package's artifact (a TPU v5e record, the reference's, "
@@ -1232,7 +1383,7 @@ def phase_lmpc(dev=torch.device("cuda")):
     lp3 = lmpc_fleet_path("3dof", dev)
     x0s = lmpc_fleet_x0(lp3, torch.Generator(device=dev).manual_seed(0), B)
     out["3dof"], res3, ss3 = _lmpc_flight("3dof", lp3, x0s, LMPC_ROUNDS["3dof"],
-                                          LMPC_FLOORS["3dof"])
+                                          LMPC_FLOORS["3dof"], resume=True)
     if out["3dof"]["launches"] != 0:
         raise RuntimeError("the interior-point arm launched the ADMM chunk")
 
@@ -1339,14 +1490,14 @@ def phase_gpmpc_campaign(dev=torch.device("cuda")):
     """``run_campaign_tpu.py --model 3dof --controller gp_mpc --rt --elide``
     at the artifact's 4096 lanes: the campaign's GP on the drag + wind
     plant, then the 130-step campaign; reported beside the artifact, no
-    gate. Returns (the report, the GP's (mean_fn, var_fn))."""
+    gate. Returns (the report, the GP's (mean_fn, var_fn), the GP)."""
     from gpmpc_tpu_torch.experiments import SimulationConfig, sample_initial_conditions
     from gpmpc_tpu_torch.main_path import (GPMPC_CAMPAIGN_LANES, fly_gpmpc_campaign,
                                            gpmpc_campaign_gp)
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
     t0 = time.time()
-    _, mean_fn, var_fn = gpmpc_campaign_gp(torch.Generator(device=dev).manual_seed(42), dev)
+    gp, mean_fn, var_fn = gpmpc_campaign_gp(torch.Generator(device=dev).manual_seed(42), dev)
     torch.cuda.synchronize()
     fit_s = time.time() - t0
     x0s = sample_initial_conditions(
@@ -1369,7 +1520,209 @@ def phase_gpmpc_campaign(dev=torch.device("cuda")):
         f"130 steps: {json.dumps(out)}; the JAX package's artifact (TPU v5e): success "
         f"{art['success_rate']}, {art['landing_speed_mean']:.4f} m/s, "
         f"{art['landing_error_mean']:.4f} m")
-    return out, (mean_fn, var_fn)
+    return out, (mean_fn, var_fn), gp
+
+
+# the sharded campaign's record: a JAX package run on 8 CPU devices, not the port's
+SHARDED_ARTIFACT = "campaign_sharded_parity_cpu8_2048.json"
+SHARDED_FUEL_ATOL = 3e-5  # docs/scaling.md:37: sharded vs unsharded fuel
+SHARDED_FIELDS = ("outcome", "fuel_used", "landing_speed", "landing_error", "steps")
+SHARDED_RANKS = 2  # (b): ranks on one card, gloo (NCCL refuses two ranks on one device)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _stats_json(stats):
+    out = {k: float(v) for k, v in stats.items() if k not in ("success_ci", "outcome_counts")}
+    out["success_ci"] = [float(v) for v in stats["success_ci"]]
+    out["outcome_counts"] = {k: int(v) for k, v in stats["outcome_counts"].items()}
+    return out
+
+
+def _leaf_sum(tree):
+    """The float64 sum of every tensor of a tree: a checksum of its values."""
+    from gpmpc_tpu_torch.utils.checkpoint import _flatten
+
+    return sum(float(t.double().sum()) for t in _flatten(tree)[0])
+
+
+def _sharded_rank(rank, world, port, tmp, checksum):
+    """One rank of phase_sharded's (b): a gloo group on the card; rank 0
+    restores the campaign GP from the parent's checkpoint, the broadcast
+    hands it to every rank; each rank flies its block of the lanes, builds a
+    safe set from its successful trajectories, and the global gather merges
+    them. Writes what it computed to ``<tmp>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from gpmpc_tpu_torch.experiments import campaign_statistics
+    from gpmpc_tpu_torch.lmpc import LMPCConfig, default_stage_cost
+    from gpmpc_tpu_torch.main_path import fly_sharded_campaign, gp_fns, sharded_campaign_path
+    from gpmpc_tpu_torch.parallel import (broadcast_from_host0, gather_safe_sets_global,
+                                          initialize_distributed, scenario_mesh)
+    from gpmpc_tpu_torch.terminal import SafeSet
+    from gpmpc_tpu_torch.utils import restore_pytree
+
+    # the ranks share the host's cores: without a share each, their
+    # intra-op threads oversubscribe the host (100x slower on a CPU run)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = torch.device("cuda", 0)
+    assert initialize_distributed(f"localhost:{port}", world, rank, device=dev, backend="gloo")
+    template = _to(torch.load(os.path.join(tmp, "template.pt"), weights_only=False), dev)
+    gp = restore_pytree(os.path.join(tmp, "campaign_gp"), template) if rank == 0 else template
+    gp = broadcast_from_host0(gp)
+    if _leaf_sum(gp) != checksum:
+        raise RuntimeError(f"rank {rank}: the broadcast GP differs from the saved one")
+    x0s = torch.load(os.path.join(tmp, "x0s.pt")).to(dev)
+    mesh = scenario_mesh()
+    t0 = time.time()
+    out = fly_sharded_campaign(*gp_fns(gp), x0s, mesh=mesh, store_trajectories=True)
+    torch.cuda.synchronize(dev)
+    seconds = time.time() - t0
+    res = out["results"]
+    fp = sharded_campaign_path(dev)
+    cfg = LMPCConfig(device=dev)
+    live = torch.arange(res["U"].shape[1], device=dev)[None] < res["steps"][:, None]
+    costs = torch.where(live, default_stage_cost(res["X"][:, :-1], res["U"], fp.x_target, cfg),
+                        torch.zeros((), device=dev))
+    cap = 1 << 17  # both ranks' rows: 2 x 256 lanes x 130 steps at most
+    ss = SafeSet.create(cap, 7, device=dev).add_trajectories(
+        res["X"][:, :-1], res["U"], costs, valid=res["outcome"] == 0)
+    merged = gather_safe_sets_global(ss, capacity=cap)
+    torch.save({"rank": rank, "lanes": (out["lanes"].start, out["lanes"].stop),
+                "results": {k: res[k].cpu() for k in SHARDED_FIELDS},
+                "stats": _stats_json(out["stats"]), "seconds": seconds,
+                "set_count": int(ss.count), "merged_count": int(merged.count),
+                "backend": dist.get_backend()},
+               os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_sharded(camp_gp, dev=torch.device("cuda")):
+    """The sharded campaign (``run_campaign_tpu.py --model 3dof --controller
+    gp_mpc --rt --sharded --parity``), on phase_gpmpc_campaign's GP:
+    (a) the 2048 lanes on a one-rank NCCL group, ``hosts_chips_mesh`` 1 x 1,
+    the all-reduced statistics timed and held against
+    ``campaign_statistics``, printed beside the JAX package's record;
+    (b) shards that differ: 2 gloo ranks on the card, 256 lanes each (the
+    record's lanes a device), the GP checkpointed by this process, restored
+    by rank 0 and broadcast; rank 0's lanes flown again here unsharded
+    (outcomes identical, |Δfuel| ≤ 3e-5), the all-reduced statistics held
+    against those of the two ranks' lanes together, the safe sets of their
+    successful trajectories gathered."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from gpmpc_tpu_torch.experiments import campaign_statistics
+    from gpmpc_tpu_torch.main_path import (SHARDED_LANES, SHARDED_LANES_PER_DEVICE, gp_fns,
+                                           fly_sharded_campaign, sharded_campaign_x0)
+    from gpmpc_tpu_torch.parallel import (hosts_chips_mesh, initialize_distributed,
+                                          sharded_campaign_statistics)
+    from gpmpc_tpu_torch.utils import save_pytree
+    from gpmpc_tpu_torch.utils.checkpoint import _flatten
+
+    mean_fn, var_fn = gp_fns(camp_gp)
+    with open(os.path.join(ROOT, "artifacts", SHARDED_ARTIFACT)) as f:
+        art = json.load(f)
+    art_keys = ("success_rate", "landing_speed_mean", "landing_error_mean", "fuel_used_mean")
+    out = {}
+
+    # (a) the full width on a one-rank NCCL group
+    multi = initialize_distributed(f"localhost:{_free_port()}", 1, 0, device=dev)
+    if multi or dist.get_backend() != "nccl":
+        raise RuntimeError(f"expected one NCCL rank, got {dist.get_world_size()} "
+                           f"{dist.get_backend()}")
+    mesh = hosts_chips_mesh()
+    x0s = sharded_campaign_x0(torch.Generator(device=dev).manual_seed(0), SHARDED_LANES, dev)
+    _reset_launches()
+    t0 = time.time()
+    run = fly_sharded_campaign(mean_fn, var_fn, x0s, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    seconds = time.time() - t0
+    launches, by_shape = _launches()
+    res = {k: run["results"][k] for k in SHARDED_FIELDS}
+    t0 = time.time()
+    pstats = sharded_campaign_statistics(mesh, res)
+    float(pstats["success_rate"])
+    psum_s = time.time() - t0
+    local = campaign_statistics(run["results"])
+    d_succ = abs(float(pstats["success_rate"]) - float(local["success_rate"]))
+    dist.destroy_process_group()
+    out["full"] = dict(lanes=SHARDED_LANES, mesh=list(mesh.mesh.shape), seconds=seconds,
+                       launches=launches, launches_by_shape=by_shape, psum_stats_wall_s=psum_s,
+                       success_rate_psum=float(pstats["success_rate"]),
+                       stats=_stats_json(pstats))
+    log(f"[sharded] (a) {SHARDED_LANES} lanes x 130 steps on a one-rank NCCL group, mesh "
+        f"{out['full']['mesh']}, in {seconds:.1f} s ({launches} launches {by_shape}); the "
+        f"all-reduced statistics in {psum_s * 1e3:.2f} ms, success {float(pstats['success_rate'])} "
+        f"(local {float(local['success_rate'])}, |diff| {d_succ:.1e}, limit 1e-6)")
+    log(f"[sharded] (a) success, speed, error, fuel: port {[round(float(pstats[k]), 4) for k in art_keys]}; "
+        f"the record (JAX package, 8 CPU devices, 256 lanes each): "
+        f"{[round(art[k], 4) for k in art_keys]}")
+    if d_succ > 1e-6 or launches <= 0:
+        raise RuntimeError("the sharded campaign's statistics disagree or it missed the kernel")
+
+    # (b) shards that differ: 2 gloo ranks on the card
+    lanes = SHARDED_RANKS * SHARDED_LANES_PER_DEVICE
+    with tempfile.TemporaryDirectory() as tmp:
+        leaves, rebuild = _flatten(camp_gp)
+        template = rebuild([torch.zeros_like(t).cpu() for t in leaves])
+        torch.save(template, os.path.join(tmp, "template.pt"))
+        save_pytree(os.path.join(tmp, "campaign_gp"), camp_gp)
+        torch.save(x0s[:lanes].cpu(), os.path.join(tmp, "x0s.pt"))
+        t0 = time.time()
+        mp.start_processes(_sharded_rank, nprocs=SHARDED_RANKS, start_method="spawn", join=True,
+                           args=(SHARDED_RANKS, _free_port(), tmp, _leaf_sum(camp_gp)))
+        spawn_s = time.time() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(SHARDED_RANKS)]
+    per = SHARDED_LANES_PER_DEVICE
+    _reset_launches()
+    t0 = time.time()
+    ref = fly_sharded_campaign(mean_fn, var_fn, x0s[:per])
+    torch.cuda.synchronize(dev)
+    ref_s = time.time() - t0
+    parity_launches, _ = _launches()
+    r0 = ranks[0]["results"]
+    same = bool(torch.equal(r0["outcome"], ref["results"]["outcome"].cpu()))
+    dfuel = (r0["fuel_used"] - ref["results"]["fuel_used"].cpu()).abs().max().item()
+    cat = {k: torch.cat([r["results"][k] for r in ranks]) for k in SHARDED_FIELDS}
+    both = _stats_json(campaign_statistics(cat))
+    st = ranks[0]["stats"]
+    d_stats = max(abs(st[k] - both[k]) for k in st if k not in ("success_ci", "outcome_counts",
+                                                                "n_runs"))
+    d_stats = max(d_stats, *[abs(a - b) for a, b in zip(st["success_ci"], both["success_ci"])])
+    counts_equal = (st["outcome_counts"] == both["outcome_counts"]
+                    and all(r["stats"] == st for r in ranks) and st["n_runs"] == lanes)
+    set_counts = [r["set_count"] for r in ranks]
+    merged = [r["merged_count"] for r in ranks]
+    out["parity"] = dict(ranks=SHARDED_RANKS, backend=ranks[0]["backend"], lanes=lanes,
+                         lanes_per_rank=per, spawn_s=spawn_s,
+                         rank_seconds=[r["seconds"] for r in ranks], unsharded_s=ref_s,
+                         launches=parity_launches, outcomes_identical=same,
+                         fuel_max_abs_diff=dfuel, stats_max_abs_diff=d_stats,
+                         counts_equal=counts_equal, set_counts=set_counts, merged_counts=merged)
+    log(f"[sharded] (b) {SHARDED_RANKS} {ranks[0]['backend']} ranks on the card, {per} lanes "
+        f"each, in {spawn_s:.1f} s (rank flights {[round(r['seconds'], 1) for r in ranks]} s); "
+        f"rank 0's lanes unsharded in {ref_s:.1f} s: outcomes identical {same}, max|dfuel| "
+        f"{dfuel:.3e} (limit {SHARDED_FUEL_ATOL}; the record: "
+        f"{art['sharded']['parity']['fuel_max_abs_diff']:.3e} on 8 CPU devices); all-reduced "
+        f"statistics vs the two ranks' lanes: counts equal {counts_equal}, max|diff| "
+        f"{d_stats:.1e} (limit 1e-6); safe sets {set_counts} -> merged {merged}")
+    if not same or dfuel > SHARDED_FUEL_ATOL:
+        raise RuntimeError("sharding changed rank 0's lanes")
+    if not counts_equal or d_stats > 1e-6:
+        raise RuntimeError("the all-reduced statistics disagree with the ranks' lanes")
+    if any(m != sum(set_counts) for m in merged):
+        raise RuntimeError("the global safe-set gather lost or invented rows")
+    return out
 
 
 def _artifact(name, keys):
@@ -1893,21 +2246,26 @@ def _phase(fn, *args):
 
 
 def main():
+    from gpmpc_tpu_torch.utils import enable_compilation_cache
+
     t_start = time.time()
     smi = phase_card()
+    log(f"[build] kernel libraries in {enable_compilation_cache()}")
     _phase(phase_build)
     timings = _phase(phase_kernels)
     main_res, fns = _phase(phase_main_path)
     land = _phase(phase_landing, fns)
     rti_res = _phase(phase_rti)
+    warm_res = _phase(phase_rti_warm)
     pre_res, production_gp = _phase(phase_pretrain)
     cal_res = _phase(phase_calibration, production_gp)
     six_res = _phase(phase_sixdof)
     onl_res = _phase(phase_online)
     flt_res = _phase(phase_fleet)
     lmpc_res = _phase(phase_lmpc)
-    camp_res, camp_gp = _phase(phase_gpmpc_campaign)
-    saf_res = _phase(phase_safety, camp_gp)
+    camp_res, camp_fns, camp_gp = _phase(phase_gpmpc_campaign)
+    shd_res = _phase(phase_sharded, camp_gp)
+    saf_res = _phase(phase_safety, camp_fns)
     exp_res = _phase(phase_experiments)
     log(f"[time] every phase: {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}; "
         f"the script so far {time.time() - t_start:.1f} s")
@@ -1938,7 +2296,14 @@ def main():
         f"{lmpc_res['6dof']['final_success_rate']}, ADMM arm "
         f"{lmpc_res['admm']['success_rate']}; 3-DoF GP-MPC campaign success "
         f"{camp_res['success_share']:.4f}, {camp_res['landing_speed_mean']:.4f} m/s, "
-        f"{camp_res['landing_error_mean']:.4f} m; safety: filter {saf_res['latency']['ms_per_cycle']:.3f} "
+        f"{camp_res['landing_error_mean']:.4f} m; sharded campaign of "
+        f"{shd_res['full']['lanes']} lanes {shd_res['full']['seconds']:.1f} s, success "
+        f"{shd_res['full']['success_rate_psum']:.4f}, statistics all-reduced in "
+        f"{shd_res['full']['psum_stats_wall_s'] * 1e3:.2f} ms, 2-rank parity "
+        f"{shd_res['parity']['outcomes_identical']} (max|dfuel| "
+        f"{shd_res['parity']['fuel_max_abs_diff']:.1e}); warm-KKT RTI "
+        f"{warm_res['warm']['ms_per_cycle']:.3f} ms/cycle vs Cholesky "
+        f"{warm_res['cholesky']['ms_per_cycle']:.3f}; safety: filter {saf_res['latency']['ms_per_cycle']:.3f} "
         f"ms/cycle at {BATCH} lanes, rescue success {saf_res['rescue']['success_rate']:.4f} vs "
         f"{saf_res['rescue']['success_rate_unfiltered']:.4f} unfiltered, GP-MPC behind the filter "
         f"{saf_res['gpmpc']['success_rate']:.4f} (intervention rate "
@@ -1974,6 +2339,10 @@ def main():
                              "lmpc6dof_seed": lmpc_res["6dof"]["seed_launches"],
                              "hull_projection": lmpc_res["hull"]["launches"],
                              "gpmpc_campaign": camp_res["launches"],
+                             "sharded_campaign": shd_res["full"]["launches"],
+                             "sharded_parity": shd_res["parity"]["launches"],
+                             "rti_warm": warm_res["warm"]["launches"],
+                             "rti_warm_by_shape": warm_res["warm"]["launches_by_shape"],
                              "safety_rescue": saf_res["rescue"]["launches"],
                              "safety_gpmpc": saf_res["gpmpc"]["launches"],
                              "safety_online": saf_res["online"]["launches"],

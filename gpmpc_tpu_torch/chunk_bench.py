@@ -199,6 +199,8 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     build_condensed_qp makes them; "dense": the same size with a random A;
     "bounded": n = 60, m = 200, the condensed QP that keeps its state-bound
     rows: 140 block-lower-triangular rows (BOUNDED_SEGS), then the identity;
+    "campaign": the "bounded" QP at exactly ``lanes`` lanes (the sharded
+    campaign's 2048 lanes and its 256-lane shards);
     "facets": n = 60, m = 380, the same with 20 glideslope and 160 cone-facet
     rows behind the identity (FACETS_SEGS);
     "golden": ``lanes`` sparse-form golden QPs (n = 207, m = 354), the four of
@@ -245,13 +247,13 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
                                        dtype=torch.float32, device=dev)
         data = QPData(*[stack(p) for p in ("P", "q", "A", "l", "u")])
     else:
-        B, n = max(lanes, BATCH), N_VARS
+        B, n = (lanes if kind == "campaign" else max(lanes, BATCH)), N_VARS
         G = torch.randn(B, n, n, generator=gen, device=dev)
         P = G @ G.transpose(1, 2) / n + 0.1 * torch.eye(n, device=dev)
         if kind == "main":
             A = torch.eye(n, device=dev).expand(B, n, n).contiguous()
-        elif kind in ("bounded", "facets"):
-            A = _structured_rows(BOUNDED_SEGS if kind == "bounded" else FACETS_SEGS,
+        elif kind in ("bounded", "campaign", "facets"):
+            A = _structured_rows(FACETS_SEGS if kind == "facets" else BOUNDED_SEGS,
                                  B, n, gen, dev)
         else:
             A = torch.randn(B, n, n, generator=gen, device=dev)

@@ -6,7 +6,12 @@ functions build the port's counterpart from that dict.
 
 ``rti_state_from_numpy`` expects the fields of a (batched) ``RTIState``:
 ``X_lin``, ``U_lin``, ``X_prev``, ``U_prev``, ``y_prev``, ``rho``, ``x_ref``,
-each with a leading lane axis; the warm-KKT carry is dropped (not ported).
+each with a leading lane axis, and optionally the warm-KKT carry
+``kkt_inv``, ``scal_D``, ``scal_E``, ``scal_c``; ``gp_mpc_state_from_numpy``
+those of a ``GPMPCState`` (``X_lin``, ``U_lin``, ``x_ref``, ``rho``,
+``y_prev`` and the same carry). The carry is taken where ``kkt_inv`` holds
+entries: the JAX package's zero-size placeholders (warm KKT off) become
+None.
 
 ``simple3dof_gp_from_numpy`` expects the keys of a fitted ``Simple3DoFGP``,
 tuned or not (a tuned GP differs only in its kernel parameters, noise and
@@ -78,7 +83,7 @@ from .gp.sparse_gp import MultiOutputSparseGPState, SparseGPState
 from .gp.structured_gp import RingBuffer
 from .learning.batched_learner import BatchedLearningConfig
 from .lmpc import LMPCConfig
-from .mpc import GPMPCConfig, RTIConfig, RTIState
+from .mpc import GPMPCConfig, GPMPCState, RTIConfig, RTIState
 from .ops.qp import ADMMConfig, IPMConfig
 from .terminal.safe_set import _LEAVES, SafeSet, safe_set_from_leaves
 
@@ -167,9 +172,22 @@ def rocket6dof_params_from_fields(d: Dict[str, Any],
     return _dataclass_from(Rocket6DoFParams, d, device=resolve_device(device))
 
 
-def rti_state_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda") -> RTIState:
+_KKT_CARRY = ("kkt_inv", "scal_D", "scal_E", "scal_c")
+
+
+def _state_from_numpy(cls, d: Dict[str, Any], device: DeviceLike):
     dev = resolve_device(device)
-    return RTIState(**{f.name: as_f32(np.array(d[f.name]), dev) for f in fields(RTIState)})
+    warm = d.get("kkt_inv") is not None and np.asarray(d["kkt_inv"]).size > 0
+    return cls(**{f.name: as_f32(np.array(d[f.name]), dev) for f in fields(cls)
+                  if f.name not in _KKT_CARRY or warm})
+
+
+def rti_state_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda") -> RTIState:
+    return _state_from_numpy(RTIState, d, device)
+
+
+def gp_mpc_state_from_numpy(d: Dict[str, Any], device: DeviceLike = "cuda") -> GPMPCState:
+    return _state_from_numpy(GPMPCState, d, device)
 
 
 def _plain(v):

@@ -23,7 +23,7 @@ mass with the 3-output velocity GP, 14 → the 6-DoF quaternion model with the
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields, replace
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, Optional
 
 import torch
@@ -35,6 +35,7 @@ from ..gp import ResidualCollector, Simple3DoFGP, StructuredGPConfig, Structured
 from ..gp.structured_gp import broadcast_lanes
 from ..mpc import GPMPCConfig, RTIConfig
 from ..mpc.gp_mpc import GPMPCState, gp_mpc_init, gp_mpc_solve
+from ..mpc.rti import freeze_lanes
 from ..reference import cubic_descent_reference, pad_reference
 from .pretrain import _tune_multi
 
@@ -157,11 +158,7 @@ def fleet_episode(F_nom: Callable, plant_step: Callable, mpc: GPMPCConfig, gp, u
         with record_function("fleet.cycle"):
             sol, st_new, x_next = cycle(st, x, k)
             x_out = torch.where(landed[:, None], x, x_next)
-            st = GPMPCState(**{
-                f.name: torch.where(
-                    landed.reshape(-1, *([1] * (getattr(st, f.name).dim() - 1))),
-                    getattr(st, f.name), getattr(st_new, f.name))
-                for f in fields(GPMPCState)})
+            st = freeze_lanes(landed, st, st_new)
             # the controller model's one-step prediction error on live steps
             pred = F_nom(x, sol.u0) + dt * mean_fn(x, sol.u0)
             err = torch.linalg.vector_norm(x_next - pred, dim=-1)

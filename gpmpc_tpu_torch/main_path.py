@@ -4,7 +4,9 @@ kernel selected (``use_pallas="auto"``):
 - :func:`main_path` — the 3-DoF GP-MPC real-time cycle that ``bench.py``
   times as its primary metric (``bench.py:78-132``);
 - :func:`rti_path` — the GP-free RTI cycle on the nominal plant, its
-  secondary metric (``bench.py:110-115``, ``:186-201``);
+  secondary metric (``bench.py:110-115``, ``:186-201``); :func:`rti_warm_path`
+  — the sparse-form RTI cycle with the KKT inverse carried across cycles
+  (``scripts/bench_variants.py``'s ``"sparse_warm"``);
 - :func:`pretrain_path` — the production GP fit, ``pretrain_gp_3dof`` under
   the dispersed plant, whose GP then serves the GP-MPC cycle;
 - :func:`calibration_path` — the bound-riding GP-MPC cycle of the
@@ -33,7 +35,11 @@ kernel selected (``use_pallas="auto"``):
   set, the interior-point solver on the condensed convex-hull QP, the
   successful trajectories joining the set between rounds, for the 3-DoF
   and the 6-DoF model; :func:`fly_lmpc_fleet` flies it and returns the
-  script's result dictionary;
+  script's result dictionary, checkpointing each round and resuming after
+  the last one completed (the script's ``--checkpoint``);
+- :func:`sharded_campaign_path` — the 2048-lane 3-DoF GP-MPC campaign with
+  the lanes sharded over the process group (``scripts/run_campaign_tpu.py
+  --controller gp_mpc --rt --sharded``), flown by :func:`fly_sharded_campaign`;
 - the safety-filtered campaigns: :func:`safety_rescue_path` (the RTI
   controller flying into a low-altitude downdraft behind the funnel
   filter) and :func:`safety_gpmpc_path` (the GP-MPC campaign behind the
@@ -53,6 +59,8 @@ kernel selected (``use_pallas="auto"``):
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
 import os
 import time
@@ -74,11 +82,13 @@ from .mpc import (GPMPCConfig, RTIConfig, gp_mpc_solve, make_gp_mpc_controller,
                   make_rti_controller, rti_closed_loop, rti_config_6dof)
 from .mpc.constraints import normal_quantile
 from .ops.qp import ADMMConfig
+from .parallel import run_sharded_campaign
 from .reference import cubic_descent_reference, pad_reference
 from .safety import (DescentFunnelSet, EllipsoidalInvariantSet, EmergencyBrakingController,
                      SafetyFilterConfig, filtered_controller_info, make_filtered_controller)
 from .terminal import SafeSet, knn_bucket, trim
 from .terminal import prune as prune_safe_set
+from .utils import CampaignCheckpointer
 
 N = 20
 BATCH = 512
@@ -138,6 +148,30 @@ def rti_path(device: DeviceLike = "cuda") -> RTIPath:
     cfg = RTIConfig(
         N=N, accept_pri_tol=5e-3, condensed=True, x_bound_mask=(False,) * 7,
         admm=ADMMConfig(max_iter=ADMM_ITERS, polish=False, adaptive_rho=False, scaling=2,
+                        use_pallas="auto"),
+        device=dev,
+    )
+    xT = torch.zeros(7, device=dev)
+    xT[0] = 2.0
+    return RTIPath(params=p, F=lambda x, u: r3.step(p, x, u, DT), config=cfg, x_target=xT)
+
+
+RTI_WARM_ITERS = 50  # bench_variants.py's "sparse_warm": 50 iterations, two chunks of 25
+
+
+def rti_warm_path(device: DeviceLike = "cuda", warm_kkt: bool = True) -> RTIPath:
+    """``scripts/bench_variants.py``'s ``"sparse_warm"`` (``:29-32``), the
+    configuration ``scripts/profile_cycle.py`` profiles: the sparse-form QP
+    (n = 207, m = 354), 50 fixed-ρ iterations in chunks of 25 without polish,
+    three Ruiz passes, ``accept_pri_tol`` 5e-3, and the KKT inverse carried
+    across cycles (``warm_kkt``; False gives the same cycle factoring by
+    Cholesky every cycle). The plant is the nominal model; the fleet is
+    :func:`fleet_x0`, ``scripts/profile_cycle.py``'s states (``:39-40``)."""
+    dev = resolve_device(device)
+    p = Rocket3DoFParams(device=dev)
+    cfg = RTIConfig(
+        N=N, accept_pri_tol=5e-3, warm_kkt=warm_kkt,
+        admm=ADMMConfig(max_iter=RTI_WARM_ITERS, polish=False, adaptive_rho=False, scaling=3,
                         use_pallas="auto"),
         device=dev,
     )
@@ -681,10 +715,20 @@ def _seed_rti_6dof(p: Rocket6DoFParams, F: Callable, xT: torch.Tensor, cfg: LMPC
     return x0[0], X, U, default_stage_cost(X, U, xT, cfg)
 
 
+def _lmpc_meta(checkpoint: Optional[str]) -> Optional[Dict]:
+    """The campaign's ``meta.json`` in ``checkpoint``, if one was written."""
+    path = os.path.join(checkpoint, "meta.json") if checkpoint else None
+    if path is None or not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
 def lmpc_fleet_path(model: str = "3dof", device: DeviceLike = "cuda", solver: str = "ipm",
                     touchdown_weight: float = 250.0, pool: int = 0,
                     pool_dist_weight: float = 0.0, same_traj: bool = False,
-                    vertex_memory: bool = False, elide: bool = False) -> LMPCFleetPath:
+                    vertex_memory: bool = False, elide: bool = False,
+                    checkpoint: Optional[str] = None) -> LMPCFleetPath:
     """The fleet-LMPC campaign of ``scripts/run_fleet_lmpc_tpu.py``, its
     configuration and seed flight. The keyword arguments are the script's
     flags (``--solver``, ``--touchdown-weight``, ``--pool``,
@@ -700,8 +744,18 @@ def lmpc_fleet_path(model: str = "3dof", device: DeviceLike = "cuda", solver: st
       horizontal ±0.4, velocity ±0.25/0.05/0.05.
 
     ``elide`` drops the loose-envelope state-bound rows (3-DoF: all seven;
-    6-DoF: the seven translation ones)."""
+    6-DoF: the seven translation ones). With ``checkpoint``, a directory
+    holding a campaign's ``meta.json`` pins ``solver`` and
+    ``touchdown_weight`` to the campaign's before the seed is built: every
+    stored cost-to-go is on that scale (``run_fleet_lmpc_tpu.py:174-190``)."""
     dev = resolve_device(device)
+    meta = _lmpc_meta(checkpoint)
+    if meta is not None:
+        pinned = (meta["solver"], meta["touchdown_speed_weight"])
+        if pinned != (solver, touchdown_weight):
+            print(f"resume: pinning solver {solver} -> {pinned[0]}, touchdown weight "
+                  f"{touchdown_weight} -> {pinned[1]} (campaign meta)")
+        solver, touchdown_weight = pinned
     knobs = dict(solver=solver, touchdown_speed_weight=touchdown_weight, candidate_pool=pool,
                  candidate_dist_weight=pool_dist_weight, hull_same_trajectory=same_traj,
                  vertex_memory=vertex_memory, device=dev)
@@ -740,13 +794,20 @@ def lmpc_fleet_x0(lp: LMPCFleetPath, generator: torch.Generator,
     return x0s
 
 
+def lmpc_capacity(lp: LMPCFleetPath, batch: int, rounds: int, steps: int = LMPC_STEPS) -> int:
+    """The safe set's capacity that holds the seed and every round: the
+    smallest power of two above their rows (:func:`fly_lmpc_fleet`'s
+    default)."""
+    return 1 << (batch * (steps + 1) * rounds + lp.seed[0].shape[0]).bit_length()
+
+
 def _r(v, nd):
     return None if v is None else round(float(v), nd)
 
 
 def fly_lmpc_fleet(lp: LMPCFleetPath, x0s: torch.Tensor, rounds: int = LMPC_ROUNDS,
                    steps: int = LMPC_STEPS, capacity: int = 0,
-                   prune: Optional[str] = None) -> tuple:
+                   prune: Optional[str] = None, checkpoint: Optional[str] = None) -> tuple:
     """Fly the campaign (``scripts/run_fleet_lmpc_tpu.py:319-480``): the safe
     set starts from the seed flight; every round reads the probe's value
     estimate V(x0) at the seed's state (``lmpc_plan_value``, LMPC_SETTLE
@@ -757,6 +818,16 @@ def fly_lmpc_fleet(lp: LMPCFleetPath, x0s: torch.Tensor, rounds: int = LMPC_ROUN
     "diversity") prunes to 80% of capacity once it is 90% full; capacity 0
     sizes the set to hold every round (pair ``prune`` with a smaller one).
 
+    ``checkpoint`` is the script's ``--checkpoint``: a directory where
+    ``meta.json`` (capacity, solver, touchdown weight; the capacity is part
+    of the stored shapes, so a resume keeps it whatever ``rounds`` says),
+    a checkpoint of the safe set and the probe's hull vertices after every
+    round (``utils.CampaignCheckpointer``) and ``rounds.json`` (the rounds'
+    summaries) are written. A later call resumes after the last completed
+    round without flying it again; build its path with
+    ``lmpc_fleet_path(..., checkpoint=)`` so that the solver and the
+    shaping are the campaign's (``ValueError`` otherwise).
+
     Returns (the script's result dictionary with every round's summary and
     the campaign's ``probe_*`` fields, the final safe set). Times are this
     device's wall clock; a round's summary adds ``cycles`` (the solves its
@@ -766,12 +837,37 @@ def fly_lmpc_fleet(lp: LMPCFleetPath, x0s: torch.Tensor, rounds: int = LMPC_ROUN
     batch, n_x = x0s.shape
     Xs, Us, Cs = lp.seed
     seed_cost = float(Cs.sum())
-    cap = capacity or 1 << (batch * (steps + 1) * rounds + Xs.shape[0]).bit_length()
+    cap = capacity or lmpc_capacity(lp, batch, rounds, steps)
+    meta = _lmpc_meta(checkpoint)
+    if meta is not None:
+        cap = meta["capacity"]
+        if (meta["solver"], meta["touchdown_speed_weight"]) != (cfg.solver,
+                                                                cfg.touchdown_speed_weight):
+            raise ValueError(
+                f"the campaign in {checkpoint} flies solver {meta['solver']!r} and touchdown "
+                f"weight {meta['touchdown_speed_weight']}; build the path with "
+                f"lmpc_fleet_path(..., checkpoint=) to resume it")
+    elif checkpoint is not None:
+        os.makedirs(checkpoint, exist_ok=True)
+        with open(os.path.join(checkpoint, "meta.json"), "w") as f:
+            json.dump({"capacity": cap, "solver": cfg.solver,
+                       "touchdown_speed_weight": cfg.touchdown_speed_weight}, f)
     ss = SafeSet.create(cap, n_x, device=dev).add_trajectory(Xs, Us, Cs)
     probe_verts = torch.full((1, cfg.n_terminal_vertices), -1, dtype=torch.int32, device=dev)
     rounds_out, probe_costs = [], []
+    first_round, ckpt = 0, None
+    if checkpoint is not None:
+        ckpt = CampaignCheckpointer(checkpoint)
+        done, carry = ckpt.restore_latest({"safe_set": ss, "probe_verts": probe_verts})
+        if done is not None:
+            ss, probe_verts = carry["safe_set"], carry["probe_verts"]
+            with open(os.path.join(checkpoint, "rounds.json")) as f:
+                rounds_out = json.load(f)[:done]
+            probe_costs = [s["probe_lane_cost"] for s in rounds_out]
+            first_round = done
+            print(f"resumed after round {done} ({int(ss.n_trajectories)} trajectories)")
     t_start = time.time()
-    for r in range(rounds):
+    for r in range(first_round, rounds):
         t0 = time.time()
         hw = int(ss.written)
         bucket = knn_bucket(hw, cap)
@@ -822,7 +918,12 @@ def fly_lmpc_fleet(lp: LMPCFleetPath, x0s: torch.Tensor, rounds: int = LMPC_ROUN
         }
         rounds_out.append(summary)
         probe_costs.append(summary["probe_lane_cost"])
+        if ckpt is not None:
+            ckpt.save(r + 1, {"safe_set": ss, "probe_verts": probe_verts})
+            with open(os.path.join(checkpoint, "rounds.json"), "w") as f:
+                json.dump(rounds_out, f)
     wall = time.time() - t_start
+    flown = rounds - first_round
     values = [s["probe_plan_value"] for s in rounds_out]
     result = {
         "campaign": f"fleet_lmpc_{lp.model}",
@@ -856,9 +957,10 @@ def fly_lmpc_fleet(lp: LMPCFleetPath, x0s: torch.Tensor, rounds: int = LMPC_ROUN
                                        if i + 1 < len(rounds_out) else None)}
             for i, s in enumerate(rounds_out) if s["pruned_to"] is not None],
         "final_success_rate": rounds_out[-1]["success_rate"],
-        "episodes_flown": batch * rounds,
-        "episodes_per_s": round(batch * rounds / wall, 2),
-        "lmpc_cycles_per_s": round(batch * steps * rounds / wall, 1),
+        "resumed_after_round": first_round or None,
+        "episodes_flown": batch * flown,
+        "episodes_per_s": round(batch * flown / wall, 2),
+        "lmpc_cycles_per_s": round(batch * steps * flown / wall, 1),
         "wall_s": round(wall, 1),
         "per_round": rounds_out,
     }
@@ -878,6 +980,13 @@ def gpmpc_campaign_gp(generator: torch.Generator, device: DeviceLike = "cuda"):
                             fp.F_true, dt=DT, device=resolve_device(device))
 
 
+def _campaign_controller(fp: OnlinePath, mean_fn: Callable, var_fn: Callable):
+    """(cinit, cstep) of the GP-MPC campaigns: ``fp``'s GP-MPC configuration
+    with the campaign's GP, every lane tracking its cubic reference."""
+    return make_gp_mpc_controller(fp.F, mean_fn, var_fn, fp.config.mpc, fp.x_target,
+                                  reference_fn=fp.reference_fn, ref_horizon=fp.sim.max_steps)
+
+
 def fly_gpmpc_campaign(mean_fn: Callable, var_fn: Callable, x0s: torch.Tensor) -> tuple:
     """``scripts/run_campaign_tpu.py --model 3dof --controller gp_mpc --rt
     --elide`` (``:91-110``, ``:143-160``): the main path's real-time GP-MPC
@@ -886,11 +995,49 @@ def fly_gpmpc_campaign(mean_fn: Callable, var_fn: Callable, x0s: torch.Tensor) -
     steps, judged by the outcome state machine. Returns (per-lane results,
     ``campaign_statistics``)."""
     fp = online_flight_path("3dof", x0s.device)
-    cinit, cstep = make_gp_mpc_controller(fp.F, mean_fn, var_fn, fp.config.mpc, fp.x_target,
-                                          reference_fn=fp.reference_fn,
-                                          ref_horizon=fp.sim.max_steps)
-    res = run_campaign(cinit, cstep, fp.F_true, x0s, fp.sim)
+    res = run_campaign(*_campaign_controller(fp, mean_fn, var_fn), fp.F_true, x0s, fp.sim)
     return res, campaign_statistics(res)
+
+
+SHARDED_LANES = 2048  # artifacts/campaign_sharded_parity_cpu8_2048.json's width
+SHARDED_LANES_PER_DEVICE = 256  # its lanes a device (8 devices)
+
+
+def sharded_campaign_path(device: DeviceLike = "cuda") -> OnlinePath:
+    """``scripts/run_campaign_tpu.py --model 3dof --controller gp_mpc --rt
+    --sharded --parity --batch 2048 --steps 130``, as the artifact and
+    ``docs/scaling.md:106`` ran it: :func:`fly_gpmpc_campaign`'s campaign
+    without ``--elide``, so the state-bound rows stay in the condensed QP
+    (n = 60, m = 200: 140 block-lower-triangular rows and the 60 diagonal
+    ones; 50 iterations in one chunk). Initial states:
+    :func:`sharded_campaign_x0`."""
+    fp = online_flight_path("3dof", device)
+    mpc = fp.config.mpc
+    return fp._replace(config=dataclasses.replace(
+        fp.config, mpc=mpc.replace(base=mpc.base.replace(x_bound_mask=None))))
+
+
+def sharded_campaign_x0(generator: torch.Generator, batch: int = SHARDED_LANES,
+                        device: DeviceLike = "cuda") -> torch.Tensor:
+    """``sample_initial_conditions`` at altitude 30 ± 2 m (the script's
+    ``--steps 130`` scenario)."""
+    return sample_initial_conditions(generator, ONLINE_SIM["3dof"], batch, n_x=7, device=device)
+
+
+def fly_sharded_campaign(mean_fn: Callable, var_fn: Callable, x0s: torch.Tensor,
+                         mesh=None, **campaign_kw) -> Dict:
+    """The sharded campaign: with a ``mesh`` (``parallel.hosts_chips_mesh``
+    or ``scenario_mesh``), every rank is handed the global ``x0s`` and flies
+    its block (``parallel.run_sharded_campaign``); without one, every lane
+    of ``x0s`` in this process (the script's ``--parity`` re-fly).
+    ``campaign_kw`` goes to ``run_campaign`` (``store_trajectories``).
+    Returns ``{"results", "lanes", "stats"}`` either way."""
+    fp = sharded_campaign_path(x0s.device)
+    cinit, cstep = _campaign_controller(fp, mean_fn, var_fn)
+    if mesh is not None:
+        return run_sharded_campaign(mesh, cinit, cstep, fp.F_true, x0s, fp.sim, **campaign_kw)
+    res = run_campaign(cinit, cstep, fp.F_true, x0s, fp.sim, **campaign_kw)
+    return {"results": res, "lanes": slice(0, x0s.shape[0]), "stats": campaign_statistics(res)}
 
 
 # -- the safety-filtered campaigns -------------------------------------------

@@ -14,8 +14,16 @@ linearized state rows (``stage_rows_fn(X_lin (B,N+1,n_x)) → Gx
 (B,N,n_gx,n_x), gx_l, gx_u``) enter the condensed one, as in the JAX package.
 
 ``base.solver="ipm"`` solves the condensed QP with the interior-point
-solver; the ADMM carry (ρ and duals) rides through it. Not ported
-(``NotImplementedError``): ``warm_kkt``.
+solver; the ADMM carry (ρ and duals) rides through it.
+
+``warm_kkt`` (the sparse form only, as in the JAX package) carries the KKT
+inverse across SCP iterations and control steps: :func:`gp_mpc_init`
+(given ``step_fn`` and the live ``gp_mean_fn``) freezes each lane's Ruiz
+scaling on the QP of the augmented rollout from x0 and factors it once;
+every subproblem then refreshes the inverse by Newton–Schulz, and a lane
+whose SCP loop is done keeps its inverse. The condensed form with
+``warm_kkt`` raises ``ValueError``: its matrix is rebuilt by every
+re-linearization and the refresh loses track of it.
 """
 
 from __future__ import annotations
@@ -28,10 +36,11 @@ from torch.profiler import record_function
 
 from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics.linearize import trajectory_jacobians
-from ..ops.qp import (SOLVED, IPMConfig, build_condensed_qp, build_mpc_qp, extend_qp, join_z,
-                      recover_states, solve, solve_ipm, split_z)
+from ..ops.qp import (SOLVED, IPMConfig, Scaling, build_condensed_qp, build_mpc_qp, extend_qp,
+                      join_z, recover_states, solve, solve_ipm, split_z)
 from .constraints import normal_quantile
-from .rti import RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows, _stage_rows
+from .rti import (RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows, _stage_rows,
+                  init_kkt_carry)
 from .uncertainty_prop import box_tightening, propagate_linear
 
 Tensor = torch.Tensor
@@ -81,6 +90,11 @@ class GPMPCState:
     x_ref: Tensor  # (B, N+1, n_x)
     rho: Tensor  # (B,)
     y_prev: Tensor  # (B, m) ADMM dual warm start
+    # the warm-KKT carry (None unless config.warm_kkt), as in RTIState
+    kkt_inv: Optional[Tensor] = None  # (B, n, n)
+    scal_D: Optional[Tensor] = None
+    scal_E: Optional[Tensor] = None
+    scal_c: Optional[Tensor] = None
 
     def replace(self, **kw) -> "GPMPCState":
         return replace(self, **kw)
@@ -88,9 +102,10 @@ class GPMPCState:
 
 def _check_supported(config: GPMPCConfig) -> None:
     cfg = config.base
-    if config.warm_kkt:
-        raise NotImplementedError(
-            "GP-MPC warm_kkt (KKT inverse carried across cycles) is not ported yet")
+    if config.warm_kkt and cfg.condensed:
+        raise ValueError(
+            "condensed GP-MPC does not support warm_kkt (and does not need it: the "
+            "condensed factorization is cheap; use condensed alone)")
     if cfg.solver == "ipm" and not cfg.condensed:
         raise ValueError(
             "solver='ipm' requires the condensed form (the sparse z=[X;U] "
@@ -189,7 +204,7 @@ def gp_mpc_solve(
 
     admm_cfg = _condensed_admm_cfg(cfg) if cfg.condensed else cfg.admm
     X_lin, U_lin = X_sim, state.U_lin
-    rho, y_prev = state.rho, state.y_prev
+    rho, y_prev, kkt_inv = state.rho, state.y_prev, state.kkt_inv
     done = torch.zeros(Bsz, dtype=torch.bool, device=x0.device)
     any_ok = torch.zeros_like(done)
     Sigmas = None
@@ -234,7 +249,16 @@ def gp_mpc_solve(
                     # facet rows ride along in every SCP subproblem, as in RTI
                     data = extend_qp(data, *_stage_rows(cfg))
             with record_function("gpmpc.admm_solve"):
-                sol = solve(data, join_z(X_lin, U_lin), y_prev, admm_cfg, rho0=rho)
+                if config.warm_kkt:
+                    sol = solve(data, join_z(X_lin, U_lin), y_prev, admm_cfg, rho0=rho,
+                                fixed_scaling=Scaling(D=state.scal_D, E=state.scal_E,
+                                                      c=state.scal_c),
+                                kkt_inv0=kkt_inv)
+                    # a lane whose SCP loop is done keeps its inverse, so that
+                    # later steps resume the refresh from its last live one
+                    kkt_inv = torch.where(done[:, None, None], kkt_inv, sol.kkt_inv)
+                else:
+                    sol = solve(data, join_z(X_lin, U_lin), y_prev, admm_cfg, rho0=rho)
             X_new, U_new = split_z(sol.x, N, cfg.n_x, n_u)
 
         # accept primal-feasible plans below the tolerance even when the dual
@@ -260,7 +284,8 @@ def gp_mpc_solve(
     # re-anchor the trajectory at the measured state for the next cycle
     X_shift = torch.cat([X_opt[:, 1:], X_opt[:, -1:]], dim=1)
     U_shift = torch.cat([U_opt[:, 1:], U_opt[:, -1:]], dim=1)
-    new_state = state.replace(X_lin=X_shift, U_lin=U_shift, rho=rho, y_prev=y_prev)
+    new_state = state.replace(X_lin=X_shift, U_lin=U_shift, rho=rho, y_prev=y_prev,
+                              **({"kkt_inv": kkt_inv} if config.warm_kkt else {}))
 
     e = X_opt - state.x_ref
     cost = (torch.einsum("bki,ij,bkj->b", e[:, :-1], cfg.Q, e[:, :-1])
@@ -279,11 +304,16 @@ def gp_mpc_solve(
 def gp_mpc_init(
     config: GPMPCConfig, x0, x_target,
     X_init: Optional[Tensor] = None, U_init: Optional[Tensor] = None,
+    step_fn: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
+    gp_mean_fn: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
     device: DeviceLike = "cuda",
 ) -> GPMPCState:
     """Initial state for a batch of lanes: x0 (B, n_x), x_target (n_x,).
     The linearization trajectory interpolates x0 → x_target; the controls
-    start at [m₀, 0, 0] (hover thrust in normalized units)."""
+    start at [m₀, 0, 0] (hover thrust in normalized units). With
+    ``config.warm_kkt`` pass ``step_fn`` (and the live ``gp_mean_fn``, if
+    any): each lane's Ruiz scaling and KKT inverse come from the QP of the
+    augmented rollout from x0, the one the first SCP iteration sees."""
     _check_supported(config)
     dev = resolve_device(device)
     cfg = config.base
@@ -301,12 +331,23 @@ def gp_mpc_init(
         U_lin[:, :, 0] = x0[:, 0:1]
     else:
         U_lin = as_f32(U_init, dev)
+    x_ref = xT.expand(Bsz, N + 1, cfg.n_x).clone()
+    warm = {}
+    if config.warm_kkt:
+        if step_fn is None:
+            raise ValueError("warm_kkt requires gp_mpc_init(..., step_fn=...)")
+        mean = gp_mean_fn or (lambda x, u: torch.zeros_like(x))
+        X_fact = _rollout(step_fn, x0, U_lin, cfg.dt, lambda k, x, u: mean(x, u))
+        Aks, Bks, cks = trajectory_jacobians(step_fn, X_fact, U_lin)
+        data = build_mpc_qp(Aks, Bks, cks, x0, cfg.Q, cfg.R, cfg.Qf, x_ref,
+                            cfg.x_min, cfg.x_max, cfg.u_min, cfg.u_max)
+        if cfg.Gx is not None or cfg.Gu is not None:
+            data = extend_qp(data, *_stage_rows(cfg))
+        warm = init_kkt_carry(data, cfg.admm)
     return GPMPCState(
-        X_lin=X_lin, U_lin=U_lin,
-        x_ref=xT.expand(Bsz, N + 1, cfg.n_x).clone(),
+        X_lin=X_lin, U_lin=U_lin, x_ref=x_ref,
         rho=torch.full((Bsz,), cfg.admm.rho, device=dev),
-        y_prev=torch.zeros(Bsz, _n_rows(cfg), device=dev),
-    )
+        y_prev=torch.zeros(Bsz, _n_rows(cfg), device=dev), **warm)
 
 
 def make_gp_mpc_controller(
@@ -325,7 +366,8 @@ def make_gp_mpc_controller(
     dev = config.base.device
 
     def cinit(x0):
-        state = gp_mpc_init(config, x0, x_target, device=dev)
+        warm = (dict(step_fn=step_fn, gp_mean_fn=gp_mean_fn) if config.warm_kkt else {})
+        state = gp_mpc_init(config, x0, x_target, device=dev, **warm)
         if reference_fn is None:
             return state
         X_ref_full = reference_fn(as_f32(x0, dev))

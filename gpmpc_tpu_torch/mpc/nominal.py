@@ -60,7 +60,8 @@ class NominalMPC:
                             state, x)
 
     def setup(self, x0: Tensor, x_target: Tensor) -> None:
-        self._state = gp_mpc_init(self.config, x0, x_target, device=self.device)
+        self._state = gp_mpc_init(self.config, x0, x_target, device=self.device,
+                                  step_fn=self.step_fn if self.config.warm_kkt else None)
 
     def solve(self, x0: Tensor, x_target: Optional[Tensor] = None) -> MPCSolution:
         """Receding-horizon solve of every lane of x0 (B, n_x), warm started

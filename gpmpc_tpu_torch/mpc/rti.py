@@ -14,8 +14,14 @@ called on the whole batch for rollouts and differentiated knot by knot with
 
 ``solver="ipm"`` solves the condensed QP with the interior-point solver
 (no equality rows once x0 is eliminated); the ADMM carry (ρ and duals)
-rides through it unchanged. Not ported (``NotImplementedError``):
-``warm_kkt=True``.
+rides through it unchanged.
+
+``warm_kkt=True`` carries the KKT inverse across cycles in either form:
+:func:`rti_init` (given ``step_fn``) freezes each lane's Ruiz scaling on the
+QP the first cycle will see and factors it once; every cycle then solves
+under that scaling with the inverse refreshed by Newton–Schulz
+(``ADMMConfig.ns_iters``) and carries the refreshed inverse on. It does not
+compose with ``solver="ipm"`` (``ValueError``, no inverse to carry).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ..ops.qp import (
     SOLVED,
     ADMMConfig,
     IPMConfig,
+    Scaling,
     build_condensed_qp,
     build_mpc_qp,
     build_stage_rows,
@@ -42,6 +49,8 @@ from ..ops.qp import (
     solve_ipm,
     split_z,
 )
+from ..ops.qp.admm import _factor, _rho_vec
+from ..ops.qp.ruiz import ruiz_equilibrate
 
 Tensor = torch.Tensor
 
@@ -167,13 +176,6 @@ def _condensed_admm_cfg(config) -> ADMMConfig:
     return config.admm.replace(row_structure=tuple(segs))
 
 
-def _check_supported(config: RTIConfig) -> None:
-    if config.warm_kkt:
-        raise NotImplementedError(
-            "warm_kkt (KKT inverse carried across cycles, Newton–Schulz "
-            "refresh) is not ported yet")
-
-
 def _stage_rows(config):
     """(A_ext, l_ext, u_ext) for the configured facet rows."""
     if config.Gx is not None and config.Gx.dim() == 3:
@@ -201,10 +203,12 @@ def _build_rti_qp(config, Aks, Bks, cks, x_current, x_ref):
 def _solve_qp(config, state, Aks, Bks, cks, x_current, z0_XU, y0):
     """Solve every lane's RTI subproblem in the configured formulation;
     returns (sol, X_sol, U_sol). ``z0_XU`` is the (X, U) primal warm start."""
-    _check_supported(config)
     N = config.N
     X0, U0 = z0_XU
     Bsz = x_current.shape[0]
+    # the warm-KKT carry: the frozen scaling and the previous inverse
+    warm = (dict(fixed_scaling=Scaling(D=state.scal_D, E=state.scal_E, c=state.scal_c),
+                 kkt_inv0=state.kkt_inv) if config.warm_kkt else {})
     if config.condensed:
         with record_function("rti.qp_build"):
             Gx, gx_l, gx_u = _gx_rows(config, state.X_lin)
@@ -217,13 +221,16 @@ def _solve_qp(config, state, Aks, Bks, cks, x_current, z0_XU, y0):
             # the condensed box QP has no equality rows (x0 is eliminated);
             # the IPM has no penalty to carry and its f32 duals do not enter
             # the dual warm start: ρ and y0 ride through
+            if config.warm_kkt:
+                raise ValueError("solver='ipm' does not compose with warm_kkt "
+                                 "(no KKT inverse to carry)")
             with record_function("rti.ipm"):
                 sol = replace(solve_ipm(data, IPMConfig(n_eq=0, iters=config.ipm_iters)),
                               rho=state.rho, y=y0)
         else:
             with record_function("rti.admm_solve"):
                 sol = solve(data, U0.reshape(Bsz, -1), y0, _condensed_admm_cfg(config),
-                            rho0=state.rho)
+                            rho0=state.rho, **warm)
         return sol, recover_states(Gs, ds, sol.x, x_current), sol.x.reshape(Bsz, N, config.n_u)
     if config.solver == "ipm":
         raise ValueError(
@@ -232,7 +239,7 @@ def _solve_qp(config, state, Aks, Bks, cks, x_current, z0_XU, y0):
     with record_function("rti.qp_build"):
         data = _build_rti_qp(config, Aks, Bks, cks, x_current, state.x_ref)
     with record_function("rti.admm_solve"):
-        sol = solve(data, join_z(X0, U0), y0, config.admm, rho0=state.rho)
+        sol = solve(data, join_z(X0, U0), y0, config.admm, rho0=state.rho, **warm)
     X_sol, U_sol = split_z(sol.x, N, config.n_x, config.n_u)
     return sol, X_sol, U_sol
 
@@ -248,9 +255,28 @@ class RTIState:
     y_prev: Tensor  # (B, m) dual warm start
     rho: Tensor  # (B,) adapted ADMM penalty
     x_ref: Tensor  # (B, N+1, n_x) reference
+    # the warm-KKT carry (None unless config.warm_kkt): the scaled-space KKT
+    # inverse (B, n, n) and the Ruiz scaling frozen at init
+    kkt_inv: Optional[Tensor] = None
+    scal_D: Optional[Tensor] = None  # (B, n)
+    scal_E: Optional[Tensor] = None  # (B, m)
+    scal_c: Optional[Tensor] = None  # (B,)
 
     def replace(self, **kw) -> "RTIState":
         return replace(self, **kw)
+
+
+def freeze_lanes(mask: Tensor, old, new):
+    """A state of ``new``'s type with each lane's tensors from ``old`` where
+    ``mask`` (B,) is set and from ``new`` elsewhere; a field that is None
+    (a warm-KKT carry that is off) stays None."""
+    def pick(a, b):
+        if a is None:
+            return b
+        return torch.where(mask.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+
+    return type(new)(**{f.name: pick(getattr(old, f.name), getattr(new, f.name))
+                        for f in fields(new)})
 
 
 class RTISolution(NamedTuple):
@@ -283,9 +309,12 @@ def rti_init(
     """Initial state for a batch of lanes, on ``config.device``: x0 (B, n_x),
     x_target (n_x,). The linearization trajectory interpolates x0 →
     x_target; the controls start at ``u_hover`` ((n_u,) or (B, n_u); default
-    [m₀, 0, 0], hover thrust in normalized units). ``step_fn`` is taken for
-    the JAX signature's sake: only ``warm_kkt`` reads it."""
-    _check_supported(config)
+    [m₀, 0, 0], hover thrust in normalized units). With ``config.warm_kkt``
+    pass ``step_fn``: each lane's Ruiz scaling and KKT inverse are computed
+    on the QP the first cycle will see (with ``reanchor``, the rollout of the
+    controls from x0, not the interpolation: an inverse that starts outside
+    the Newton–Schulz convergence region never recovers); only warm_kkt
+    reads it."""
     dev = config.device
     N = config.N
     x0 = as_f32(x0, dev)
@@ -303,12 +332,38 @@ def rti_init(
         U_lin = as_f32(u_hover, dev).expand(Bsz, config.n_u)[:, None].repeat(1, N, 1)
     else:
         U_lin = as_f32(U_init, dev)
+    x_ref = xT.expand(Bsz, N + 1, config.n_x).clone()
+    warm = {}
+    if config.warm_kkt:
+        if step_fn is None:
+            raise ValueError("warm_kkt requires rti_init(..., step_fn=...)")
+        X_fact = _rollout(step_fn, x0, U_lin) if config.reanchor else X_lin
+        Aks, Bks, cks = trajectory_jacobians(step_fn, X_fact, U_lin)
+        if config.condensed:
+            Gx, gx_l, gx_u = _gx_rows(config, X_fact)
+            data, _, _ = build_condensed_qp(
+                Aks, Bks, cks, x0, config.Q, config.R, config.Qf, x_ref,
+                config.x_min, config.x_max, config.u_min, config.u_max,
+                Gx, gx_l, gx_u, config.Gu, config.gu_l, config.gu_u,
+                x_bound_mask=config.x_bound_mask)
+        else:
+            data = _build_rti_qp(config, Aks, Bks, cks, x0, x_ref)
+        warm = init_kkt_carry(data, config.admm)
     return RTIState(
         X_lin=X_lin, U_lin=U_lin, X_prev=X_lin, U_prev=U_lin,
         y_prev=torch.zeros(Bsz, _n_rows(config), device=dev),
-        rho=torch.full((Bsz,), config.admm.rho, device=dev),
-        x_ref=xT.expand(Bsz, N + 1, config.n_x).clone(),
-    )
+        rho=torch.full((Bsz,), config.admm.rho, device=dev), x_ref=x_ref, **warm)
+
+
+def init_kkt_carry(data, admm: ADMMConfig) -> dict:
+    """The warm-KKT carry of a batch of QPs: the Ruiz scaling (at least 3
+    passes) frozen for every later solve and the KKT inverse at ρ =
+    ``admm.rho``, as the state fields ``kkt_inv``, ``scal_D``, ``scal_E``,
+    ``scal_c``."""
+    sdata, scal = ruiz_equilibrate(data, max(admm.scaling, 3))
+    rho_v = _rho_vec(sdata.l, sdata.u, torch.full_like(scal.c, admm.rho))
+    return dict(kkt_inv=_factor(sdata.P, sdata.A, rho_v, admm.sigma),
+                scal_D=scal.D, scal_E=scal.E, scal_c=scal.c)
 
 
 def _rollout(step_fn, x0, U) -> Tensor:
@@ -336,9 +391,11 @@ def rti_feedback(config: RTIConfig, state: RTIState, prepared, x_current
     # fallback: a lane whose QP failed reuses its shifted previous solution
     X_opt = torch.where(ok[:, None, None], X_sol, state.X_prev)
     U_opt = torch.where(ok[:, None, None], U_sol, state.U_prev)
+    # the refreshed KKT inverse rides on whether the plan was accepted or not
     new_state = state.replace(
         X_lin=X_opt, U_lin=U_opt, X_prev=_shift(X_opt), U_prev=_shift(U_opt),
-        y_prev=torch.where(ok[:, None], sol.y, state.y_prev), rho=sol.rho)
+        y_prev=torch.where(ok[:, None], sol.y, state.y_prev), rho=sol.rho,
+        **({"kkt_inv": sol.kkt_inv} if config.warm_kkt else {}))
     return (
         RTISolution(
             u0=U_opt[:, 0], X_opt=X_opt, U_opt=U_opt,
@@ -399,7 +456,7 @@ def make_rti_controller(step_fn, config: RTIConfig, x_target,
     controller state."""
 
     def cinit(x0):
-        state = rti_init(config, x0, x_target)
+        state = rti_init(config, x0, x_target, step_fn=step_fn if config.warm_kkt else None)
         if reference_fn is None:
             return state
         X_ref_full = reference_fn(as_f32(x0, config.device))
@@ -433,7 +490,7 @@ def rti_closed_loop(step_fn, config: RTIConfig, x0, x_target, n_steps: int,
     plant = sim_step_fn or step_fn
     x = as_f32(x0, config.device)
     Bsz = x.shape[0]
-    state = rti_init(config, x, x_target)
+    state = rti_init(config, x, x_target, step_fn=step_fn if config.warm_kkt else None)
     landed = torch.zeros(Bsz, dtype=torch.bool, device=x.device)
     steps = torch.zeros(Bsz, dtype=torch.int32, device=x.device)
     Xs, Us, succ = [x], [], []
@@ -444,11 +501,7 @@ def rti_closed_loop(step_fn, config: RTIConfig, x0, x_target, n_steps: int,
         sol, state_new = rti_step(step_fn, config, state, x)
         x_next = plant(x, sol.u0)
         x = torch.where(landed[:, None], x, x_next)
-        state = RTIState(**{
-            f.name: torch.where(
-                landed.reshape(-1, *([1] * (getattr(state, f.name).dim() - 1))),
-                getattr(state, f.name), getattr(state_new, f.name))
-            for f in fields(RTIState)})
+        state = freeze_lanes(landed, state, state_new)
         steps = steps + (~landed).to(torch.int32)
         Xs.append(x)
         Us.append(torch.where(landed[:, None], torch.zeros_like(sol.u0), sol.u0))

@@ -2,8 +2,9 @@
 
 Route: ``nvcc`` by hand into a ``.so`` with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go to
-``build/`` at the repository root, named by a hash of the sources and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``build/`` at the repository root (``utils/compile_cache.py`` moves the
+directory), named by a hash of the sources and the flags, so an edited
+source is rebuilt and an unchanged one is reused.
 Nothing is compiled at import time: the first launch builds.
 """
 

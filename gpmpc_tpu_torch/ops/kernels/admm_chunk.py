@@ -47,6 +47,9 @@ applies through its diagonal wherever the segment stands among the rows.
   body of ``make_admm_chunk_lanes``'s unbatched path, with A applied as
   the JAX solver's streamed path applies a row structure). The CPU tests use
   it and the chip smoke test holds the kernel against it.
+- :func:`make_admm_chunk_lanes` — the JAX factory's counterpart: the same
+  wrapper with ``iters``, ``sigma`` and ``alpha`` bound (one kernel serves
+  both TPU kernels, lanes first).
 - :func:`variant`, :func:`cluster_size` — which variant a shape and lane
   count launch, and over how many CTAs a lane.
 - ``LAUNCHES`` — incremented once per kernel launch, and nowhere else;
@@ -154,9 +157,13 @@ def _bmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.bmm(M, v[:, :, None])[:, :, 0]
 
 
-def make_A_ops(ops: tuple, n: int):
-    """(A_apply, AT_apply) on batched vectors from compacted structure ops."""
+def make_A_ops(ops: tuple, n: int, cast=None):
+    """(A_apply, AT_apply) on batched vectors from compacted structure ops.
+    ``cast``, if given, is applied to the vector each matrix operand
+    multiplies ("diag" segments excepted): the solver's bf16 stream rounds
+    it as it rounds the operands."""
     pad = torch.nn.functional.pad
+    cv = cast or (lambda t: t)
 
     def A_apply(v):
         Bsz = v.shape[0]
@@ -164,18 +171,18 @@ def make_A_ops(ops: tuple, n: int):
         for op in ops:
             kind, M = op[0], op[1]
             if kind == "dense":
-                outs.append(_bmv(M, v))
+                outs.append(_bmv(M, cv(v)))
             elif kind == "diag":
                 outs.append(M * v[:, : M.shape[1]])
             elif kind == "blt":
-                outs.extend(_bmv(blk, v[:, : blk.shape[2]]) for blk in M)
+                outs.extend(_bmv(blk, cv(v[:, : blk.shape[2]])) for blk in M)
             elif kind == "blockdiag":
                 nb, w = M.shape[1], M.shape[3]
-                outs.append(torch.einsum("bkij,bkj->bki", M, v.reshape(Bsz, nb, w))
+                outs.append(torch.einsum("bkij,bkj->bki", M, cv(v.reshape(Bsz, nb, w)))
                             .reshape(Bsz, -1))
             else:  # blockdiag_shared: r_k · (B0 (c_k · v_k))
                 _, B0, r, c = op
-                cV = c * v.reshape(c.shape)
+                cV = cv(c * v.reshape(c.shape))
                 outs.append((r * torch.einsum("bij,bkj->bki", B0, cV)).reshape(Bsz, -1))
         return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
@@ -187,7 +194,7 @@ def make_A_ops(ops: tuple, n: int):
             kind, M = op[0], op[1]
             if kind == "dense":
                 nr = M.shape[1]
-                out = out + _bmv(M.transpose(1, 2), t[:, r0 : r0 + nr])
+                out = out + _bmv(M.transpose(1, 2), cv(t[:, r0 : r0 + nr]))
             elif kind == "diag":
                 nr = M.shape[1]
                 out = out + pad(M * t[:, r0 : r0 + nr], (0, n - nr))
@@ -195,18 +202,18 @@ def make_A_ops(ops: tuple, n: int):
                 nr = 0
                 for blk in M:
                     h, cols = blk.shape[1], blk.shape[2]
-                    ts = t[:, r0 + nr : r0 + nr + h]
+                    ts = cv(t[:, r0 + nr : r0 + nr + h])
                     out = out + pad(_bmv(blk.transpose(1, 2), ts), (0, n - cols))
                     nr += h
             elif kind == "blockdiag":
                 nb, h = M.shape[1], M.shape[2]
                 nr = nb * h
-                ts = t[:, r0 : r0 + nr].reshape(Bsz, nb, h)
+                ts = cv(t[:, r0 : r0 + nr].reshape(Bsz, nb, h))
                 out = out + torch.einsum("bkij,bki->bkj", M, ts).reshape(Bsz, -1)
             else:  # blockdiag_shared: c_k · (B0ᵀ (r_k · t_k))
                 _, B0, r, c = op
                 nr = r.shape[1] * r.shape[2]
-                rT = r * t[:, r0 : r0 + nr].reshape(r.shape)
+                rT = cv(r * t[:, r0 : r0 + nr].reshape(r.shape))
                 out = out + (c * torch.einsum("bij,bki->bkj", B0, rT)).reshape(Bsz, -1)
             r0 += nr
         return out
@@ -384,3 +391,18 @@ def admm_chunk(Minv, A, q, l, u, rho, x, z, y, iters: int, sigma: float,
         return admm_chunk_plain(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
                                 row_structure, E=E, D=D)
     raise ValueError(f"unsupported device {A.device}")
+
+
+def make_admm_chunk_lanes(iters: int, sigma: float, alpha: float):
+    """``chunk(Minv, A, q, l, u, rho, x, z, y, row_structure=None, E=None,
+    D=None) → (x, z, y)``: :func:`admm_chunk` with ``iters``, ``sigma`` and
+    ``alpha`` bound. The JAX factory builds a chunk for a lane that turns
+    into the multi-lane kernel under ``vmap``; here every call is lanes
+    first already, so the one kernel (or its plain version on a CPU tensor)
+    takes the batch."""
+
+    def chunk(Minv, A, q, l, u, rho, x, z, y, row_structure=None, E=None, D=None):
+        return admm_chunk(Minv, A, q, l, u, rho, x, z, y, iters=iters, sigma=sigma,
+                          alpha=alpha, row_structure=row_structure, E=E, D=D)
+
+    return chunk

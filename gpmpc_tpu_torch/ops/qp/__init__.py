@@ -1,6 +1,6 @@
 """Batched convex-QP solvers (counterpart of ``gpmpc_tpu/ops/qp``)."""
 
-from .admm import ADMMConfig, solve
+from .admm import ADMMConfig, solve, solve_batch, solve_jit
 from .ipm import IPMConfig, solve_ipm
 from .condensed import (
     build_condensed_qp,
@@ -36,5 +36,5 @@ __all__ = [
     "build_condensed_qp", "build_constraints", "build_cost", "build_mpc_qp",
     "build_stage_rows", "extend_qp", "join_z", "n_condensed_constraints",
     "n_constraints", "n_vars", "prediction_matrices", "recover_states",
-    "ruiz_equilibrate", "solve", "solve_ipm", "split_z",
+    "ruiz_equilibrate", "solve", "solve_batch", "solve_ipm", "solve_jit", "split_z",
 ]

@@ -25,8 +25,23 @@ residuals, and the chunk loop stops once every lane is done. ``polish``
 runs the active-set KKT polish on the unscaled exit point, per lane with
 masks instead of per-lane active sets.
 
-Not ported (each raises ``NotImplementedError``): ``kkt_inv0`` (warm KKT /
-Newton–Schulz refresh) and ``matvec_dtype="bf16"`` with its f32 tail.
+Successive solves can carry the adapted ρ (``rho0``), the Ruiz scaling
+(``fixed_scaling``) and the KKT inverse (``kkt_inv0``): the inverse is then
+refreshed by ``ns_iters`` Newton–Schulz steps in place of the Cholesky
+factorization, each lane keeping the refreshed inverse only where it
+lowered ‖MX − I‖ (plain batched matmuls, TF32 off; the chunk kernel takes
+the refreshed M⁻¹ like any other).
+
+``matvec_dtype="bf16"`` follows the JAX package's rule for each mode. On
+the streamed path (``use_pallas="off"``) every matrix operand but the
+"diag" segments and the vector it multiplies are rounded to bf16 and the
+products accumulate in f32 (the rounded operands are held as f32, which
+computes what a bf16 product with f32 accumulation computes); the KKT
+inverse is factored from the materialized rounded operator, and
+``tail_f32_iters`` f32 iterations with their own f32 factorization follow
+the bulk. On the kernel modes ("on", "auto", "lanes", "lanes_interpret")
+the chunk applies the f32 A, so bf16 changes nothing there and
+``tail_f32_iters > 0`` with bf16 raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -52,9 +67,9 @@ _KERNEL_MODES = ("on", "auto", "lanes", "lanes_interpret")
 @dataclass(frozen=True)
 class ADMMConfig:
     """Solver settings; field names and defaults are those of the JAX
-    ``ADMMConfig`` (see there for the meaning of each). Fields that only
-    tune features the port lacks are left out; the switches of those
-    features stay, so that turning one on raises."""
+    ``ADMMConfig`` (see there for the meaning of each). Left out:
+    ``rho_eq_scale`` (the JAX solver boosts equality rows by a fixed 1e3
+    whatever it says) and ``iter_unroll`` (an XLA loop-unrolling knob)."""
 
     max_iter: int = 250
     check_interval: int = 25
@@ -68,6 +83,7 @@ class ADMMConfig:
     adaptive_rho: bool = True
     rho_adapt_chunks: int = 4
     scaling: int = 10
+    ns_iters: int = 4  # Newton–Schulz refresh steps of a carried KKT inverse
     polish: bool = False
     polish_delta: float = 1e-4
     polish_refine_iters: int = 6
@@ -84,17 +100,63 @@ class ADMMConfig:
         return replace(self, **kw)
 
 
-def _check_supported(cfg: ADMMConfig, kkt_inv0) -> None:
-    later = "a later slice of the port"
-    if kkt_inv0 is not None:
-        raise NotImplementedError(
-            f"warm KKT (kkt_inv0, Newton–Schulz refresh) is not ported yet ({later})")
-    if cfg.matvec_dtype != "f32" or cfg.tail_f32_iters:
-        raise NotImplementedError(
-            f"matvec_dtype={cfg.matvec_dtype!r} / tail_f32_iters is not "
-            f"ported ({later}); only f32 matvecs")
+def _check_supported(cfg: ADMMConfig) -> None:
     if cfg.use_pallas not in _KERNEL_MODES + ("off",):
         raise ValueError(f"unknown use_pallas={cfg.use_pallas!r}")
+    if cfg.matvec_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown matvec_dtype={cfg.matvec_dtype!r}: use 'f32' or 'bf16'")
+    if cfg.use_pallas in _KERNEL_MODES and cfg.matvec_dtype == "bf16" and cfg.tail_f32_iters > 0:
+        raise ValueError(
+            f"tail_f32_iters > 0 cannot run on a kernel path (use_pallas="
+            f"{cfg.use_pallas!r} applies the f32 A in the chunk kernel; the bf16 bulk + "
+            f"f32 tail split exists on the streamed path only). Set use_pallas='off' "
+            f"or tail_f32_iters=0.")
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (round to nearest even), held as f32."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _cast_ops(ops: tuple) -> tuple:
+    """The compacted operands rounded to bf16; "diag" segments and the
+    auxiliary factors of "blockdiag_shared" (its per-stage ratios) stay f32."""
+    out = []
+    for op in ops:
+        if op[0] == "diag":
+            out.append(op)
+        elif op[0] == "blt":
+            out.append(("blt", tuple(_bf16(b) for b in op[1])))
+        else:
+            out.append((op[0], _bf16(op[1]), *op[2:]))
+    return tuple(out)
+
+
+def _materialize_ops(ops: tuple, n: int) -> torch.Tensor:
+    """The dense (B, m, n) operator that the compacted ``ops`` apply, so the
+    KKT system is factored from exactly the operator the bf16 stream
+    applies (operator/factor consistency is per row: "diag" rows stay f32,
+    every other row as rounded)."""
+    pad = torch.nn.functional.pad
+    rows = []
+    for op in ops:
+        kind, M = op[0], op[1]
+        if kind == "dense":
+            rows.append(M)
+        elif kind == "diag":
+            rows.append(pad(torch.diag_embed(M), (0, n - M.shape[1])))
+        elif kind == "blt":
+            rows.extend(pad(b, (0, n - b.shape[2])) for b in M)
+        else:
+            if kind == "blockdiag":
+                Bd = M
+            else:  # blockdiag_shared: stage k's block r_k · B0 · c_k
+                _, B0, r, c = op
+                Bd = r[:, :, :, None] * B0[:, None] * c[:, :, None, :]
+            Bsz, nb, h, w = Bd.shape
+            eye = torch.eye(nb, dtype=Bd.dtype, device=Bd.device)
+            rows.append(torch.einsum("bkij,kl->bkilj", Bd, eye).reshape(Bsz, nb * h, nb * w))
+    return torch.cat(rows, dim=1)
 
 
 def _rho_vec(l: torch.Tensor, u: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
@@ -116,6 +178,23 @@ def _factor(P: torch.Tensor, A: torch.Tensor, rho_v: torch.Tensor,
     then fails the acceptance test instead of stopping the batch."""
     eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
     return _spd_inverse(P + sigma * eye + (A.transpose(1, 2) * rho_v[:, None, :]) @ A)
+
+
+def _ns_refresh(P: torch.Tensor, A: torch.Tensor, rho_v: torch.Tensor, sigma: float,
+                X0: torch.Tensor, iters: int = 4) -> torch.Tensor:
+    """Newton–Schulz refresh of every lane's KKT inverse from a previous
+    solve's X0: ``iters`` steps of X ← 2X − X M X (quadratic convergence for
+    ‖I − M X0‖ < 1), then the monotone acceptance per lane: the refreshed X
+    is kept only where it lowered the Frobenius norm of M X − I, else X0
+    (a divergent refresh, NaN included, keeps the previous inverse)."""
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    M = P + sigma * eye + (A.transpose(1, 2) * rho_v[:, None, :]) @ A
+    X = X0
+    for _ in range(iters):
+        X = 2.0 * X - X @ (M @ X)
+    e0 = torch.linalg.matrix_norm(M @ X0 - eye)
+    e1 = torch.linalg.matrix_norm(M @ X - eye)
+    return torch.where((e1 < e0)[:, None, None], X, X0)
 
 
 def _amax(v: torch.Tensor) -> torch.Tensor:
@@ -195,9 +274,12 @@ def solve(
     """Solve a batch of QPs (one per lane). Warm starts accept *unscaled*
     x0 (B,n) / y0 (B,m) like ``osqp.warm_start``; ``rho0`` (scalar or (B,))
     carries the adapted penalty across successive solves.
-    ``fixed_scaling`` reuses a precomputed Ruiz equilibration."""
+    ``fixed_scaling`` reuses a precomputed Ruiz equilibration; with it,
+    ``kkt_inv0`` (B,n,n), the scaled-space KKT inverse of a previous solve,
+    replaces the Cholesky factorization by a Newton–Schulz refresh, and the
+    solution's ``kkt_inv`` feeds the next call."""
     cfg = config or ADMMConfig()
-    _check_supported(cfg, kkt_inv0)
+    _check_supported(cfg)
     dtype, dev = data.P.dtype, data.P.device
     B, n, m = data.batch, data.n, data.m
 
@@ -235,8 +317,22 @@ def solve(
 
     use_kernel = cfg.use_pallas in _KERNEL_MODES
     segs = cfg.row_structure if cfg.row_structure is not None else (("dense", m),)
-    A_apply, AT_apply = make_A_ops(compact_structure(A, segs, E=E, D=D), n)
-    L = _factor(P, A, rho_v, cfg.sigma)
+    ops_f32 = compact_structure(A, segs, E=E, D=D)
+    # the kernel modes apply the f32 A, so bf16 streams only on "off"; the
+    # factor then comes from the rounded operator (see the module docstring)
+    bf16 = cfg.matvec_dtype == "bf16" and not use_kernel
+    if bf16:
+        ops_stream = _cast_ops(ops_f32)
+        A_apply, AT_apply = make_A_ops(ops_stream, n, cast=_bf16)
+        A_fact = _materialize_ops(ops_stream, n)
+    else:
+        A_apply, AT_apply = make_A_ops(ops_f32, n)
+        A_fact = A
+    with record_function("admm.factor"):
+        if kkt_inv0 is not None:
+            L = _ns_refresh(P, A_fact, rho_v, cfg.sigma, kkt_inv0, iters=cfg.ns_iters)
+        else:
+            L = _factor(P, A_fact, rho_v, cfg.sigma)
 
     q_unsc_norm = _amax(Dinv * q) / c
     AT = A.transpose(1, 2)
@@ -282,14 +378,10 @@ def solve(
         )
         return prim_cert, dual_cert
 
-    def run_chunk(x, z, y, rho_v, L):
-        if use_kernel:
-            return chunk_kernel.admm_chunk(
-                L, A, q, l, u, rho_v, x, z, y, iters=cfg.check_interval,
-                sigma=cfg.sigma, alpha=cfg.alpha, row_structure=segs, E=E, D=D)
-        for _ in range(cfg.check_interval):
+    def streamed(x, z, y, rho_v, L_mv, iters, A_apply, AT_apply, cast):
+        for _ in range(iters):
             rhs = cfg.sigma * x - q + AT_apply(rho_v * z - y)
-            x_t = _mv(L, rhs)
+            x_t = _mv(L_mv, cast(rhs))
             z_t = A_apply(x_t)
             x_new = cfg.alpha * x_t + (1.0 - cfg.alpha) * x
             z_relax = cfg.alpha * z_t + (1.0 - cfg.alpha) * z
@@ -297,6 +389,17 @@ def solve(
             y = y + rho_v * (z_relax - z_new)
             x, z = x_new, z_new
         return x, z, y
+
+    def run_chunk(x, z, y, rho_v, L):
+        if use_kernel:
+            return chunk_kernel.admm_chunk(
+                L, A, q, l, u, rho_v, x, z, y, iters=cfg.check_interval,
+                sigma=cfg.sigma, alpha=cfg.alpha, row_structure=segs, E=E, D=D)
+        if bf16:  # the KKT inverse streams rounded too, one cast a chunk
+            return streamed(x, z, y, rho_v, _bf16(L), cfg.check_interval,
+                            A_apply, AT_apply, _bf16)
+        return streamed(x, z, y, rho_v, L, cfg.check_interval, A_apply, AT_apply,
+                        lambda t: t)
 
     # the chunk schedule runs n_chunks · check_interval iterations; the
     # guard is two-sided (see the JAX solver): a non-dividing pair would
@@ -362,7 +465,26 @@ def solve(
             rho = torch.where(upd, rho_new, rho)
             rho_v_new = _rho_vec(l, u, rho)
             rho_v = torch.where(upd[:, None], rho_v_new, rho_v)
-            L = torch.where(upd[:, None, None], _factor(P, A, rho_v_new, cfg.sigma), L)
+            L = torch.where(upd[:, None, None], _factor(P, A_fact, rho_v_new, cfg.sigma), L)
+
+    if bf16 and cfg.tail_f32_iters > 0 and not bool(done.all()):
+        # the f32 tail: re-converge toward the f32 fixed point from the bf16
+        # iterate with the f32 operands and their own factorization from the
+        # true A; lanes already done stay frozen. A batch that is all done
+        # skips it, as the JAX while_loop does
+        x_t, z_t, y_t = streamed(x, z, y, rho_v, _factor(P, A, rho_v, cfg.sigma),
+                                 cfg.tail_f32_iters, *make_A_ops(ops_f32, n), lambda t: t)
+        keep = ~done
+        x = torch.where(keep[:, None], x_t, x)
+        z = torch.where(keep[:, None], z_t, z)
+        y = torch.where(keep[:, None], y_t, y)
+        it = it + torch.where(keep, cfg.tail_f32_iters, 0).to(torch.int32)
+        rp, rd, prim_norm, dual_norm = residuals(x, z, y)
+        r_prim = torch.where(keep, rp, r_prim)
+        r_dual = torch.where(keep, rd, r_dual)
+        tail_ok = (rp <= cfg.eps_abs + cfg.eps_rel * prim_norm) & (
+            rd <= cfg.eps_abs + cfg.eps_rel * dual_norm)
+        status = torch.where(keep & tail_ok, torch.full_like(status, SOLVED), status)
 
     # unscale
     x_u = D * x
@@ -377,7 +499,32 @@ def solve(
     return QPSolution(
         x=x_u, y=y_u, z=z_u, obj=obj, pri_res=r_prim, dua_res=r_dual,
         iterations=it, status=status, rho=rho,
+        kkt_inv=L if kkt_inv0 is not None else None,
     )
+
+
+def solve_jit(data: QPData, x0=None, y0=None, config: Optional[ADMMConfig] = None,
+              rho0=None) -> QPSolution:
+    """The same solve as :func:`solve` (the JAX package's is its ``jax.jit``).
+    The port has no tracing compiler on this path: the call runs eagerly,
+    its chunks through the hand-written kernel on a CUDA tensor."""
+    return solve(data, x0, y0, config, rho0)
+
+
+def solve_batch(data: QPData, x0: Optional[torch.Tensor] = None,
+                y0: Optional[torch.Tensor] = None, config: Optional[ADMMConfig] = None,
+                rho0: Optional[torch.Tensor] = None) -> QPSolution:
+    """Solve a batch of QPs stacked on the leading axis: the default warm
+    starts are zeros and ``config.rho`` on every lane, as the JAX function
+    fills them, and :func:`solve` (lanes first already) does the rest."""
+    cfg = config or ADMMConfig()
+    if x0 is None:
+        x0 = torch.zeros_like(data.q)
+    if y0 is None:
+        y0 = torch.zeros_like(data.l)
+    if rho0 is None:
+        rho0 = torch.full((data.batch,), cfg.rho, dtype=data.l.dtype, device=data.l.device)
+    return solve(data, x0, y0, cfg, rho0)
 
 
 def _accept_polish(data: QPData, cfg: ADMMConfig, x_u, y_u, z_u, r_prim, r_dual, status):

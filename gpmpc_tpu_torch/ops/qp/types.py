@@ -11,6 +11,7 @@ Equality rows are expressed as l_i = u_i.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -66,3 +67,6 @@ class QPSolution:
     iterations: torch.Tensor
     status: torch.Tensor
     rho: torch.Tensor  # adapted ADMM penalty at exit (feed back as rho0)
+    # scaled-space KKT inverse at exit (B,n,n), to feed back as kkt_inv0
+    # with the same fixed_scaling; None unless the solve was given kkt_inv0
+    kkt_inv: Optional[torch.Tensor] = None

@@ -6,6 +6,11 @@ Runs one of the cycles of ``gpmpc_tpu_torch/main_path.py``:
   cycles of ``gp_mpc_solve`` + the dispersed plant step), 512 lanes;
 - ``--path rti``: the GP-free RTI cycle (``rti_step`` + the nominal plant
   step), 512 lanes;
+- ``--path rti_warm`` and ``--path rti_cholesky``: the sparse-form RTI
+  cycle of ``bench_variants.py``'s ``"sparse_warm"`` with the KKT inverse
+  carried across cycles (``admm.factor`` is then the Newton–Schulz
+  refresh), and the same cycle factoring by Cholesky every cycle, 512 lanes
+  tracking their cubic references;
 - ``--path pretrain``: the cycle of the production GP fit's episodes (the
   default sparse-form RTI controller tracking a cubic descent reference on
   the dispersed plant), 4 lanes, and the wall time of the whole
@@ -80,15 +85,17 @@ from .main_path import (BATCH, DT, FLEET_LANES, LMPC_LANES, N, SAFETY_LANES, cal
                         fleet_learning_x0, fleet_x0, fly_lmpc_fleet, lmpc_fleet_path,
                         lmpc_fleet_x0,
                         main_path, online_flight_path, online_path, pretrain_path, rti_path,
+                        rti_warm_path,
                         filtered_controller, safety_rescue_path, sixdof_fleet_x0,
                         sixdof_flight_x0, sixdof_path, sixdof_pretrain_path, with_gust_variance)
 from .mpc import (RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti_config_6dof,
                   rti_init, rti_step)
-from .reference import cubic_descent_reference
+from .reference import cubic_descent_reference, pad_reference
 from .terminal import knn_bucket, trim
 
 SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.", "fleet.", "lmpc.", "safety.")
-PATHS = {"main": BATCH, "rti": BATCH, "pretrain": 4, "calibration": BATCH,
+PATHS = {"main": BATCH, "rti": BATCH, "rti_warm": BATCH, "rti_cholesky": BATCH,
+         "pretrain": 4, "calibration": BATCH,
          "sixdof": BATCH, "pretrain6dof": 4, "online": BATCH,
          "online6dof": BATCH, "fleet": FLEET_LANES["3dof"],
          "fleet6dof": FLEET_LANES["6dof"], "lmpc": LMPC_LANES,
@@ -124,6 +131,20 @@ def _cycle_of(path: str, batch: int, dev):
             return state, rp.F(xs, sol.u0)
 
         return cycle, rti_init(rp.config, xs, rp.x_target), xs
+    if path in ("rti_warm", "rti_cholesky"):
+        wp = rti_warm_path(dev, warm_kkt=path == "rti_warm")
+        ref = pad_reference(cubic_descent_reference(xs, wp.x_target, 100, DT), wp.config.N + 20)
+        last = ref.shape[1] - wp.config.N - 1
+        step = [0]
+
+        def cycle(state, xs):
+            k = min(step[0], last)
+            step[0] += 1
+            state = state.replace(x_ref=ref[:, k:k + wp.config.N + 1])
+            sol, state = rti_step(wp.F, wp.config, state, xs)
+            return state, wp.F(xs, sol.u0)
+
+        return cycle, rti_init(wp.config, xs, wp.x_target, step_fn=wp.F), xs
     if path == "calibration":
         cp = calibration_path(dev)
         _, mean_fn, var_raw = pretrain_path(torch.Generator(device=dev).manual_seed(2), dev)

@@ -1,6 +1,8 @@
 """Utilities (counterpart of ``gpmpc_tpu/utils``): configuration loading,
-run logging and profiling."""
+run logging, profiling, checkpoints and the kernel build cache."""
 
+from .checkpoint import CampaignCheckpointer, restore_pytree, save_pytree
+from .compile_cache import enable_compilation_cache
 from .config_loader import (
     apply_overrides,
     build_gp_config,
@@ -24,10 +26,11 @@ from .profiler import (
     trace,
 )
 
-# the JAX package's names, less the checkpoint and the compilation cache
 __all__ = [
-    "BenchmarkResults", "ControlLoopBenchmark", "LoopTiming", "MemoryProfiler", "Profiler",
-    "RunLogger", "Timer", "apply_overrides", "benchmark_gp_prediction", "benchmark_mpc_solve",
-    "build_gp_config", "build_mpc_config", "build_rocket_params", "build_safety_config",
-    "get_logger", "load_experiment_config", "load_yaml", "profile_function", "trace",
+    "enable_compilation_cache",
+    "BenchmarkResults", "CampaignCheckpointer", "ControlLoopBenchmark", "LoopTiming",
+    "MemoryProfiler", "Profiler", "RunLogger", "Timer", "apply_overrides",
+    "benchmark_gp_prediction", "benchmark_mpc_solve", "build_gp_config", "build_mpc_config",
+    "build_rocket_params", "build_safety_config", "get_logger", "load_experiment_config",
+    "load_yaml", "profile_function", "restore_pytree", "save_pytree", "trace",
 ]

@@ -70,6 +70,18 @@ def test_plain_matches_vmapped_lanes_kernel():
     np.testing.assert_allclose(yt.numpy(), yj, atol=ATOL_Y)
 
 
+def test_port_lanes_factory_matches_vmapped_lanes_kernel():
+    """The port's ``make_admm_chunk_lanes`` (the wrapper with iters, σ and α
+    bound) on a batch against the JAX factory under ``vmap``."""
+    args = _batch(range(4))
+    xj, zj, yj = jax.jit(jax.vmap(make_admm_chunk_lanes(8, 1e-6, 1.6, interpret=True)))(
+        *[jnp.asarray(a) for a in args])
+    xt, zt, yt = K.make_admm_chunk_lanes(8, 1e-6, 1.6)(*_torch(args))
+    np.testing.assert_allclose(xt.numpy(), xj, atol=ATOL_XZ)
+    np.testing.assert_allclose(zt.numpy(), zj, atol=ATOL_XZ)
+    np.testing.assert_allclose(yt.numpy(), yj, atol=ATOL_Y)
+
+
 def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
     args = _torch(_batch(range(2)))
     before = K.LAUNCHES

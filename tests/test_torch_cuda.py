@@ -636,3 +636,63 @@ def test_scvx_on_the_card_matches_the_cpu(cuda_device):
         w = (getattr(o, k) - getattr(c, k)).abs().max().item()
         assert d <= max(1e-3, 2.0 * w), (k, d, w)
     assert torch.equal(g.converged.cpu(), c.converged) and bool(c.converged.all())
+
+
+def _golden_qp(dev, lanes=8):
+    fx = np.load(GOLDEN)
+    names = (("canonical", "high_fast", "low_slow", "lateral") * lanes)[:lanes]
+    return QPData(*[torch.tensor(np.stack([fx[f"{s}/{p}"] for s in names]), dtype=torch.float32,
+                                 device=dev) for p in ("P", "q", "A", "l", "u")])
+
+
+def test_warm_kkt_solve_on_the_card_matches_the_cpu(cuda_device):
+    """``solve(kkt_inv0=)`` on the sparse golden QPs (8 lanes): a perturbed
+    KKT inverse refreshed by Newton–Schulz under a fixed scaling, 50
+    iterations through the cluster variant, card against CPU: the refreshed
+    inverse within 1e-4 of its scale, x within 1e-3 or twice the CPU's own
+    spread under a 1e-7 relative change of the inverse."""
+    from gpmpc_tpu_torch.ops.qp import ADMMConfig, solve
+
+    cpu = torch.device("cpu")
+    data = _golden_qp(cpu)
+    sd, sc = ruiz_equilibrate(data, 3)
+    X = _factor(sd.P, sd.A, _rho_vec(sd.l, sd.u, torch.full((8,), 0.1)), 1e-6)
+    g = torch.Generator().manual_seed(0)
+    X0 = X * (1 + 1e-3 * torch.randn(X.shape, generator=g))
+    cfg = ADMMConfig(max_iter=50, polish=False, adaptive_rho=False, infeas_certs=False)
+    to = lambda t: t.to(cuda_device)
+    sol_g = solve(QPData(*[to(getattr(data, k)) for k in "P q A l u".split()]), config=cfg,
+                  fixed_scaling=type(sc)(*[to(t) for t in sc]), kkt_inv0=to(X0))
+    sol_c = solve(data, config=cfg, fixed_scaling=sc, kkt_inv0=X0)
+    sol_o = solve(data, config=cfg, fixed_scaling=sc,
+                  kkt_inv0=X0 * (1 + 1e-7 * torch.randn(X.shape, generator=g)))
+    scale = sol_c.kkt_inv.abs().max().item()
+    assert (sol_g.kkt_inv.cpu() - sol_c.kkt_inv).abs().max().item() <= 1e-4 * scale
+    d = (sol_g.x.cpu() - sol_c.x).abs().max().item()
+    w = (sol_o.x - sol_c.x).abs().max().item()
+    assert d <= max(1e-3, 2.0 * w), (d, w)
+
+
+def test_bf16_streamed_solve_on_the_card_matches_the_cpu(cuda_device):
+    """``matvec_dtype="bf16"`` on the streamed path (``use_pallas="off"``)
+    with the f32 tail, on the condensed QP with its state-bound rows (blt +
+    diag) at eps 1e-5, card against CPU: after the tail both reach the f32
+    fixed point, x within 1e-3 of each other and of the f32 solve (the CPU
+    lands 7e-5 from it)."""
+    from gpmpc_tpu_torch.ops.qp import ADMMConfig, solve
+
+    cpu = torch.device("cpu")
+    args = chunk_inputs("bounded", torch.Generator(device="cuda").manual_seed(0), lanes=0)
+    Minv, A = args[0][:8].cpu(), args[1][:8].cpu()
+    P = torch.linalg.inv(Minv) - (A.transpose(1, 2) * args[5][:8].cpu()[:, None]) @ A
+    data = QPData(P=0.5 * (P + P.transpose(1, 2)), q=args[2][:8].cpu(), A=A,
+                  l=args[3][:8].cpu(), u=args[4][:8].cpu())
+    kw = dict(adaptive_rho=False, infeas_certs=False, use_pallas="off", scaling=0,
+              row_structure=BOUNDED_SEGS, eps_abs=1e-5, eps_rel=1e-5)
+    bf = ADMMConfig(max_iter=50, check_interval=50, matvec_dtype="bf16", tail_f32_iters=400, **kw)
+    f32 = solve(data, config=ADMMConfig(max_iter=800, check_interval=50, **kw))
+    sol_c = solve(data, config=bf)
+    sol_g = solve(QPData(*[getattr(data, k).to(cuda_device) for k in "P q A l u".split()]),
+                  config=bf)
+    assert (sol_g.x.cpu() - sol_c.x).abs().max().item() <= 1e-3
+    assert (sol_g.x.cpu() - f32.x).abs().max().item() <= 1e-3

@@ -293,7 +293,8 @@ def test_sparse_gp_mpc_cycle_matches_jax(gps3):
 
 def test_sparse_gp_mpc_options_outside_the_form_raise():
     """As in the JAX package, the sparse form takes neither the IPM nor
-    linearized state rows (``stage_rows_fn``); ``warm_kkt`` is not ported."""
+    linearized state rows (``stage_rows_fn``); ``warm_kkt`` is ported now
+    and, as in JAX, needs ``step_fn`` at init (``ValueError`` without)."""
     fp = fleet_learning_path("3dof", "cpu")
     x0 = np.zeros((1, 7), np.float32)
     rows = lambda X: (None, None, None)
@@ -302,8 +303,60 @@ def test_sparse_gp_mpc_options_outside_the_form_raise():
         cfg = fp.mpc.replace(base=fp.mpc.base.replace(**base_kw))
         with pytest.raises(err):
             gp_mpc_init(cfg, x0, fp.x_target, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="step_fn"):
         gp_mpc_init(fp.mpc.replace(warm_kkt=True), x0, fp.x_target, device="cpu")
+    with pytest.raises(ValueError, match="step_fn"):
+        jax_init(jax_fleet("3dof")["mpc"].replace(warm_kkt=True), jnp.zeros(7),
+                 jax_fleet("3dof")["xT"])
+
+
+def test_sparse_gp_mpc_warm_kkt_cycle_matches_jax(gps3):
+    """``GPMPCConfig.warm_kkt`` on the sparse form against JAX: three cycles
+    of the 3-DoF fleet's controller at fixed ρ (adaptive ρ refactors on
+    discrete decisions) with each lane's GP, both packages initialized with
+    ``step_fn`` and the gated GP mean, the inverse carried across the two SCP
+    iterations and the cycles: u0 and X_opt within 1e-3 as above, success
+    equal, the carried inverse within 1e-4 of its scale."""
+    jfit, tgp = gps3
+    jf, fp = jax_fleet("3dof"), fleet_learning_path("3dof", "cpu")
+    jadmm = JaxADMM(max_iter=100, polish=True, adaptive_rho=False, scaling=3, use_pallas="off")
+    jcfg = jf["mpc"].replace(base=jf["mpc"].base.replace(admm=jadmm), warm_kkt=True)
+    tcfg = fp.mpc.replace(base=fp.mpc.base.replace(admm=fp.mpc.base.admm.replace(
+        adaptive_rho=False, scaling=3)), warm_kkt=True)
+    x0 = fleet_x0("3dof", 4, 1)
+    mean_t, var_t = _gated_fns(tgp, torch.ones(4, dtype=torch.bool), 7)
+
+    def jfns(gp):
+        return (lambda a, b: JaxS3.lift_residual(gp.predict_gated(a, b)[0], 7),
+                lambda a, b: gp.predict(a, b)[1])
+
+    jstep = jax.jit(jax.vmap(lambda gp, st, x: jax_solve(jf["F"], *jfns(gp), jcfg, st, x)))
+    js = jax.vmap(lambda gp, x: jax_init(jcfg, x, jf["xT"], step_fn=jf["F"],
+                                         gp_mean_fn=jfns(gp)[0]))(jfit, jnp.asarray(x0))
+    ts = gp_mpc_init(tcfg, x0, fp.x_target, step_fn=fp.F, gp_mean_fn=mean_t, device="cpu")
+    tc = convert.gp_mpc_state_from_numpy(
+        {f: np.asarray(getattr(js, f)) for f in ("X_lin", "U_lin", "x_ref", "rho", "y_prev",
+                                                 "kkt_inv", "scal_D", "scal_E", "scal_c")},
+        device="cpu")
+
+    def close(ts):
+        for b in range(4):
+            ref = np.asarray(js.kkt_inv[b])
+            np.testing.assert_allclose(ts.kkt_inv[b].numpy(), ref, atol=1e-4 * np.abs(ref).max())
+
+    close(ts)
+    close(tc)
+    ref = np.asarray(jax.vmap(lambda x: jax_cdr(x, jf["xT"], 100, DT))(jnp.asarray(x0)))
+    x = jnp.asarray(x0)
+    for k in range(3):
+        win = ref[:, k:k + 16]
+        jsol, js = jstep(jfit, js.replace(x_ref=jnp.asarray(win)), x)
+        tsol, ts = gp_mpc_solve(fp.F, mean_t, var_t, tcfg, ts.replace(x_ref=T(win)), T(x))
+        np.testing.assert_allclose(tsol.u0.numpy(), jsol.u0, atol=1e-3)
+        np.testing.assert_allclose(tsol.X_opt.numpy(), jsol.X_opt, atol=1e-3)
+        np.testing.assert_array_equal(tsol.success.numpy(), np.asarray(jsol.success))
+        close(ts)
+        x = jax.vmap(jf["plant"])(x, jsol.u0)
 
 
 # -- the per-lane GPs: fit, predict, retune -----------------------------------------

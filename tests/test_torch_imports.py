@@ -53,6 +53,9 @@ def test_import_with_jax_blocked():
         "import gpmpc_tpu_torch.experiments.dispersion, gpmpc_tpu_torch.experiments.ablation\n"
         "import gpmpc_tpu_torch.experiments.visualization\n"
         "import gpmpc_tpu_torch.reference.scvx, gpmpc_tpu_torch.reference.trajectory_library\n"
+        "import gpmpc_tpu_torch.parallel, gpmpc_tpu_torch.parallel.mesh\n"
+        "import gpmpc_tpu_torch.parallel.distributed, gpmpc_tpu_torch.utils.checkpoint\n"
+        "import gpmpc_tpu_torch.utils.compile_cache, gpmpc_tpu_torch.ops.qp.admm\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
@@ -89,3 +92,41 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+# -- completeness: every public name of the JAX package has its counterpart ------
+
+JAX_PKG = ROOT / "gpmpc_tpu"
+# the Pallas module's names map to the one CUDA kernel's wrapper
+COUNTERPART = {"ops/pallas/__init__.py": "ops/kernels/admm_chunk.py",
+               "ops/pallas/admm_kernel.py": "ops/kernels/admm_chunk.py"}
+NOT_PORTED = {"Array"}  # the JAX modules' ``Array = jax.Array`` type alias
+
+
+def _public_names(path: Path, with_imports: bool) -> set:
+    """Top-level public names of a module, read with ``ast`` (nothing is
+    imported): functions, classes, assigned names, and with
+    ``with_imports`` (or in a package ``__init__``) the names it imports."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(n.id for t in node.targets for n in ast.walk(t) if isinstance(n, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)) and (
+                with_imports or path.name == "__init__.py"):
+            names.update(a.asname or a.name.split(".")[0] for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py")))
+def test_port_has_every_public_name(rel):
+    """Each public name of ``gpmpc_tpu/<rel>`` is defined or re-exported by
+    its counterpart in ``gpmpc_tpu_torch`` (the same path, but the Pallas
+    module's); only the ``Array`` alias is left out."""
+    port = ROOT / "gpmpc_tpu_torch" / COUNTERPART.get(rel, rel)
+    assert port.exists(), f"no counterpart of gpmpc_tpu/{rel}"
+    missing = _public_names(JAX_PKG / rel, False) - _public_names(port, True) - NOT_PORTED
+    assert not missing, f"gpmpc_tpu/{rel}: not in {port.relative_to(ROOT)}: {sorted(missing)}"

@@ -128,9 +128,63 @@ def test_gp_mpc_init_matches_jax():
     {"warm_kkt": True},
 ])
 def test_gp_mpc_features_outside_the_slice_raise(kw):
+    """``warm_kkt`` is ported now, on the sparse form as in the JAX package
+    (``test_warm_kkt_scp_matches_cholesky_path`` below and
+    ``tests/test_torch_fleet.py``). On the condensed bench configuration it
+    raises ``ValueError`` in both packages, as ``tests/test_gp_mpc.py``
+    asserts: the refresh cannot track the rebuilt condensed matrix."""
+    F = lambda x, u: tr.step(Rocket3DoFParams(device="cpu"), x, u, DT)
     cfg = port_config(jax_bench_config()).replace(**kw)
-    with pytest.raises(NotImplementedError):
-        gp_mpc_init(cfg, np.zeros((1, 7), np.float32), np.zeros(7, np.float32), device="cpu")
+    with pytest.raises(ValueError, match="condensed"):
+        gp_mpc_init(cfg, np.zeros((1, 7), np.float32), np.zeros(7, np.float32), step_fn=F,
+                    device="cpu")
+    with pytest.raises(ValueError, match="condensed"):
+        jax_init(jax_bench_config(**kw), jnp.zeros(7), jnp.zeros(7),
+                 step_fn=lambda x, u: jr.step(JaxParams(), x, u, DT))
+
+
+def test_warm_kkt_scp_matches_cholesky_path():
+    """The twin of ``tests/test_gp_mpc.py::TestGPMPCWarmKKT`` on the port:
+    the sparse-form GP-MPC (N = 20, two SCP iterations, polish, fixed ρ)
+    with the KKT inverse carried across SCP iterations and control steps
+    lands two lanes along their cubic references as the per-subproblem
+    Cholesky path does: both land under 1 m/s, touchdown states within
+    the JAX test's 0.01."""
+    from gpmpc_tpu_torch.reference import cubic_descent_reference
+    from gpmpc_tpu_torch.mpc import make_gp_mpc_controller
+    from gpmpc_tpu_torch.ops.qp import ADMMConfig
+
+    p = Rocket3DoFParams(device="cpu")
+    F = lambda x, u: tr.step(p, x, u, DT)
+    xT = torch.zeros(7)
+    xT[0] = 2.0
+    zero_mean = lambda x, u: torch.zeros_like(x)
+    zero_var = lambda x, u: x.new_zeros(*x.shape[:-1], 3)
+    x0s = torch.tensor([2.0, 30.0, 0.5, -0.5, -3.0, 0.0, 0.0]).repeat(2, 1)
+    x0s[:, 1] += torch.tensor([-3.0, 3.0])
+    results = {}
+    for warm in (False, True):
+        cfg = GPMPCConfig(
+            base=RTIConfig(N=20, admm=ADMMConfig(max_iter=100, polish=True, adaptive_rho=False,
+                                                 scaling=3), device="cpu"),
+            scp_iterations=2, tighten=False, warm_kkt=warm)
+        cinit, cstep = make_gp_mpc_controller(
+            F, zero_mean, zero_var, cfg, xT,
+            reference_fn=lambda x0: cubic_descent_reference(x0, xT, 100, DT), ref_horizon=130)
+        cstate, x = cinit(x0s), x0s
+        landed = torch.zeros(2, dtype=torch.bool)
+        for k in range(130):
+            u, cstate = cstep(cstate, x, k)
+            x = torch.where(landed[:, None], x, F(x, u))
+            landed = landed | (x[:, 1] < 0.1)
+            if bool(landed.all()):
+                break  # frozen lanes: the rest of the JAX scan changes nothing
+        assert bool(landed.all()), f"warm={warm}"
+        assert float(torch.linalg.vector_norm(x[:, 4:7], dim=1).max()) < 1.0, f"warm={warm}"
+        if warm:
+            assert cstate[0].kkt_inv.shape == (2, 207, 207)
+        results[warm] = x
+    torch.testing.assert_close(results[True], results[False], rtol=0, atol=0.01)
 
 
 @pytest.mark.parametrize("base_kw", [{"condensed": False}, {"solver": "ipm"}])

@@ -165,18 +165,196 @@ def test_chunk_guard_is_two_sided():
     {"matvec_dtype": "bf16", "tail_f32_iters": 25},
 ])
 def test_features_outside_the_slice_raise(kw):
-    data = _stack([random_qp(np.random.default_rng(0))])
+    """The bf16 stream and its f32 tail are ported now, with the JAX
+    package's rule for each mode: on the streamed path (``"off"``) the solve
+    follows JAX's (a tail without bf16 runs nothing, as in JAX); on a kernel
+    mode the chunk applies the f32 A, so bf16 changes nothing and a bf16
+    tail raises, as JAX's Pallas modes do. The QP is ``tests/test_qp.py``'s
+    bf16 one (seed 0): on QPs where the bf16 iteration is not contractive
+    (seeds 1 and 2) both packages diverge, and the rounding of the vector
+    to bf16 turns one ulp of f32 reordering into a whole bf16 step, so the
+    two runs part by 3e-4 and 3e-3 after two iterations."""
+    datas = [random_qp(np.random.default_rng(0))]
     base = {"max_iter": 25, "infeas_certs": False}
-    cfg = TA.ADMMConfig(**{**base, **kw})
-    with pytest.raises(NotImplementedError):
-        TA.solve(data, config=cfg)
+    jcfg = JA.ADMMConfig(**{**base, **kw}, use_pallas="off")
+    tcfg = convert.admm_config_from_fields(_fields(jcfg))
+    ts = TA.solve(_stack(datas), config=tcfg)
+    js = [JA.solve(d, config=jcfg) for d in datas]
+    # one chunk of 25 (plus the tail): the bf16 rounding of a vector can flip
+    # on one ulp of f32 reordering, so the bound is test_solve_matches_jax_off's
+    np.testing.assert_allclose(ts.x.numpy(), np.stack([s.x for s in js]), atol=5e-4)
+    np.testing.assert_array_equal(ts.iterations.numpy(), [int(s.iterations) for s in js])
+    f32 = TA.solve(_stack(datas), config=TA.ADMMConfig(**base, use_pallas="auto"))
+    kernel_cfg = tcfg.replace(use_pallas="auto")
+    if kernel_cfg.matvec_dtype == "bf16" and kernel_cfg.tail_f32_iters > 0:
+        with pytest.raises(ValueError, match="kernel path"):
+            TA.solve(_stack(datas), config=kernel_cfg)
+        with pytest.raises(ValueError, match="Pallas"):
+            JA.solve(datas[0], config=jcfg.replace(use_pallas="lanes_interpret"))
+    else:
+        torch.testing.assert_close(TA.solve(_stack(datas), config=kernel_cfg).x, f32.x,
+                                   rtol=0, atol=0)
 
 
 def test_warm_kkt_raises():
+    """``kkt_inv0`` is ported now (it raised before): the solve refreshes the
+    given inverse by Newton–Schulz under the fixed scaling and returns the
+    refreshed one, as the JAX solver does. A zero inverse cannot lower
+    ‖MX − I‖, so the acceptance keeps it in both packages (and the iterates
+    never move); a perturbed true inverse is refreshed, lane by lane."""
+    datas = [random_qp(np.random.default_rng(s)) for s in range(3)]
+    td = _stack(datas)
+    sd, sc = TR.ruiz_equilibrate(td, 3)
+    rv = TA._rho_vec(sd.l, sd.u, torch.full((3,), 0.1))
+    true_inv = TA._factor(sd.P, sd.A, rv, 1e-6)
+    noise = torch.randn(true_inv.shape, generator=torch.Generator().manual_seed(0))
+    pert = true_inv * (1 + 1e-3 * (noise + noise.transpose(1, 2)))
+    jcfg = JA.ADMMConfig(max_iter=50, use_pallas="off", infeas_certs=False, adaptive_rho=False)
+    tcfg = convert.admm_config_from_fields(_fields(jcfg))
+    for X0 in (torch.zeros_like(true_inv), pert):
+        for mode in ("off", "auto"):
+            ts = TA.solve(td, config=tcfg.replace(use_pallas=mode), fixed_scaling=sc,
+                          kkt_inv0=X0)
+            for b, d in enumerate(datas):
+                jsc = JR.Scaling(D=jnp.asarray(sc.D[b].numpy()), E=jnp.asarray(sc.E[b].numpy()),
+                                 c=jnp.asarray(sc.c[b].item()))
+                js = JA.solve(d, config=jcfg, fixed_scaling=jsc, kkt_inv0=jnp.asarray(X0[b].numpy()))
+                scale = float(np.abs(js.kkt_inv).max())
+                np.testing.assert_allclose(ts.kkt_inv[b].numpy(), js.kkt_inv, atol=1e-4 * max(scale, 1))
+                # the two refreshed inverses differ by ~1e-5 of their scale
+                # (f32 matmul order), which 50 iterations carry to ~5e-4
+                np.testing.assert_allclose(ts.x[b].numpy(), js.x, atol=1e-3)
+        if not bool(X0.any()):
+            assert not bool(ts.kkt_inv.any()) and not bool(ts.x.any())
+    assert TA.solve(td, config=tcfg).kkt_inv is None  # no carry asked, none returned
+
+
+def test_ns_refresh_acceptance_matches_jax():
+    """``_ns_refresh`` per lane: a nearby inverse is refreshed toward M⁻¹; one
+    outside the Newton–Schulz region (×3: ‖I − MX₀‖ = 2) diverges and the
+    monotone acceptance keeps it, in both packages."""
+    datas = [random_qp(np.random.default_rng(s)) for s in range(2)]
+    td = _stack(datas)
+    rv = TA._rho_vec(td.l, td.u, torch.full((2,), 0.1))
+    inv = TA._factor(td.P, td.A, rv, 1e-6)
+    X0 = torch.stack([inv[0] * 1.01, inv[1] * 3.0])
+    X = TA._ns_refresh(td.P, td.A, rv, 1e-6, X0, iters=4)
+    assert torch.equal(X[1], X0[1])
+    assert (X[0] - inv[0]).abs().max() < 1e-2 * (X0[0] - inv[0]).abs().max()
+    for b, d in enumerate(datas):
+        jX = JA._ns_refresh(d.P, d.A, jnp.asarray(rv[b].numpy()), 1e-6,
+                            jnp.asarray(X0[b].numpy()), iters=4)
+        np.testing.assert_allclose(X[b].numpy(), jX, atol=1e-4 * float(np.abs(jX).max()))
+
+
+def test_bf16_operator_consistent_factor_stays_bounded():
+    """``tests/test_qp.py``'s twin on its QP (seed 0): the bf16 stream
+    factors from the rounded operator and stays near the f32 solution; the
+    JAX solve of the same QP reads the same."""
+    d = random_qp(np.random.default_rng(0))
+    kw = dict(max_iter=400, check_interval=50, adaptive_rho=False, infeas_certs=False,
+              use_pallas="off")
+    f32 = TA.solve(_stack([d]), config=TA.ADMMConfig(**kw))
+    bf16 = TA.solve(_stack([d]), config=TA.ADMMConfig(**kw, matvec_dtype="bf16"))
+    assert float((bf16.x - f32.x).abs().max()) < 1.0
+    assert float(bf16.pri_res[0]) < 1.0
+    jb = JA.solve(d, config=JA.ADMMConfig(**kw, matvec_dtype="bf16"))
+    assert float(jnp.max(jnp.abs(jb.x - f32.x[0].numpy()))) < 1.0
+    # the first chunks agree lane for lane: the rounded vectors have not
+    # parted yet (they part later on one-ulp differences, as bf16 does)
+    kw100 = {**kw, "max_iter": 100, "matvec_dtype": "bf16"}
+    np.testing.assert_allclose(TA.solve(_stack([d]), config=TA.ADMMConfig(**kw100)).x[0].numpy(),
+                               JA.solve(d, config=JA.ADMMConfig(**kw100)).x, atol=5e-4)
+
+
+def test_bf16_f32_tail_recovers_f32_fixed_point():
+    """The twin of ``tests/test_qp.py``'s: after an 80-iteration bf16 bulk,
+    320 f32 iterations with their own factor reach the f32 fixed point."""
+    d = random_qp(np.random.default_rng(0))
+    kw = dict(adaptive_rho=False, infeas_certs=False, use_pallas="off")
+    f32 = TA.solve(_stack([d]), config=TA.ADMMConfig(max_iter=400, check_interval=50, **kw))
+    cfg = TA.ADMMConfig(max_iter=80, check_interval=40, matvec_dtype="bf16",
+                        tail_f32_iters=320, **kw)
+    tail = TA.solve(_stack([d]), config=cfg)
+    np.testing.assert_allclose(tail.x.numpy(), f32.x.numpy(), atol=5e-3)
+    assert float(tail.pri_res[0]) < 1e-3
+    assert int(tail.iterations[0]) == 400
+    jt = JA.solve(d, config=JA.ADMMConfig(max_iter=80, check_interval=40, matvec_dtype="bf16",
+                                          tail_f32_iters=320, **kw))
+    np.testing.assert_allclose(tail.x[0].numpy(), jt.x, atol=5e-3)
+
+
+def test_bf16_diag_row_structure_operator_consistent():
+    """The twin of ``tests/test_qp.py``'s: the "diag" rows stream f32 and
+    stay f32 in the factored operator, the others are rounded."""
+    rng = np.random.default_rng(0)
+    n = 12
+    extra = rng.normal(size=(8, n))
+    A = np.concatenate([np.diag(1.0 + 0.5 * rng.random(n)), extra])
+    G = rng.normal(size=(n, n))
+    jd = JA.QPData(P=jnp.asarray(G @ G.T + 0.1 * np.eye(n), jnp.float32),
+                   q=jnp.asarray(rng.normal(size=n), jnp.float32),
+                   A=jnp.asarray(A, jnp.float32), l=jnp.full(20, -1.0), u=jnp.full(20, 1.0))
+    segs = (("diag", n), ("dense", 8))
+    kw = dict(adaptive_rho=False, infeas_certs=False, row_structure=segs, use_pallas="off")
+    td = _stack([jd])
+    f32 = TA.solve(td, config=TA.ADMMConfig(max_iter=400, check_interval=50, **kw))
+    tail = TA.solve(td, config=TA.ADMMConfig(max_iter=200, check_interval=50,
+                                             matvec_dtype="bf16", tail_f32_iters=200, **kw))
+    np.testing.assert_allclose(tail.x.numpy(), f32.x.numpy(), atol=5e-3)
+    assert float(tail.pri_res[0]) < 1e-3
+    # the factored operator: the diag rows exact, the dense ones rounded
+    ops = TA._cast_ops(TA.compact_structure(td.A, segs))
+    Af = TA._materialize_ops(ops, n)
+    assert torch.equal(Af[:, :n], td.A[:, :n])
+    assert torch.equal(Af[:, n:], td.A[:, n:].to(torch.bfloat16).float())
+    assert not torch.equal(Af[:, n:], td.A[:, n:])
+
+
+@pytest.mark.parametrize("name", ["blt", "blockdiag", "blockdiag_shared"])
+def test_bf16_materialized_operator_matches_jax(name):
+    """``_materialize_ops`` of every composite segment kind against JAX's,
+    on the scaled A with its Ruiz factors (the shared block rounds before
+    its per-stage ratios multiply, as in JAX)."""
+    segs = _SEGS[name]
+    data = _structured(5, segs)
+    sd, sc = TR.ruiz_equilibrate(_stack([data]), 3)
+    ops = TA._cast_ops(TA.compact_structure(sd.A, segs, E=sc.E, D=sc.D))
+    jops = JA._cast_ops(JA._compact_structure(jnp.asarray(sd.A[0].numpy()), segs,
+                                              E=jnp.asarray(sc.E[0].numpy()),
+                                              D=jnp.asarray(sc.D[0].numpy())), jnp.bfloat16)
+    n, m = sd.A.shape[2], sd.A.shape[1]
+    np.testing.assert_allclose(TA._materialize_ops(ops, n)[0].numpy(),
+                               JA._materialize_ops(jops, m, n, jnp.float32), rtol=1e-6, atol=0)
+
+
+def test_bf16_tail_on_pallas_path_raises():
+    """The twin of ``tests/test_qp.py``'s: a bf16 tail on a kernel mode
+    refuses to run (the chunk applies the f32 A)."""
     data = _stack([random_qp(np.random.default_rng(0))])
-    cfg = TA.ADMMConfig(max_iter=25, infeas_certs=False)
-    with pytest.raises(NotImplementedError, match="warm KKT"):
-        TA.solve(data, config=cfg, kkt_inv0=torch.zeros(1, 12, 12))
+    for mode in ("on", "auto", "lanes"):
+        with pytest.raises(ValueError, match="kernel path"):
+            TA.solve(data, config=TA.ADMMConfig(max_iter=100, check_interval=50,
+                                                matvec_dtype="bf16", tail_f32_iters=20,
+                                                use_pallas=mode))
+
+
+def test_solve_batch_matches_jax():
+    """``tests/test_qp.py``'s batch twin: ``solve_batch`` of four stacked
+    QPs (default warm starts filled per lane) against the JAX
+    ``solve_batch``, and ``solve_jit`` is the same solve."""
+    datas = [random_qp(np.random.default_rng(s)) for s in range(4)]
+    jbatch = jax.tree.map(lambda *xs: jnp.stack(xs), *datas)
+    jsol = JA.solve_batch(jbatch, config=JA.ADMMConfig(max_iter=400, use_pallas="off"))
+    for mode in ("off", "auto"):
+        cfg = TA.ADMMConfig(max_iter=400, use_pallas=mode)
+        tsol = TA.solve_batch(_stack(datas), config=cfg)
+        np.testing.assert_allclose(tsol.x.numpy(), jsol.x, atol=1e-3)
+        for i, d in enumerate(datas):
+            s = TA.solve(_stack([d]), config=cfg)
+            np.testing.assert_allclose(tsol.x[i].numpy(), s.x[0].numpy(), atol=1e-4)
+        torch.testing.assert_close(TA.solve_jit(_stack(datas), config=cfg).x,
+                                   TA.solve(_stack(datas), config=cfg).x, rtol=0, atol=0)
 
 
 def test_diag_structure_matches_dense():

@@ -19,6 +19,7 @@ from gpmpc_tpu_torch import convert
 from gpmpc_tpu_torch.dynamics import Rocket3DoFParams, rocket3dof as tr
 from gpmpc_tpu_torch.mpc import rti as TR
 from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+from gpmpc_tpu_torch.ops.qp import ADMMConfig as TA_ADMMConfig
 from gpmpc_tpu_torch.reference import cubic_descent_reference, pad_reference
 
 torch.set_num_threads(1)  # the suite's xdist workers share the cores
@@ -258,9 +259,14 @@ def test_closed_loop_matches_jax_and_freezes_landed_lanes():
 
 @pytest.mark.parametrize("kw", [{"solver": "ipm", "condensed": True}, {"warm_kkt": True}])
 def test_rti_options_not_ported_raise(kw):
-    """``warm_kkt`` is not ported. ``solver="ipm"`` on the condensed QP is
-    ported now: the cycle runs and leaves the ADMM carry (ρ, duals) as it
-    was (``tests/test_torch_ipm.py`` holds it against JAX)."""
+    """Both options are ported now. ``solver="ipm"`` on the condensed QP
+    runs and leaves the ADMM carry (ρ, duals) as it was
+    (``tests/test_torch_ipm.py`` holds it against JAX); it refuses
+    ``warm_kkt``, as JAX does. ``warm_kkt`` needs ``step_fn`` at init
+    (``ValueError`` without, as in JAX) and then carries the refreshed KKT
+    inverse: three cycles of the default sparse form against JAX (its
+    adaptive ρ refactors per lane on discrete decisions that f32 noise may
+    flip, so the carried inverse is compared in the fixed-ρ tests below)."""
     cfg = TR.RTIConfig(N=N, device="cpu", **kw)
     if cfg.solver == "ipm":
         st = TR.rti_init(cfg, _x0s(2), XT)
@@ -268,12 +274,140 @@ def test_rti_options_not_ported_raise(kw):
         assert bool(torch.isfinite(sol.u0).all())
         assert torch.equal(st2.rho, st.rho)
         assert torch.equal(st2.y_prev, st.y_prev)
+        warm = cfg.replace(warm_kkt=True)
+        with pytest.raises(ValueError, match="warm_kkt"):
+            TR.rti_step(tF, warm, TR.rti_init(warm, _x0s(1), XT, step_fn=tF),
+                        torch.tensor(_x0s(1)))
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="step_fn"):
         TR.rti_init(cfg, _x0s(1), XT)
-    with pytest.raises(NotImplementedError):
-        TR.rti_step(tF, cfg, TR.rti_init(cfg.replace(solver="admm", warm_kkt=False), _x0s(1), XT),
-                    torch.tensor(_x0s(1)))
+    jcfg = JR.RTIConfig(N=N, warm_kkt=True, admm=JaxADMMConfig(max_iter=100, polish=True,
+                                                               use_pallas="off"))
+    for sj, st, js, ts in _warm_closed_loop(jcfg, "auto", 3, _x0s(3)):
+        np.testing.assert_allclose(st.u0.numpy(), sj.u0, atol=5e-4)
+        np.testing.assert_array_equal(st.success.numpy(), np.asarray(sj.success))
+        assert ts.kkt_inv.shape == js.kkt_inv.shape and bool(torch.isfinite(ts.kkt_inv).all())
+
+
+def _warm_closed_loop(jcfg, use_pallas, cycles, x0s):
+    """``_closed_loop`` with the warm-KKT carry: both packages initialized
+    with ``step_fn``."""
+    cfg = port_config(jcfg, use_pallas)
+    js = jax.vmap(lambda x: JR.rti_init(jcfg, x, jnp.asarray(XT), step_fn=jF))(jnp.asarray(x0s))
+    ts = TR.rti_init(cfg, x0s, XT, step_fn=tF)
+    jstep = jax.jit(jax.vmap(lambda s, x: JR.rti_step(jF, jcfg, s, x)))
+    xj, xt = jnp.asarray(x0s), torch.tensor(x0s)
+    out = []
+    for _ in range(cycles):
+        sj, js = jstep(js, xj)
+        st, ts = TR.rti_step(tF, cfg, ts, xt)
+        out.append((sj, st, js, ts))
+        xj = jax.vmap(jF_true)(xj, sj.u0)
+        xt = tF_true(xt, st.u0)
+    return out
+
+
+def _assert_kkt_carry_close(ts, js):
+    """The carried KKT inverse within 1e-4 of its largest entry (two f32
+    factorizations and refreshes), the frozen scaling within a few ulps."""
+    for b in range(ts.kkt_inv.shape[0]):
+        ref = np.asarray(js.kkt_inv[b])
+        np.testing.assert_allclose(ts.kkt_inv[b].numpy(), ref, atol=1e-4 * np.abs(ref).max())
+    for f in ("scal_D", "scal_E", "scal_c"):
+        np.testing.assert_allclose(getattr(ts, f).numpy(), getattr(js, f), rtol=1e-5, err_msg=f)
+
+
+WARM_ADMM = dict(max_iter=50, polish=False, adaptive_rho=False, scaling=3)
+
+
+@pytest.mark.parametrize("form", ["condensed", "sparse"])
+def test_warm_kkt_init_matches_jax(form):
+    """``rti_init(..., step_fn=)``: the frozen Ruiz scaling and the KKT
+    inverse of the QP the first cycle sees, per lane, against JAX; and the
+    same state carried across from NumPy (``convert``)."""
+    jcfg = JR.RTIConfig(N=N, warm_kkt=True, accept_pri_tol=5e-3, condensed=form == "condensed",
+                        admm=JaxADMMConfig(**WARM_ADMM, use_pallas="off"))
+    x0s = _x0s(3)
+    ts = TR.rti_init(port_config(jcfg), x0s, XT, step_fn=tF)
+    js = jax.vmap(lambda x: JR.rti_init(jcfg, x, jnp.asarray(XT), step_fn=jF))(jnp.asarray(x0s))
+    _assert_kkt_carry_close(ts, js)
+    d = {f: np.asarray(getattr(js, f)) for f in
+         ("X_lin", "U_lin", "X_prev", "U_prev", "y_prev", "rho", "x_ref",
+          "kkt_inv", "scal_D", "scal_E", "scal_c")}
+    tc = convert.rti_state_from_numpy(d, device="cpu")
+    for f, v in d.items():
+        np.testing.assert_array_equal(getattr(tc, f).numpy(), v)
+    # without warm_kkt the JAX state's zero-size placeholders become None
+    jcold = jax.vmap(lambda x: JR.rti_init(jcfg.replace(warm_kkt=False), x, jnp.asarray(XT)))(
+        jnp.asarray(x0s))
+    tcold = convert.rti_state_from_numpy(
+        {f: np.asarray(getattr(jcold, f)) for f in d}, device="cpu")
+    assert tcold.kkt_inv is None and tcold.scal_c is None
+
+
+@pytest.mark.parametrize("use_pallas", ["auto", "off"])
+@pytest.mark.parametrize("form", ["condensed", "sparse"])
+def test_warm_kkt_closed_loop_matches_jax(form, use_pallas):
+    """Five closed-loop cycles of the warm-KKT cycle (frozen scaling,
+    Newton–Schulz refresh, the inverse carried) on the dispersed plant,
+    four lanes, against JAX: u0 and X_opt at the closed-loop test's 5e-4,
+    the carried inverse at 1e-4 of its scale."""
+    jcfg = JR.RTIConfig(N=N, warm_kkt=True, accept_pri_tol=5e-3, condensed=form == "condensed",
+                        admm=JaxADMMConfig(**WARM_ADMM, use_pallas="off"))
+    for k, (sj, st, js, ts) in enumerate(_warm_closed_loop(jcfg, use_pallas, 5, _x0s(4))):
+        np.testing.assert_array_equal(st.success.numpy(), np.asarray(sj.success), err_msg=f"cycle {k}")
+        np.testing.assert_allclose(st.u0.numpy(), sj.u0, atol=5e-4, err_msg=f"cycle {k}")
+        np.testing.assert_allclose(st.X_opt.numpy(), sj.X_opt, atol=5e-4, err_msg=f"cycle {k}")
+        _assert_kkt_carry_close(ts, js)
+
+
+def test_prepare_feedback_carries_warm_kkt():
+    """The twin of ``tests/test_mpc.py``'s: the split phases carry the
+    refreshed inverse as the fused step does (bitwise, the same refresh
+    chain), and the inverse moves off the init-time factorization."""
+    cfg = TR.RTIConfig(N=N, reanchor=False, warm_kkt=True, accept_pri_tol=5e-3,
+                       admm=TA_ADMMConfig(**WARM_ADMM), device="cpu")
+    x0 = torch.tensor([[2.0, 25.0, 0.3, 0.0, -3.0, 0.0, 0.0]])
+    st = TR.rti_init(cfg, x0, XT, step_fn=tF)
+    st_fused, x = st, x0
+    for _ in range(3):
+        sol, st = TR.rti_feedback(cfg, st, TR.rti_prepare(tF, cfg, st), x)
+        sol_f, st_fused = TR.rti_step(tF, cfg, st_fused, x)
+        x = tF(x, sol_f.u0)
+    torch.testing.assert_close(st.kkt_inv, st_fused.kkt_inv, rtol=0, atol=0)
+    assert not torch.allclose(st.kkt_inv, TR.rti_init(cfg, x0, XT, step_fn=tF).kkt_inv)
+
+
+@pytest.mark.parametrize("form", ["sparse", "condensed"])
+def test_warm_kkt_matches_cholesky_path_closed_loop(form):
+    """The twins of ``tests/test_mpc.py::TestWarmKKT`` on the port (N = 20,
+    four lanes, 110 steps along cubic references): every lane lands,
+    touchdown under 1 m/s, solver success above 0.99 in both paths, and the
+    touchdown states of the warm and the Cholesky path within the JAX
+    test's 0.05 (sparse, real-time settings) and 1e-5 (condensed at tight
+    tolerance: both reach the same QP optimum)."""
+    x0s = torch.tensor([2.0, 30.0, 0.0, 0.0, -3.0, 0.0, 0.0]).repeat(4, 1)
+    x0s[:, 1] += torch.linspace(-3, 3, 4)
+    x0s[:, 2] += torch.linspace(-1, 1, 4)
+    F = lambda x, u: tr.step(_TP, x, u, 0.1)
+    xT = torch.tensor(XT)
+    ref = pad_reference(cubic_descent_reference(x0s, xT, 100, 0.1), 40)
+    results = {}
+    for warm in (False, True):
+        if form == "sparse":
+            cfg = TR.RTIConfig(N=20, warm_kkt=warm, accept_pri_tol=5e-3,
+                               admm=TA_ADMMConfig(**WARM_ADMM), device="cpu")
+        else:
+            cfg = TR.RTIConfig(N=20, warm_kkt=warm, condensed=True, accept_pri_tol=0.0,
+                               admm=TA_ADMMConfig(max_iter=250, polish=True, adaptive_rho=False,
+                                                  scaling=3, ns_iters=8), device="cpu")
+        out = TR.rti_closed_loop(F, cfg, x0s, xT, 110, X_ref_full=ref)
+        assert bool(out["landed"].all()), f"warm={warm}"
+        assert float(torch.linalg.vector_norm(out["x_final"][:, 4:7], dim=1).max()) < 1.0
+        assert float(out["solver_success"].float().mean()) > 0.99, f"warm={warm}"
+        results[warm] = out["x_final"]
+    torch.testing.assert_close(results[True], results[False], rtol=0,
+                               atol=0.05 if form == "sparse" else 1e-5)
 
 
 @pytest.mark.parametrize("kw,match", [
