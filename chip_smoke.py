@@ -19,8 +19,13 @@ entry points a user calls, and checks the hand-written kernel on the way:
    at 256 and 64 lanes, the SCVX library's subproblem at 704, the warm-KKT
    RTI cycle's sparse QP at 512 lanes and the sharded campaign's condensed QP
    with its state-bound rows at 2048 and 256 lanes — with the variant each
-   launches, its CTAs a lane, its registers and spills, and its time beside
-   its bound, the plain version and a cuBLAS chain;
+   launches, its CTAs a lane and threads a CTA, its registers and spills, and
+   its time beside its bound, the plain version and a cuBLAS chain. The
+   sparse-form shapes (golden*, rti_warm, sparse6dof*, fleet3dof,
+   suite_rti*, scvx) run with their rows declared as the paths declare them
+   (the dynamics rows "blt", the bounds "diag": the kernel reads the blocks'
+   kept columns alone) and again with every row dense under a "_dense"
+   suffix, as the paths launched them before;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
    steps with the launch counters reset just before and read just after,
    and hold one cycle on the card against the same cycle on the CPU;
@@ -58,8 +63,9 @@ entry points a user calls, and checks the hand-written kernel on the way:
 11. Path F, fleet GP learning (``run_batched_learning``: every lane flies
    GP-MPC episodes with its own sparse GP, refits at the round barrier and
    retunes by Adam every second round): the 3-DoF fleet (128 lanes, the
-   sparse-form QP through the cluster variant) and the 6-DoF fleet (64
-   lanes, the condensed QP through the shared variant), 3 rounds of 110
+   sparse-form QP with its rows declared, one block's shared memory a lane:
+   the shared variant) and the 6-DoF fleet (64
+   lanes, the condensed QP through the shared variant), 2 of the script's 3 rounds of 110
    steps each, judged by the fleet script's gate and printed beside the
    JAX package's TPU artifacts; the episode cycle timed with CUDA events on
    the GPs the campaign's second round flew with, its launches counted; from
@@ -103,8 +109,8 @@ entry points a user calls, and checks the hand-written kernel on the way:
    --standard`` on the script's own initial states
    (``tests/fixtures/experiments_x0.npz``, 256 runs): the GP pretrained on the
    plant with the unmodelled downdraft, GP-MPC (the condensed QP at N = 15,
-   the shared variant), the GP-free RTI ablation (the sparse form, the
-   cluster variant), the four baselines, the dispersion sweep (low, medium,
+   the shared variant), the GP-free RTI ablation (the sparse form with its
+   rows declared, the shared variant), the four baselines, the dispersion sweep (low, medium,
    high, both MPC arms on 64 lanes), the exports (each parsed) and the
    z-test, judged by the script's own rule (GP-MPC ≥ 0.9 and ≥ RTI) and
    printed beside the suite's record (a JAX run on a CPU); 10 teacher-forced
@@ -115,7 +121,10 @@ entry points a user calls, and checks the hand-written kernel on the way:
    variant) with its nearest and best-within-radius queries, and 4 of its
    lanes card against CPU.
 
-Every phase prints its wall seconds (``[time]``).
+Every phase prints its wall seconds (``[time]``). The phases of the
+sparse-form paths (the warm-KKT RTI cycle, Paths B, D and F's fits and
+fleet, the suite's RTI arm and GP fit, the SCVX library) assert that every
+launch at their shape read the rows as declared (``[rows]``).
 
 Everything worth reporting is printed before the last two lines: a JSON
 object with one entry per kernel, the card's name and power limit, and last
@@ -155,6 +164,11 @@ ONLINE_FLOORS = {"3dof": (0.98, 2.0), "6dof": (0.95, 2.0)}
 # moves its own u0 by ~3e-3 under such a change, on the CPU and in the JAX
 # package alike (tests/test_torch_fleet.py); the 3-DoF one by ~2e-4
 FLEET_U0_ATOL, FLEET_ERR_RTOL, FLEET_WITNESS_X = 1e-3, 1e-2, 2.0
+# Path F's rounds: 2 of the script's 3, cut to keep this script well inside
+# its 1,200 s on an H100 at 700 W (it ran 1,013 s with 3 on a slow host).
+# The gate reads the last round against the first; the episode cycle and
+# the card-vs-CPU round fly the second round's GPs, as with 3
+FLEET_ROUNDS = 2
 # Path G (fleet LMPC): rounds flown, cut to keep this script under ~900 s on
 # an H100 at 700 W. The artifacts fly 5 rounds each; with 5 and 5 the script
 # ran 935 s before the experiment suite came in, with 5 and 3 it ran ~850 s,
@@ -230,7 +244,7 @@ def phase_kernels():
     from gpmpc_tpu_torch.chunk_bench import (BOUNDED_SEGS, FACETS_SEGS, FLEET6_SEGS, LMPC_SEGS,
                                              bmm_chain_graph,
                                              bound_ms, chunk_inputs, cuda_ms, graph_ms,
-                                             host_us, kernel_entry, ptxas_report)
+                                             host_us, kernel_entry, ptxas_report, sparse_segs)
     from gpmpc_tpu_torch.ops.kernels import _build
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
@@ -271,36 +285,46 @@ def phase_kernels():
     # lanes and at its 256-lane shards. On lmpc and hull f32
     # alone moves the iterates by tens of times the tolerance (an
     # ill-conditioned M⁻¹ and near-duplicate vertices; WITNESS_SHAPES).
+    # The sparse-form shapes (golden*, rti_warm, sparse6dof*, fleet3dof,
+    # suite_rti*, scvx) are launched as their paths launch them, with the
+    # rows declared ("blt" dynamics rows, "diag" bounds: sparse_segs); each
+    # also runs with every row dense, as the paths launched it before, under
+    # a "_dense" suffix.
+    sparse = (("golden", "golden", 8, ITERS, False), ("golden_b5", "golden", 5, RTI_CHUNK, False),
+              ("golden_b4", "golden", 4, RTI_CHUNK, True),
+              ("rti_warm", "golden", BATCH, RTI_CHUNK, True),
+              ("sparse6dof", "sparse6dof", 4, RTI_CHUNK, True),
+              ("sparse6dof_b5", "sparse6dof", 5, RTI_CHUNK, False),
+              ("fleet3dof", "fleet3dof", 128, RTI_CHUNK, True),
+              ("suite_rti", "suite_rti", 256, RTI_CHUNK, True),
+              ("suite_rti64", "suite_rti", 64, RTI_CHUNK, True),
+              ("scvx", "scvx", 704, RTI_CHUNK, True))
     shapes = (("main", "main", 0, diag, ITERS, True), ("dense", "dense", 0, None, ITERS, True),
-              ("golden", "golden", 8, None, ITERS, False),
-              ("golden_b5", "golden", 5, None, RTI_CHUNK, False),
               ("rti", "main", 0, diag, RTI_CHUNK, True),
               ("bounded", "bounded", 0, BOUNDED_SEGS, RTI_CHUNK, True),
               ("bounded50", "bounded", 0, BOUNDED_SEGS, ITERS, True),
               ("facets", "facets", 0, FACETS_SEGS, 30, True),
-              ("golden_b4", "golden", 4, None, RTI_CHUNK, True),
-              ("rti_warm", "golden", BATCH, None, RTI_CHUNK, True),
               ("sixdof", "sixdof", BATCH, BOUNDED_SEGS, 30, True),
               ("sixdof50", "sixdof", BATCH, BOUNDED_SEGS, ITERS, True),
-              ("sparse6dof", "sparse6dof", 4, None, RTI_CHUNK, True),
-              ("fleet3dof", "fleet3dof", 128, None, RTI_CHUNK, True),
               ("fleet6dof", "fleet6dof", 64, FLEET6_SEGS, RTI_CHUNK, True),
               ("lmpc", "lmpc", 256, LMPC_SEGS, RTI_CHUNK, True),
               ("lmpc_rows", "lmpc_rows", 256, LMPC_SEGS, RTI_CHUNK, False),
               ("hull", "hull", 256, None, RTI_CHUNK, True),
-              ("sparse6dof_b5", "sparse6dof", 5, None, RTI_CHUNK, False),
               ("bounded1024", "bounded", 1024, BOUNDED_SEGS, RTI_CHUNK, True),
               ("filter", "filter", 1024, None, RTI_CHUNK, True),
               ("filter512", "filter", BATCH, None, RTI_CHUNK, True),
               ("suite_gp", "suite_gp", 256, LMPC_SEGS, RTI_CHUNK, True),
-              ("suite_rti", "suite_rti", 256, None, RTI_CHUNK, True),
               ("suite_gp64", "suite_gp", 64, LMPC_SEGS, RTI_CHUNK, True),
-              ("suite_rti64", "suite_rti", 64, None, RTI_CHUNK, True),
-              ("scvx", "scvx", 704, None, RTI_CHUNK, True),
               ("sharded", "campaign", 2048, BOUNDED_SEGS, ITERS, True),
-              ("sharded256", "campaign", 256, BOUNDED_SEGS, ITERS, True))
+              ("sharded256", "campaign", 256, BOUNDED_SEGS, ITERS, True)) + tuple(
+        row for kind, inputs, lanes, iters, timed in sparse
+        for row in ((kind, inputs, lanes, sparse_segs(inputs), iters, timed),
+                    (kind + "_dense", inputs, lanes, None, iters, timed)))
+    cache = {}
     for kind, inputs, lanes, segs, iters, timed in shapes:
-        args = chunk_inputs(inputs, gen, golden, lanes)
+        if (inputs, lanes) not in cache:  # a sparse shape and its _dense row share their data
+            cache = {(inputs, lanes): chunk_inputs(inputs, gen, golden, lanes)}
+        args = cache[inputs, lanes]
         B, m, n = args[1].shape
         kw = dict(iters=iters, sigma=1e-6, alpha=1.6, row_structure=segs)
         xk, zk, yk = K.admm_chunk(*args, **kw)
@@ -313,13 +337,17 @@ def phase_kernels():
         Ak, d0, mg = K.kernel_rows(args[1], segs)
         if Ak is not args[1]:
             raise RuntimeError(f"the wrapper copied A for the {kind} shape")
-        variant, ctas = K.variant(n, m, mg, B), K.cluster_size(n, m, mg, B)
+        blt = K.kernel_blt(segs, m)
+        variant, ctas = K.variant(n, m, mg, B, blt=blt[1:]), K.cluster_size(n, m, mg, B, blt=blt[1:])
+        threads = K.threads(n, m, mg, B, blt=blt[1:])
         if variant == "global":
             raise RuntimeError(f"the {kind} shape lands on the global variant: repair the picker")
-        regs, spill_st, spill_ld = ptxas_report(_build.build_log("admm_chunk"),
-                                                kernel_entry(variant, n, m, mg))
-        log(f"[kernel] {kind}: B={B} n={n} m={m} diagonal rows {d0}..{d0 + mg} iters={iters} "
-            f"variant={variant} ({ctas or 1} CTAs a lane, {regs} registers, spill stores {spill_st} B, loads {spill_ld} B) "
+        regs, spill_st, spill_ld = ptxas_report(
+            _build.build_log("admm_chunk"),
+            kernel_entry(variant, n, m, mg, threads=None if variant == "register" else threads))
+        log(f"[kernel] {kind}: B={B} n={n} m={m} diagonal rows {d0}..{d0 + mg}, blt segment "
+            f"(t0, C, h, w) {blt}, iters={iters} "
+            f"variant={variant} ({ctas or 1} CTAs a lane of {threads} threads, {regs} registers, spill stores {spill_st} B, loads {spill_ld} B) "
             f"max|dx|={err[0]:.3e} max|dz|={err[1]:.3e} max|dy|={err[2]:.3e}; "
             f"over max(1,|plain|): {rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e} "
             f"(atol {ATOL_XZ}/{ATOL_XZ}/{ATOL_Y})")
@@ -361,10 +389,12 @@ def phase_kernels():
         plain_ms = cuda_ms(lambda: K.admm_chunk_plain(*args, **kw), 5)
         lib_ms = cuda_ms(bmm_chain_graph(args, iters, segs), reps)
         ms2 = graph_ms(chunk, reps)
-        eager_ms, wrap_us = cuda_ms(chunk, 50), host_us(chunk, 200)
+        # the eager and wrapper times of a chunk of milliseconds take fewer calls
+        eager_ms, wrap_us = cuda_ms(chunk, 50 if reps == 20 else 10), host_us(chunk, 200 if reps == 20 else 20)
         bnd, by, nbytes, flops = bound_ms(args, iters, segs)
         timings.append(dict(shape=kind, lanes=B, n=n, m=m, iters=iters, variant=variant,
-                            ctas_per_lane=ctas or 1, registers=regs, max_abs_err=max(err),
+                            ctas_per_lane=ctas or 1, threads=threads, registers=regs,
+                            max_abs_err=max(err),
                             ms=ms, ms_repeat=ms2, eager_ms=eager_ms, wrapper_us=wrap_us,
                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by))
         log(f"[kernel] {kind} chunk: kernel {ms:.4f} ms (repeat {ms2:.4f}; CUDA graph of {reps} "
@@ -430,6 +460,7 @@ def _time_cycles(cycle, state, xs, cycles, dev, what):
     torch.cuda.synchronize(dev)
     K.LAUNCHES = 0  # counts from here on are this path's
     K.LAUNCHES_BY_SHAPE.clear()
+    K.LAUNCHES_BY_ROWS.clear()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.time()
     start.record()
@@ -607,7 +638,7 @@ def phase_rti_warm(dev=torch.device("cuda")):
 
     out = {}
     n, m = 207, 354
-    variant = K.variant(n, m, 0, BATCH)
+    variant, ctas = _sparse_variant(n, m, BATCH)
     x0s = fleet_x0(BATCH, dev)
     N_ = rti_warm_path(dev).config.N
     ref = pad_reference(cubic_descent_reference(x0s, rti_warm_path(dev).x_target, 100, DT),
@@ -626,13 +657,14 @@ def phase_rti_warm(dev=torch.device("cuda")):
         sol, state, xs, dev_ms, host_ms, launches = _time_cycles(
             cycle, state, x0s, 20, dev, f"the {tag} RTI cycle")
         by_shape = dict(K.LAUNCHES_BY_SHAPE)
+        _assert_rows_declared(f"the {tag} RTI cycle", n, m)
         if warm and not bool(torch.isfinite(state.kkt_inv).all()):
             raise RuntimeError("the carried KKT inverse is not finite")
         out[tag] = dict(ms_per_cycle=dev_ms, host_ms_per_cycle=host_ms, launches=launches,
                         launches_by_shape={f"n{a}_m{b}": c for (a, b), c in by_shape.items()},
                         accepted=float(sol.success.float().mean()))
     log(f"[rti_warm] 20 cycles x {BATCH} lanes, n = {n}, m = {m} ({variant} variant, "
-        f"{K.cluster_size(n, m, 0, BATCH)} CTAs a lane): warm KKT {out['warm']['ms_per_cycle']:.3f} "
+        f"{ctas} CTAs a lane): warm KKT {out['warm']['ms_per_cycle']:.3f} "
         f"ms/cycle (host {out['warm']['host_ms_per_cycle']:.3f}), Cholesky "
         f"{out['cholesky']['ms_per_cycle']:.3f} ms/cycle (host "
         f"{out['cholesky']['host_ms_per_cycle']:.3f}); launches {out['warm']['launches_by_shape']} "
@@ -706,16 +738,17 @@ def phase_pretrain(dev=torch.device("cuda")):
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
     episodes, episode_len = 4, 64
-    K.LAUNCHES = 0  # counts from here on are this path's
+    _reset_launches()  # counts from here on are this path's
     t0 = time.time()
     gp, mean_fn, var_fn = pretrain_path(torch.Generator(device=dev).manual_seed(2),
                                         dev, n_episodes=episodes, episode_len=episode_len)
     torch.cuda.synchronize(dev)
     seconds = time.time() - t0
     launches = K.LAUNCHES
-    # the episodes' QP is the sparse form, n = 207, m = 354, all rows dense:
+    # the episodes' QP is the sparse form, n = 207, m = 354, its rows declared:
     # four chunks of 25 a cycle, every one an adapt chunk (no early exit)
-    variant = K.variant(207, 354, 0, episodes)
+    variant, ctas = _sparse_variant(207, 354, episodes)
+    _assert_rows_declared("Path B's fit", 207, 354)
     if variant != "cluster" or launches != 4 * episode_len:
         raise RuntimeError(f"pretraining launched the {variant} variant {launches} times, "
                            f"expected the cluster one {4 * episode_len} times")
@@ -725,7 +758,7 @@ def phase_pretrain(dev=torch.device("cuda")):
     lml0 = sparse_lml(k0, g.Z, g.X, g.Y, g.mask, ln0, g.method)
     log(f"[pretrain] {episodes} episodes x {episode_len} cycles + fit + tuning in {seconds:.2f} s: "
         f"{int(gp.buffer.count)} points, {g.Z.shape[0]} inducing, admm_chunk launches {launches} "
-        f"({variant} variant, {K.cluster_size(207, 354, 0, episodes)} CTAs a lane); LML per output untuned {[round(v, 2) for v in lml0.tolist()]} "
+        f"({variant} variant, {ctas} CTAs a lane); LML per output untuned {[round(v, 2) for v in lml0.tolist()]} "
         f"tuned {[round(v, 2) for v in lml.tolist()]}")
     if not bool(torch.isfinite(lml).all()) or bool((lml < lml0).any()):
         raise RuntimeError("the tuned marginal likelihood is worse than the untuned one")
@@ -817,16 +850,17 @@ def phase_sixdof(dev=torch.device("cuda")):
 
     # the GP fit: six 64-step episodes of the sparse-form 6-DoF RTI
     # controller (the campaign's count, run_campaign_tpu.py:301-303; the
-    # bench fits four), n = 269, m = 493, no row declared: the cluster variant
+    # bench fits four), n = 269, m = 493, its rows declared: the cluster variant
     episodes, episode_len = 6, 64
-    K.LAUNCHES = 0  # counts from here on are this path's
+    _reset_launches()  # counts from here on are this path's
     t0 = time.time()
     gp, mean_fn, var_fn = sixdof_pretrain_path(torch.Generator(device=dev).manual_seed(2), dev,
                                                n_episodes=episodes, episode_len=episode_len)
     torch.cuda.synchronize(dev)
     seconds = time.time() - t0
     pre_launches = K.LAUNCHES
-    variant, ctas = K.variant(269, 493, 0, episodes), K.cluster_size(269, 493, 0, episodes)
+    variant, ctas = _sparse_variant(269, 493, episodes)
+    _assert_rows_declared("Path D's fit", 269, 493)
     if variant != "cluster" or not episode_len <= pre_launches <= 4 * episode_len:
         raise RuntimeError(f"the 6-DoF pretraining launched the {variant} variant {pre_launches} "
                            f"times, expected the cluster one {episode_len} to {4 * episode_len} times")
@@ -1127,7 +1161,7 @@ def _fleet_vs_cpu(fp, gps, use_gp, x0s, lanes, gen):
     round of those lanes on the card (kernel and plain) and on the CPU
     (as flown, and from three such changes of the initial states). The
     lanes as flown and their changed copies fly side by side in one CPU
-    batch. Returns
+    batch, in the cycles and in the round. Returns
     the readings: per cycle kernel−CPU, plain−CPU, kernel−plain and the
     CPU's own spread of u0; per lane the model error's relative distances."""
     from gpmpc_tpu_torch.learning.batched_learner import (_gated_fns, fleet_cycle,
@@ -1148,11 +1182,11 @@ def _fleet_vs_cpu(fp, gps, use_gp, x0s, lanes, gen):
     own_r = 4  # changed copies of the state per cycle
     cyc = {"kernel": fleet_cycle(fp.F, fp.plant, fp.mpc, *_gated_fns(gps_g, use_g, n_x), xr_g),
            "plain": fleet_cycle(fp.F, fp.plant, mpc_off, *_gated_fns(gps_g, use_g, n_x), xr_g),
-           "cpu": fleet_cycle(fp_c.F, fp_c.plant, fp_c.mpc, *_gated_fns(gps_c, use_c, n_x),
-                              xr_g.cpu()),
-           "own": fleet_cycle(fp_c.F, fp_c.plant, fp_c.mpc,
-                              *_gated_fns(_repeat_lanes(gps_c, own_r), use_c.repeat(own_r), n_x),
-                              xr_g.cpu().repeat(own_r, 1, 1))}
+           # one CPU batch: the lanes as flown, then their changed copies
+           "cpu": fleet_cycle(fp_c.F, fp_c.plant, fp_c.mpc,
+                              *_gated_fns(_repeat_lanes(gps_c, own_r + 1),
+                                          use_c.repeat(own_r + 1), n_x),
+                              xr_g.cpu().repeat(own_r + 1, 1, 1))}
     ulp = lambda x: x * (1 + 1e-7 * torch.randn(x.shape, generator=gen))
     sg, xg = gp_mpc_init(fp.mpc, x0g, fp.x_target, device=dev), x0g
     du = {k: [] for k in ("kernel_cpu", "plain_cpu", "kernel_plain", "cpu_own")}
@@ -1160,8 +1194,9 @@ def _fleet_vs_cpu(fp, gps, use_gp, x0s, lanes, gen):
         sc, xc = _to(sg, cpu), xg.cpu()
         sol_p = cyc["plain"](sg, xg, k)[0]
         sol_g, sg_next, xn = cyc["kernel"](sg, xg, k)
-        uc = cyc["cpu"](sc, xc, k)[0].u0
-        uo = cyc["own"](_repeat_lanes(sc, own_r), ulp(xc.repeat(own_r, 1)), k)[0].u0
+        u_all = cyc["cpu"](_repeat_lanes(sc, own_r + 1),
+                           torch.cat([xc, ulp(xc.repeat(own_r, 1))]), k)[0].u0
+        uc, uo = u_all[:lanes], u_all[lanes:]
         du["kernel_cpu"].append((sol_g.u0.cpu() - uc).abs().max().item())
         du["plain_cpu"].append((sol_p.u0.cpu() - uc).abs().max().item())
         du["kernel_plain"].append((sol_g.u0 - sol_p.u0).abs().max().item())
@@ -1193,7 +1228,7 @@ def phase_fleet(dev=torch.device("cuda")):
     cycle timed on the GPs their second round flew with, and 10 cycles and
     a round of 8 lanes held against the CPU."""
     return {model: _fleet_model(model, expect, dev)
-            for model, expect in (("3dof", "cluster"), ("6dof", "shared"))}
+            for model, expect in (("3dof", "shared"), ("6dof", "shared"))}
 
 
 def _fleet_model(model, expect, dev):
@@ -1201,34 +1236,38 @@ def _fleet_model(model, expect, dev):
     from gpmpc_tpu_torch.main_path import (FLEET_LANES, fleet_learning_path, fleet_learning_x0,
                                            fly_fleet)
     from gpmpc_tpu_torch.mpc import gp_mpc_init
-    from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg, _n_rows
+    from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg, _n_rows, _sparse_admm_cfg
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
     fp = fleet_learning_path(model, dev)
+    fp = fp._replace(config=dataclasses.replace(fp.config, n_rounds=FLEET_ROUNDS))
     base, B = fp.mpc.base, FLEET_LANES[model]
     n = base.N * base.n_u + (0 if base.condensed else (base.N + 1) * base.n_x)
     m = _n_rows(base)
-    segs = _condensed_admm_cfg(base).row_structure if base.condensed else None
-    mg = sum(sg[1] for sg in segs if sg[0] == "diag") if segs else 0
-    variant = K.variant(n, m, mg, B)
+    segs = (_condensed_admm_cfg(base) if base.condensed else _sparse_admm_cfg(base)).row_structure
+    mg = sum(sg[1] for sg in segs if sg[0] == "diag")
+    blt = K.kernel_blt(segs, m)[1:]
+    variant = K.variant(n, m, mg, B, blt=blt)
     log(f"[fleet] {model}: {B} lanes, QP n = {n}, m = {m}, rows {segs}, "
         f"{base.admm.max_iter} iterations in chunks of {base.admm.check_interval}: "
-        f"{variant} variant, {K.cluster_size(n, m, mg, B)} CTAs a lane")
+        f"{variant} variant, {K.cluster_size(n, m, mg, B, blt=blt)} CTAs a lane")
     if variant != expect:
         raise RuntimeError(f"the {model} fleet's QP picks the {variant} variant, "
                            f"expected {expect}")
     x0s = fleet_learning_x0(model, torch.Generator(device=dev).manual_seed(0), B, dev)
 
-    # the campaign: 3 rounds of 110 steps, refit barrier, retune every 2
-    K.LAUNCHES = 0
+    # the campaign: FLEET_ROUNDS rounds of 110 steps, refit barrier, retune every 2
+    _reset_launches()
     t0 = time.time()
     out, summ = fly_fleet(fp, x0s, torch.Generator(device=dev).manual_seed(1))
     torch.cuda.synchronize(dev)
     wall_s, launches = time.time() - t0, K.LAUNCHES
+    if not base.condensed:
+        _assert_rows_declared(f"Path F's {model} fleet", n, m)
     for name in ("model_err", "touchdown_speed"):
         if not bool(torch.isfinite(out[name]).all()):
             raise RuntimeError(f"non-finite {name} in the {model} fleet")
-    log(f"[fleet] {model} campaign, {B} lanes x 3 rounds, in {wall_s:.1f} s "
+    log(f"[fleet] {model} campaign, {B} lanes x {FLEET_ROUNDS} rounds, in {wall_s:.1f} s "
         f"({launches} launches): {json.dumps(summ)}")
     log(f"[fleet] {model} the JAX package's artifact (a TPU v5e record, the reference's, "
         f"not this card's): {json.dumps(fleet_artifact(model))}")
@@ -1737,12 +1776,45 @@ def _reset_launches():
 
     K.LAUNCHES = 0
     K.LAUNCHES_BY_SHAPE.clear()
+    K.LAUNCHES_BY_ROWS.clear()
 
 
 def _launches():
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 
     return K.LAUNCHES, {f"n{n}_m{m}": c for (n, m), c in sorted(K.LAUNCHES_BY_SHAPE.items())}
+
+
+# the sparse-form shapes the paths launch: (n, m) → (N, n_x) of their QP
+SPARSE_FORMS = {(207, 354): (20, 7), (407, 694): (40, 7), (157, 269): (15, 7),
+                (269, 493): (15, 14)}
+
+
+def _sparse_variant(n, m, lanes):
+    """(variant, CTAs a lane) of the sparse-form (n, m) shape at ``lanes``
+    lanes with its rows declared."""
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    N_, n_x = SPARSE_FORMS[(n, m)]
+    blt = (N_ + 1, n_x, n_x + 3)
+    return K.variant(n, m, n, lanes, blt=blt), K.cluster_size(n, m, n, lanes, blt=blt)
+
+
+def _assert_rows_declared(what, n, m):
+    """Every launch of the sparse-form (n, m) shape since the counts were
+    last set to 0 read its rows as the path declares them: the n bound rows
+    through their diagonal, x₀'s identity and the dynamics rows as the "blt"
+    segment (N+1, n_x, n_x+3). Returns that count."""
+    from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+
+    N_, n_x = SPARSE_FORMS[(n, m)]
+    total = K.LAUNCHES_BY_SHAPE.get((n, m), 0)
+    declared = K.LAUNCHES_BY_ROWS.get((n, m, n, (N_ + 1, n_x, n_x + 3)), 0)
+    log(f"[rows] {what}: {declared} of {total} launches at n = {n}, m = {m} read the rows "
+        f"declared (blt {N_ + 1} x {n_x} rows, {n_x + 3} columns a block, diag {n})")
+    if total == 0 or declared != total:
+        raise RuntimeError(f"{what} did not solve with the sparse form's rows declared")
+    return declared
 
 
 def _safety_vs_cpu(dev, lanes=8, cycles=10, own_r=4):
@@ -2058,10 +2130,14 @@ def _scvx_vs_cpu(lp, sol, x0s, dev, lanes=4, own_r=4):
     cfg_c = lp.config.replace(device=cpu)
     x0, dts = x0s[:lanes], sol.dt[:lanes]
     g = scvx_solve(lp.step_dt, lp.config, x0, lp.x_target, dts)
-    c = scvx_solve(lc.step_dt, cfg_c, x0.cpu(), lc.x_target, dts.cpu())
     gen = torch.Generator().manual_seed(0)
     xo = x0.cpu().repeat(own_r, 1) * (1 + 1e-7 * torch.randn(own_r * lanes, 7, generator=gen))
-    o = scvx_solve(lc.step_dt, cfg_c, xo, lc.x_target, dts.cpu().repeat(own_r))
+    # one CPU batch: the lanes as flown, then their changed copies (a lane's
+    # solve does not depend on its neighbours; the CPU pays per operation)
+    co = scvx_solve(lc.step_dt, cfg_c, torch.cat([x0.cpu(), xo]), lc.x_target,
+                    dts.cpu().repeat(own_r + 1))
+    c = type(co)(*(t[:lanes] for t in co))
+    o = type(co)(*(t[lanes:] for t in co))
     diff = lambda a, b: (a - b).abs().max().item()
     d = {k: diff(getattr(g, k).cpu(), getattr(c, k)) for k in ("U", "X", "fuel_used")}
     w = {k: diff(getattr(o, k), getattr(c, k).repeat(own_r, *([1] * (getattr(c, k).dim() - 1))))
@@ -2152,6 +2228,13 @@ def _experiments(dev, lp, oracle, has_mpl):
         f"{json.dumps(rec_z)}")
     if launches <= 0 or by_shape.get("n45_m150", 0) <= 0 or by_shape.get("n157_m269", 0) <= 0:
         raise RuntimeError("the suite's MPC arms did not go through the kernel at both shapes")
+    _assert_rows_declared("the suite's RTI arm", 157, 269)
+    _assert_rows_declared("the suite's GP fit", 207, 354)
+    rti_arm = next(mt for mt in run["metrics"] if mt.name == "rti_mpc")
+    log(f"[experiments] the RTI arm landed {round(rti_arm.success_rate * sp.n_runs)} of "
+        f"{sp.n_runs} runs (this suite's first card run, before the rows were declared: 201; "
+        f"{SUITE_RECORD_LABEL}: "
+        f"{round(float(rec['rti_mpc']['success_rate']) * sp.n_runs)})")
     if not run["passed"]:
         raise RuntimeError(f"the suite misses the script's rule: GP-MPC "
                            f"{run['z_test']['gp_mpc_success']:.4f} (≥ 0.9) and ≥ RTI "
@@ -2214,6 +2297,7 @@ def _experiments(dev, lp, oracle, has_mpl):
         f"{int(best.unique().numel())}")
     if llaunch <= 0 or lshape.get("n407_m694", 0) <= 0:
         raise RuntimeError("the SCVX library did not go through the kernel")
+    _assert_rows_declared("the SCVX library", 407, 694)
     if not (bool(torch.isfinite(lib["library"].X).all()) and near.shape == best.shape
             and int(near.max()) < SCVX_LIBRARY_STATES):
         raise RuntimeError("the SCVX library or its queries are malformed")
@@ -2362,7 +2446,8 @@ def main():
         "library_ms": main_t["library_ms"],
         "variant": main_t["variant"],
         "shapes": [{k: t[k] for k in ("shape", "lanes", "n", "m", "iters", "variant",
-                                       "ctas_per_lane", "registers", "max_abs_err", "ms", "eager_ms",
+                                       "ctas_per_lane", "threads", "registers", "max_abs_err",
+                                       "ms", "eager_ms",
                                        "wrapper_us", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")}
                    for t in timings],

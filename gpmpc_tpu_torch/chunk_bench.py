@@ -9,9 +9,12 @@ the same kernels that takes the tiling per call:
   n = m = 60, every row declared diagonal, 50 iterations) and at the dense
   60×60 shape, beside the time of a chunk of 0 iterations (launch, operand
   loads, stores);
-- ``cluster``: the cluster variant's CTAs a lane (C = 4, 8, 16), threads a
-  CTA (T = 256, 512) and threads per row dot product (K = 8, 16) at the
-  sparse-form golden shape (n = 207, m = 354, 25 iterations), 4 and 512 lanes;
+- ``cluster``: the row-split kernel's CTAs a lane (C = 1, 2, 4, 8, 16),
+  threads a CTA (T = 256, 512) and exchange of the partials of Aᵀt (pushed
+  into the peers or pulled from them) at the sparse-form shapes with their
+  rows declared as the paths declare them (:data:`CLUSTER_CASES`: the SCVX
+  library's 704 lanes, the golden shape at 512 and 4, the 6-DoF sparse form
+  at 4, the suite's RTI arm at 256, the 3-DoF fleet at 128; 25 iterations);
 - ``shared``: the shared variant's T = 128, 256, 512 and K = 4, 8, 16 at the
   condensed QP with state bounds (n = 60, m = 200) at 25, 30 and 50
   iterations and at the 6-DoF QP with cone facets (n = 60, m = 380) at 30.
@@ -19,13 +22,19 @@ the same kernels that takes the tiling per call:
 - ``stages``: what the stages of the shared and cluster variants cost, by
   leaving them out one at a time (``csrc/admm_chunk_probe.cu``, a build with
   the kernel's stage probe on): the column walk for Aᵀt, the M⁻¹ dot
-  products, the row dot products, the row updates, the cluster's remote sum
-  and its cluster barriers, at the bounded, facets and golden shapes.
+  products, the row dot products, the row updates, the cluster's exchange of
+  the partials, its cluster barriers and its broadcast of x̃, at
+  :data:`STAGE_CASES` (the bounded and facets shapes, golden at 4 lanes,
+  rti_warm, the SCVX library's chunk with its rows declared and dense);
+- ``ab``: every path's chunk (:func:`ab_shapes`) through this tree's kernel
+  and through an earlier commit's (``--parent``, a checkout of it), in one
+  call: parent, this, this, parent.
 
 Each tiling row reports the registers and spills ``ptxas`` gives the instance, the
 agreement with the plain version and the device time from a CUDA-graph replay:
 
-    python -m gpmpc_tpu_torch.chunk_bench [--sweep register cluster shared stages] [--out FILE.json]
+    python -m gpmpc_tpu_torch.chunk_bench [--sweep register cluster shared stages ab]
+        [--parent DIR] [--out FILE.json]
 
 Needs a Hopper card; there is no CPU path.
 """
@@ -310,18 +319,20 @@ def bmm_chain_graph(args, iters, row_structure):
 
 def bound_ms(args, iters, row_structure):
     """Least time for the chunk on this card: max(bytes / HBM rate, flops /
-    f32 rate) over the operands the kernel reads — M⁻¹, A's dense rows, the
-    diagonal of its declared diagonal rows, seven vectors — each read once,
-    and three vectors written once; the matvec work counts the nonzeros of
-    the dense rows in this run's data and one per diagonal row."""
+    f32 rate) over the operands the kernel reads — M⁻¹, A's kept entries
+    (every row whole but the declared diagonal rows, read as their diagonal,
+    and the first "blt" segment, read as its blocks' kept columns), seven
+    vectors — each read once, and three vectors written once; the matvec
+    work counts the nonzeros of the kept entries in this run's data and one
+    per diagonal row."""
     from .ops.kernels import admm_chunk as K
 
     Minv, A = args[0], args[1]
     B, m, n = A.shape
     Ak, d0, mg = K.kernel_rows(A, row_structure)
-    nnz_dense = sum(int((rows != 0).sum().item()) for rows in (Ak[:, :d0], Ak[:, d0 + mg:]))
-    nnz_a = nnz_dense + B * mg
-    n_in = Minv.numel() + B * (m - mg) * n + sum(t.numel() for t in args[2:])
+    keep = kept_mask(m, n, d0, mg, K.kernel_blt(row_structure, m), A.device)
+    nnz_a = int(((Ak != 0) & keep).sum().item()) + B * mg
+    n_in = Minv.numel() + B * int(keep.sum().item()) + sum(t.numel() for t in args[2:])
     bytes_moved = 4 * (n_in + B * mg + B * (n + 2 * m))
     flops = iters * (2 * (B * n * n + 2 * nnz_a) + B * (11 * m + 5 * n))
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -330,15 +341,39 @@ def bound_ms(args, iters, row_structure):
             bytes_moved, flops)
 
 
+def kept_mask(m, n, d0, mg, blt, dev):
+    """(m, n) bool: the entries of A the row-split kernel keeps — every row
+    but the mg diagonal rows from d0 on, the "blt" segment blt = (t0, C, h,
+    w) cut to its blocks' kept columns."""
+    keep = torch.ones(m, n, dtype=torch.bool, device=dev)
+    keep[d0:d0 + mg] = False
+    t0, C, h, w = blt
+    if C:
+        cols = torch.arange(n, device=dev)[None, :]
+        block = torch.arange(C * h, device=dev)[:, None] // h
+        keep[t0:t0 + C * h] = cols < (block + 1) * w
+    return keep
+
+
+def sparse_segs(kind):
+    """The row structure the port's sparse-form paths declare for a shape's
+    QP (``mpc/rti.py::_sparse_row_structure``): "golden" N = 20, "scvx"
+    N = 40, "suite_rti" and "fleet3dof" N = 15 (3-DoF, n_x = 7),
+    "sparse6dof" N = 15 (n_x = 14); n_u = 3."""
+    from .mpc.rti import _sparse_row_structure
+
+    N, n_x = {"golden": (20, 7), "scvx": (40, 7), "suite_rti": (15, 7), "fleet3dof": (15, 7),
+              "sparse6dof": (15, 14)}[kind]
+    return _sparse_row_structure(N, n_x, 3)
+
+
 def kernel_entry(variant, n, m, mg, row_threads=None, threads=None):
     """A pattern of the mangled name of the kernel instance a chunk launches
     (the register tile with any threads per row when ``row_threads`` is None;
-    the row-split kernel with the port's threads a CTA when ``threads`` is)."""
-    from .ops.kernels.admm_chunk import ROWS_THREADS
-
+    the row-split kernel with ``threads`` a CTA, any when it is None)."""
     md = m - mg
     k = r"\d+" if row_threads is None else str(row_threads)
-    t = ROWS_THREADS if threads is None else threads
+    t = r"\d+" if threads is None else str(threads)
     return {
         "register": (f"admm_chunk_regILi{32 if n <= 32 and md <= 32 else 64}"
                      f"ELi{k}ELb{int(md > 0)}E"),
@@ -372,18 +407,19 @@ def tile_chunk(lib, row_threads, args, row_structure, iters=ITERS):
     B, m, n = A.shape
     outs = [torch.empty(B, k, device=A.device) for k in (n, m, m)]
     err = lib.admm_chunk_tile_f32(
-        *[t.data_ptr() for t in (Minv, A, *vecs, *outs)], B, n, m, d0, mg, iters,
-        KERNEL_ARGS["sigma"], KERNEL_ARGS["alpha"], row_threads, A.device.index,
-        torch.cuda.current_stream().cuda_stream)
+        *[t.data_ptr() for t in (Minv, A, *vecs, *outs)], B, n, m, d0, mg,
+        *K.kernel_blt(row_structure, m), iters, KERNEL_ARGS["sigma"], KERNEL_ARGS["alpha"],
+        row_threads, A.device.index, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"admm_chunk_tile_f32 failed: CUDA error {err}")
     return outs
 
 
-def rows_chunk(lib, threads, row_threads, cluster, args, row_structure, iters):
+def rows_chunk(lib, threads, row_threads, cluster, args, row_structure, iters, push=1):
     """One chunk through the sweep's build of the row-split kernel with
-    ``threads`` a CTA, ``row_threads`` a row dot product and ``cluster`` CTAs
-    a lane (1: the shared variant); returns (x, z, y)."""
+    ``threads`` a CTA, ``row_threads`` a row dot product, ``cluster`` CTAs a
+    lane (1: the shared variant) and the partials pushed (``push`` = 1) or
+    pulled (0); returns (x, z, y)."""
     from .ops.kernels import admm_chunk as K
 
     Minv, A, *vecs = args
@@ -391,12 +427,13 @@ def rows_chunk(lib, threads, row_threads, cluster, args, row_structure, iters):
     B, m, n = A.shape
     outs = [torch.empty(B, k, device=A.device) for k in (n, m, m)]
     err = lib.admm_chunk_rows_f32(
-        *[t.data_ptr() for t in (Minv, A, *vecs, *outs)], B, n, m, d0, mg, iters,
-        KERNEL_ARGS["sigma"], KERNEL_ARGS["alpha"], threads, row_threads, cluster,
-        A.device.index, torch.cuda.current_stream().cuda_stream)
+        *[t.data_ptr() for t in (Minv, A, *vecs, *outs)], B, n, m, d0, mg,
+        *K.kernel_blt(row_structure, m), iters, KERNEL_ARGS["sigma"], KERNEL_ARGS["alpha"],
+        threads, row_threads, cluster, push, A.device.index,
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"admm_chunk_rows_f32 failed: CUDA error {err} (B={B}, n={n}, "
-                           f"m={m}, T={threads}, K={row_threads}, C={cluster})")
+                           f"m={m}, T={threads}, K={row_threads}, C={cluster}, push={push})")
     return outs
 
 
@@ -406,29 +443,39 @@ def _tiles_library():
     lib = _build.load(TILES)
     if lib.admm_chunk_tile_f32.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.admm_chunk_tile_f32.argtypes = [p] * 12 + [i] * 6 + [f, f, i, i, p]
+        lib.admm_chunk_tile_f32.argtypes = [p] * 12 + [i] * 10 + [f, f, i, i, p]
         lib.admm_chunk_tile_f32.restype = i
-        lib.admm_chunk_rows_f32.argtypes = [p] * 12 + [i] * 6 + [f, f, i, i, i, i, p]
+        lib.admm_chunk_rows_f32.argtypes = [p] * 12 + [i] * 10 + [f, f] + [i] * 5 + [p]
         lib.admm_chunk_rows_f32.restype = i
     return lib
 
 
+# the "cluster" sweep's cases: (inputs, lanes) at the shapes of the
+# sparse-form paths, their rows declared as the paths declare them
+CLUSTER_CASES = (("scvx", 704), ("golden", BATCH), ("golden", 4), ("sparse6dof", 4),
+                 ("suite_rti", 256), ("fleet3dof", 128))
+
+
 def sweep_rows(which, golden_path):
-    """The row-split kernel's tilings: "cluster" at the golden shape, 4 and
-    512 lanes; "shared" at the bounded shape (25, 30, 50 iterations) and the
-    facets shape (30, the 6-DoF bench's chunk)."""
+    """The row-split kernel's tilings. "cluster": at CLUSTER_CASES (25
+    iterations), C = 1, 2, 4, 8, 16 CTAs a lane × T = 256, 512 threads × the
+    partials pushed or pulled, the port's K; a tiling whose lane does not
+    fit is listed as such. "shared": T = 128, 256, 512 × K = 4, 8, 16 at the
+    bounded shape (25, 30, 50 iterations) and the facets shape (30, the
+    6-DoF bench's chunk)."""
     from .ops.kernels import _build
     from .ops.kernels import admm_chunk as K
 
     lib = _tiles_library()
     gen = torch.Generator(device="cuda").manual_seed(0)
     if which == "cluster":
-        cases = [("golden", lanes, None, 25) for lanes in (4, BATCH)]
-        tilings = [(t, k, c) for c in (4, 8, 16) for t in (256, 512) for k in (8, 16)]
+        cases = [(kind, lanes, sparse_segs(kind), 25) for kind, lanes in CLUSTER_CASES]
+        tilings = [(t, None, c, push) for c in (1, 2, 4, 8, 16) for t in (256, 512)
+                   for push in (1, 0) if c > 1 or push]
     else:
         cases = [("bounded", BATCH, BOUNDED_SEGS, it) for it in (25, 30, 50)]
         cases.append(("facets", BATCH, FACETS_SEGS, 30))
-        tilings = [(t, k, 1) for t in (128, 256, 512) for k in (4, 8, 16)]
+        tilings = [(t, k, 1, 1) for t in (128, 256, 512) for k in (4, 8, 16)]
     rows, inputs = [], {}
     for kind, lanes, segs, iters in cases:
         if (kind, lanes) not in inputs:
@@ -436,23 +483,32 @@ def sweep_rows(which, golden_path):
         args = inputs[kind, lanes]
         B, m, n = args[1].shape
         mg = K.kernel_rows(args[1], segs)[2]
+        blt = K.kernel_blt(segs, m)[1:]
         ref = K.admm_chunk_plain(*args, row_structure=segs, **{**KERNEL_ARGS, "iters": iters})
         scale = [max(1.0, r.abs().max().item()) for r in ref]
         reps = 20 if B * n * m < 1e7 else 4
-        for t, k, c in tilings:
+        port = (K.variant(n, m, mg, B, blt=blt), K.cluster_size(n, m, mg, B, blt=blt))
+        for t, k, c, push in tilings:
+            k = k or (4 if n <= 64 else 8 if n <= 256 else 16)  # the port's rows_K
+            row = dict(sweep=which, shape=kind, lanes=B, n=n, m=m, iters=iters, threads=t,
+                       row_threads=k, cluster=c, push=push, port_variant=port[0],
+                       port_cluster=port[1])
+            run = lambda: rows_chunk(lib, t, k, c, args, segs, iters, push)
+            try:
+                out = run()
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # the lane does not fit this tiling
+                rows.append(dict(row, fits=False, error=str(e)))
+                print(json.dumps(rows[-1]), flush=True)
+                continue
             regs, st, ld = ptxas_report(
                 _build.build_log(TILES),
                 kernel_entry("shared" if c == 1 else "cluster", n, m, mg, threads=t))
-            run = lambda: rows_chunk(lib, t, k, c, args, segs, iters)
-            out = run()
-            torch.cuda.synchronize()
             err = max((a - b).abs().max().item() / s for a, b, s in zip(out, ref, scale))
-            rows.append(dict(sweep=which, shape=kind, lanes=B, n=n, m=m, iters=iters,
-                             threads=t, row_threads=k, cluster=c, registers=regs,
-                             spill_stores=st, spill_loads=ld, max_rel_err=err,
-                             ms=graph_ms(run, reps), ms_repeat=graph_ms(run, reps),
+            rows.append(dict(row, fits=True, registers=regs, spill_stores=st, spill_loads=ld,
+                             max_rel_err=err, ms=graph_ms(run, reps),
                              ms_0_iters=graph_ms(
-                                 lambda: rows_chunk(lib, t, k, c, args, segs, 0), reps),
+                                 lambda: rows_chunk(lib, t, k, c, args, segs, 0, push), reps),
                              bound_ms=bound_ms(args, iters, segs)[0]))
             print(json.dumps(rows[-1]), flush=True)
     return rows
@@ -461,7 +517,14 @@ def sweep_rows(which, golden_path):
 PROBE = "admm_chunk_probe"
 # Stage bits of csrc/admm_chunk.cu, and the sets the probe leaves out
 STAGES = {"column_walk": 1, "minv_dots": 2, "row_dots": 4, "row_updates": 8,
-          "remote_sum": 16, "cluster_sync": 32}
+          "remote_sum": 16, "cluster_sync": 32, "broadcast": 64, "async_copy": 128}
+# the stage probe's cases: (name, inputs, lanes, row structure, iterations);
+# "scvx_dense" is the SCVX library's chunk as it ran before its rows were
+# declared
+STAGE_CASES = (("bounded", "bounded", BATCH, BOUNDED_SEGS, 25),
+               ("facets", "facets", BATCH, FACETS_SEGS, 30),
+               ("golden", "golden", 4, "sparse", 25), ("rti_warm", "golden", BATCH, "sparse", 25),
+               ("scvx", "scvx", 704, "sparse", 25), ("scvx_dense", "scvx", 704, None, 25))
 
 
 def sweep_stages(golden_path):
@@ -473,38 +536,116 @@ def sweep_stages(golden_path):
 
     lib = _build.load(PROBE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.admm_chunk_probe_f32.argtypes = [p] * 12 + [i] * 6 + [f, f, i, i, p]
+    lib.admm_chunk_probe_f32.argtypes = [p] * 12 + [i] * 10 + [f, f, i, i, p]
     lib.admm_chunk_probe_f32.restype = i
     gen = torch.Generator(device="cuda").manual_seed(0)
     arithmetic = sum(STAGES[k] for k in ("column_walk", "minv_dots", "row_dots", "row_updates"))
-    masks = [("none", 0)] + list(STAGES.items()) + [("arithmetic", arithmetic), ("all", 63)]
+    # "async_copy" out loads the matrices by plain loads instead; "all" keeps
+    # the asynchronous copy
+    masks = [("none", 0)] + list(STAGES.items()) + [("arithmetic", arithmetic), ("all", 127)]
     rows = []
-    for kind, lanes, segs, iters in (("bounded", BATCH, BOUNDED_SEGS, 25),
-                                     ("facets", BATCH, FACETS_SEGS, 30),
-                                     ("golden", 4, None, 25), ("golden", BATCH, None, 25)):
+    for name, kind, lanes, segs, iters in STAGE_CASES:
+        segs = sparse_segs(kind) if segs == "sparse" else segs
         Minv, A, *vecs = chunk_inputs(kind, gen, golden_path, lanes)
         A, d0, mg = K.kernel_rows(A, segs)
         B, m, n = A.shape
+        t0, tb, th, tw = K.kernel_blt(segs, m)
         outs = [torch.empty(B, k, device=A.device) for k in (n, m, m)]
         ptrs = [t.data_ptr() for t in (Minv, A, *vecs, *outs)]
         reps = 20 if B * n * m < 1e7 else 4
 
         def run(skip, its):
             err = lib.admm_chunk_probe_f32(
-                *ptrs, B, n, m, d0, mg, its, KERNEL_ARGS["sigma"], KERNEL_ARGS["alpha"], skip,
-                A.device.index, torch.cuda.current_stream().cuda_stream)
+                *ptrs, B, n, m, d0, mg, t0, tb, th, tw, its, KERNEL_ARGS["sigma"],
+                KERNEL_ARGS["alpha"], skip, A.device.index,
+                torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"admm_chunk_probe_f32 failed: CUDA error {err}")
 
-        variant, ctas = K.variant(n, m, mg, B), K.cluster_size(n, m, mg, B)
-        for name, skip in masks:
-            if variant == "shared" and skip in (16, 32):
+        variant = K.variant(n, m, mg, B, blt=(tb, th, tw))
+        ctas = K.cluster_size(n, m, mg, B, blt=(tb, th, tw))
+        for stage, skip in masks:
+            if variant == "shared" and skip in (16, 32, 64):
                 continue
-            rows.append(dict(sweep="stages", shape=kind, lanes=B, n=n, m=m, iters=iters,
-                             variant=variant, ctas_per_lane=ctas, left_out=name,
+            rows.append(dict(sweep="stages", shape=name, lanes=B, n=n, m=m, iters=iters,
+                             variant=variant, ctas_per_lane=ctas, left_out=stage,
                              ms=graph_ms(lambda: run(skip, iters), reps),
                              ms_0_iters=graph_ms(lambda: run(skip, 0), reps)))
             print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+# the "ab" sweep's shapes, as the paths declare their rows (the sparse-form
+# ones also with every row dense, "_dense"); lanes 0 is the inputs' own 512
+_SPARSE_AB = (("golden_b4", "golden", 4), ("rti_warm", "golden", BATCH),
+              ("sparse6dof", "sparse6dof", 4), ("fleet3dof", "fleet3dof", 128),
+              ("suite_rti", "suite_rti", 256), ("suite_rti64", "suite_rti", 64),
+              ("scvx", "scvx", 704))
+_CONDENSED_AB = (
+    ("main", "main", 0, (("diag", N_VARS),), ITERS), ("rti", "main", 0, (("diag", N_VARS),), 25),
+    ("bounded", "bounded", 0, BOUNDED_SEGS, 25), ("bounded50", "bounded", 0, BOUNDED_SEGS, ITERS),
+    ("bounded1024", "bounded", 1024, BOUNDED_SEGS, 25), ("facets", "facets", 0, FACETS_SEGS, 30),
+    ("sixdof", "sixdof", BATCH, BOUNDED_SEGS, 30), ("fleet6dof", "fleet6dof", 64, FLEET6_SEGS, 25),
+    ("lmpc", "lmpc", 256, LMPC_SEGS, 25), ("suite_gp", "suite_gp", 256, LMPC_SEGS, 25),
+    ("sharded", "campaign", 2048, BOUNDED_SEGS, ITERS),
+    ("sharded256", "campaign", 256, BOUNDED_SEGS, ITERS),
+    ("filter", "filter", 1024, None, 25))
+
+
+def ab_shapes():
+    """The "ab" sweep's shapes: (name, inputs, lanes, row structure,
+    iterations)."""
+    return _CONDENSED_AB + tuple(
+        row for name, inputs, lanes in _SPARSE_AB
+        for row in ((name, inputs, lanes, sparse_segs(inputs), 25),
+                    (name + "_dense", inputs, lanes, None, 25)))
+
+# times the ab_shapes() chunks through the kernel of the tree at argv[1] (its
+# own chunk_inputs, graph_ms and admm_chunk: names every version since the
+# experiment suite's has), each shape from a generator seeded 0
+_AB_CODE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from gpmpc_tpu_torch import chunk_bench as B
+from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+out = []
+for name, inputs, lanes, segs, iters in json.loads(sys.argv[2]):
+    args = B.chunk_inputs(inputs, torch.Generator(device="cuda").manual_seed(0),
+                          sys.argv[1] + "/tests/fixtures/qp_golden.npz", lanes)
+    segs = tuple(tuple(s) for s in segs) if segs else None
+    kw = dict(iters=iters, sigma=1e-6, alpha=1.6, row_structure=segs)
+    b, m, n = args[1].shape
+    reps = 20 if b * n * m < 1e7 else 4
+    out.append(dict(shape=name, ms=B.graph_ms(lambda: K.admm_chunk(*args, **kw), reps)))
+print(json.dumps(out))
+"""
+
+
+def sweep_ab(parent):
+    """The chunk at every ab_shapes() shape through this tree's kernel and
+    through the kernel of the tree at ``parent`` (a checkout of an earlier
+    commit), each in its own process, in the order parent, this, this,
+    parent: device times from CUDA-graph replays, comparable within the
+    call alone."""
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shapes = ab_shapes()
+    spec = json.dumps(shapes)
+    runs = {}
+    for tag, root in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
+        root = os.path.abspath(root)
+        res = subprocess.run([sys.executable, "-c", _AB_CODE, root, spec], cwd=root, check=True,
+                             capture_output=True, text=True)
+        runs.setdefault(tag, []).append(json.loads(res.stdout.strip().splitlines()[-1]))
+    rows = []
+    for i, (name, *_rest) in enumerate(shapes):
+        p, c = [r[i]["ms"] for r in runs["parent"]], [r[i]["ms"] for r in runs["change"]]
+        rows.append(dict(sweep="ab", shape=name, parent_ms=p, change_ms=c,
+                         change_over_parent=sum(c) / sum(p)))
+        print(json.dumps(rows[-1]), flush=True)
     return rows
 
 
@@ -541,7 +682,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the rows as JSON here")
     ap.add_argument("--sweep", nargs="+", default=["register", "cluster", "shared"],
-                    choices=["register", "cluster", "shared", "stages"])
+                    choices=["register", "cluster", "shared", "stages", "ab"])
+    ap.add_argument("--parent", default=None,
+                    help="ab: the root of a checkout of an earlier commit to time against")
     ap.add_argument("--golden", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "fixtures",
         "qp_golden.npz"), help="the golden QP fixtures")
@@ -558,6 +701,8 @@ def main():
             rows += sweep()
         elif which == "stages":
             rows += sweep_stages(args.golden)
+        elif which == "ab":
+            rows += sweep_ab(args.parent)
         else:
             rows += sweep_rows(which, args.golden)
     if args.out:
@@ -565,9 +710,6 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"card": smi, "rows": rows}, f, indent=1)
 
-
-if __name__ == "__main__":
-    main()
 
 
 def lmpc_qp(lanes, gen, dev):
@@ -695,3 +837,7 @@ def scvx_library_qp(lanes, dev):
     U = x0s.new_zeros(x0s.shape[0], lp.config.N, 3)
     U[:, :, 0] = x0s[:, :1]
     return scvx_qp(lp.step_dt, lp.config, x0s, lp.x_target, dts, U)[0]
+
+
+if __name__ == "__main__":
+    main()

@@ -17,23 +17,29 @@
 // and return (x, z, y). f32 throughout, FMA accumulation.
 //
 // Row structure. The solver's declared row structure reaches the kernel as
-// (d0, mg): the mg rows of A from row d0 on (a "diag" segment, mg ≤ n) are
-// read as their diagonal alone (row d0 + i has one entry, A[d0 + i][i]) and
-// applied as elementwise products; the other md = m − mg rows, d0 of them
-// before the segment and the rest after it, are dense and are read where
-// they stand. On the main path (condensed 3-DoF QP, every state bound
-// elided) all 60 rows are the identity control bounds, so A costs no matvec
-// at all; with the state bounds kept the row order is [state bounds (dense);
-// control bounds (diagonal); facets (dense)] and d0 > 0.
+// two segments: (d0, mg), the mg rows of A from row d0 on (a "diag"
+// segment, mg ≤ n), read as their diagonal alone (row d0 + i has one entry,
+// A[d0 + i][i]) and applied as elementwise products; and (t0, tb, th, tw),
+// the tb·th rows from row t0 on (a "blt" segment: tb block rows of th rows,
+// block row i nonzero in its first min((i+1)·tw, n) columns), of which the
+// shared and cluster variants read the kept columns alone. Every other row
+// is dense and read where it stands. On the main path (condensed 3-DoF QP,
+// every state bound elided) all 60 rows are the identity control bounds, so
+// A costs no matvec at all; the condensed QP with its state bounds is
+// [state bounds (blt); control bounds (diag); facets (dense)], the sparse
+// form (mpc/rti.py::_sparse_admm_cfg) [x₀'s identity and the dynamics rows
+// (blt: N+1 block rows of n_x rows, n_x+n_u columns a block column, the
+// last block clipped at n); variable bounds (diag); facets (dense)].
 //
 // Four variants serve the shapes; `admm_chunk_variant` picks by shape and
 // lane count. Per lane and iteration the work is one dense matvec with M⁻¹
-// (2n² flops), two with the dense rows (4·md·n) and O(n+m) elementwise work;
-// every stage needs the whole previous vector, so an iteration is a chain of
+// (2n² flops), two with A's kept rows and O(n+m) elementwise work; every
+// stage needs the whole previous vector, so an iteration is a chain of
 // dependent reductions. The device-memory bound (each operand read once a
 // chunk) and the f32 rate are far below every measured time: what costs is
-// what an iteration re-reads and how long its chain is. All times below are
-// CUDA-graph replays on an NVIDIA H100 80GB HBM3, 700 W, from
+// what an iteration re-reads, how long its chain is and, for many lanes,
+// how many lanes the card holds at once. All times below are CUDA-graph
+// replays on an NVIDIA H100 80GB HBM3, 700 W, from
 // gpmpc_tpu_torch/chunk_bench.py and chip_smoke.py; PERF.md has the tables.
 //
 // 1. Register (n ≤ 64 and md ≤ 64: the main and RTI paths). Bound by the
@@ -41,11 +47,11 @@
 //    bound, and then an iteration takes ~0.30 µs of barrier, broadcast
 //    loads, split dot product, shuffle and row update.
 //    - One CTA a lane, one launch a chunk. M⁻¹ (and the dense rows of A,
-//      twice: row-major for A·x̃ and transposed for Aᵀt) are loaded once a
-//      chunk into registers: NP = 64 padded rows, K = 2 threads a row, 128
-//      threads a lane, 32 entries of each kept matrix a thread, indexed only
-//      with unrolled compile-time indices (ptxas: 84 registers on the main
-//      path, 128 with dense rows, 8 bytes spilt outside the loop).
+//      twice: row-major for A·x̃ and transposed for Aᵀt; a "blt" segment is
+//      read whole here) are loaded once a chunk into registers: NP = 64
+//      padded rows, K = 2 threads a row, 128 threads a lane, 32 entries of
+//      each kept matrix a thread, indexed only with unrolled compile-time
+//      indices (ptxas: 84 registers on the main path, 128 with dense rows).
 //    - Shared memory holds only the vectors, read as float4 broadcasts;
 //      thread c of a row group takes chunks c, c+K, …, so a warp's distinct
 //      chunks are contiguous and never conflict.
@@ -59,70 +65,72 @@
 //      wave. K = 2 is fixed: in the tile sweep K = 1 was 5% faster on the main
 //      path but spilled with dense rows, and K = 4 was 37% slower.
 //
-// 2. Shared (the lane fits one block's shared memory: the condensed QP that
-//    keeps its state bounds, n = 60, m = 200, and the 6-DoF QP with cone
-//    facets, m = 380). Bound by shared-memory bandwidth: with four lanes an
-//    SM the two passes over A's 140 dense rows are 69 KB a lane and
-//    iteration, 2,200 clocks an SM at 128 bytes a clock, and the vectors and
-//    row state add about half as much again; the chain (a 35-row column walk,
-//    three rounds of row dot products, three block barriers) fits inside it.
-//    - M⁻¹ lies in registers as in variant 1 (256 threads, 4 a row), which
-//      takes a third of the traffic out of shared memory.
-//    - A's dense rows lie in shared memory once, zero-padded to whole rounds
-//      of K float4 chunks, and serve both directions. A·x̃: a row's dot
-//      product is split over K = 4 threads that read 64 contiguous bytes at
-//      a time (the stride puts the two rows of a quarter warp in different
-//      banks), with x̃'s chunks read once a stage into registers. Aᵀt: a
-//      quarter warp reads 8 neighbouring float4 of one row (128 bytes, every
-//      bank once) and the four quarters take four rows side by side, joined
-//      by two shuffles: 4 columns a thread and load instead of 1.
-//    - A group takes K rows in turn and then thread c updates the c-th of
-//      them: the projection and dual update run once for K rows.
-//    - The sweep (T = 128, 256, 512 threads × K = 4, 8, 16) has T = 256, K = 4
-//      best at n = 60, m = 200: 0.094 ms for 25 iterations, against 0.108 for
-//      the one-thread-a-row design before it; T = 512 is 15% faster at
-//      m = 380 and 45% slower at m = 200. The stage probe (chunk_bench.py
-//      --sweep stages) splits the 0.098 ms of its build into 0.017 of load,
-//      0.018 of barriers and loop control, 0.029 for the row dot products,
-//      0.017 for the column walk, 0.007 for M⁻¹ and 0.008 for the updates:
-//      the two passes over A are 60% of an iteration.
-//      The declared zero blocks of a "blt" segment are read like any entry.
+// 2 and 3 are one template, admm_chunk_rows<T, kMinvReg, kClustered>: the
+// lane's kept rows (every row but the diagonal ones, the "blt" segment's
+// first, each cut to its kept columns) lie in shared memory for the whole
+// chunk, copied in once by 4-byte cp.async (rows of n floats are not
+// 16-byte aligned in general, n = 207; every thread has all of its copies
+// in flight at once, where plain loads waited a few at a time: at the SCVX
+// library's chunk the load takes 0.95 ms in the stage probe, 1.99 by plain
+// loads).
+// (a) each CTA forms its share of Aᵀt over its kept rows: a quarter warp
+// reads 8 neighbouring float4 of one row (128 bytes, every bank once), the
+// 4 quarters take 4 rows, and a set of 8 column chunks meets only the kept
+// rows from the first that reaches it; the diagonal rows add their part;
+// (b) x̃ = M⁻¹·rhs, K threads a row, each reading float4 chunks c, c+K, …;
+// (c) z̃ of the kept rows (a row's dot product over its kept chunks alone),
+// their projection and dual update, a group of K threads taking K rows in
+// turn and thread c updating the c-th.
 //
-// 3. Cluster (a lane beyond one block: the sparse-form QP, n = 207, m = 354,
-//    758 KB a lane). The TPU kernel pins a lane's matrices in fast memory
-//    for the whole chunk; here the lane is split over the C CTAs of a
-//    thread-block cluster, each holding a contiguous slice of M⁻¹'s rows and
-//    of A's dense rows in its shared memory, with the z, y, l, u, ρ entries
-//    of those rows. Bound by barrier latency when lanes are few (two cluster
-//    barriers and two block barriers an iteration, ~3.7 µs an iteration at
-//    4 lanes) and by shared-memory bandwidth when they are many (512 lanes
-//    re-read 9.7 GB a chunk).
-//    - (a) each CTA forms its partial of Aᵀt over its own rows, as in
-//      variant 2, adds its share of the diagonal segment, and all sum the C
-//      partials through distributed shared memory in rank order, so every
-//      CTA holds the same rhs bit for bit; (b) each CTA computes its rows of
-//      x̃ = M⁻¹·rhs (K = 8 threads a row) and writes them into every CTA's
-//      copy of x̃; (c) each CTA computes z̃ for its own rows and updates them
-//      locally. x and q are kept whole in every CTA.
-//    - The slices are copied with plain 4-byte loads, coalesced along a row:
-//      rows of 207 floats are not 16-byte aligned, so neither cp.async.bulk
-//      nor float4 loads apply to them, and the copy happens once a chunk.
-//    - C is the smallest cluster that holds the lane (4 at n = 207), doubled
-//      to 8 while a CTA takes more than a third of an SM's shared memory, so
-//      that three resident CTAs hide each other's barriers, and to 16 (a
-//      non-portable size) while the launch would leave most SMs idle. In the
-//      sweep (C = 4, 8, 16 × T = 256, 512 × K = 8, 16; T = 256, K = 8 here) at
-//      4 lanes C = 4 takes 0.117 ms for 25 iterations, C = 8 0.099 and C = 16
-//      0.098 (2.44 for the global variant before it, 0.87 for a cuBLAS bmm
-//      chain); at 512 lanes C = 8 takes 1.58 ms, C = 4 2.21 and C = 16 3.14
-//      (5.83 and 4.7). T = 512 wins by 10% at C = 4 and loses 2× at C = 8,
-//      512 lanes; K = 16 loses everywhere. ptxas: 80 registers, no spill.
-//    - The stage probe at 4 lanes (0.121 ms in its build): the two cluster
-//      barriers cost 0.035, the remote sum 0.018, all arithmetic 0.031, and
-//      0.038 is left with everything out; at 512 lanes (1.86 ms) the
-//      arithmetic is 0.73, the barriers 0.33, the remote sum 0.13, the load
-//      0.19. What an iteration exchanges and waits for costs as much as
-//      what it computes.
+// 2. Shared (the lane fits one block's shared memory: the condensed QPs
+//    with their state bounds, n ≤ 64, m = 150-380; the sparse 3-DoF QP at
+//    N = 15 with its rows declared, n = 157, m = 269, 138 KB a lane).
+//    - n ≤ 64: M⁻¹ in registers (256 threads, 4 a row), four lanes an SM.
+//      The kept rows are stored at the stride of n, zero past their kept
+//      columns (only the kept entries are read from device memory), and
+//      walked and dotted whole with their places from their indices: at
+//      rows of 16-80 floats a table of row places read in the loops cost
+//      more than the entries it saved (the tile A/B against the kernel
+//      before the "blt" segment, chunk_bench.py --sweep ab: with the table
+//      the condensed shapes ran 11-38% slower than before, without it
+//      4-16% faster). bounded (512, 60, 200, 25): 0.086 ms.
+//    - n > 64: M⁻¹ in shared memory, 512 threads (at 256 and 128 lanes of
+//      the N = 15 sparse QP 21% ahead of 256); rows compacted to their
+//      kept columns, each at its own float4-aligned stride, found through
+//      a table of (offset, chunks) a row; where the 8-chunk sets are fewer
+//      than the warps, several warps share a set's rows and their sums are
+//      added in slice order. suite_rti (256, 157, 269, 25): 0.24 ms,
+//      against 0.42 with every row dense on the cluster variant.
+//
+// 3. Cluster (a lane beyond one block: the SCVX library's, n = 407,
+//    m = 694, 906 KB a lane with its rows declared; the N = 20 sparse QP at
+//    512 lanes, 237 KB): the lane split over the C CTAs of a thread-block
+//    cluster, each with a contiguous slice of M⁻¹'s rows and a contiguous
+//    run of kept rows; the runs are cut by shared memory, not row count
+//    (block rows grow linearly, so an even split left the last CTA about
+//    twice the first's entries).
+//    - The partials of Aᵀt are pushed: each CTA stores its own into slot
+//      `rank` of every CTA (distributed shared memory), and after one
+//      cluster barrier each sums its C local slots in rank order, so that
+//      every CTA holds the same rhs bit for bit; where the slots would cost
+//      the lane its three CTAs an SM they are pulled instead, C remote
+//      reads an entry. x̃'s rows are written into every CTA's copy, then a
+//      second cluster barrier. Two barriers an iteration stay: (a) and (b)
+//      each need every CTA's data, and the barrier is what waits for it.
+//    - C and T (rows_tiling): few lanes spread a lane over up to 16 CTAs
+//      (latency-bound: golden at 4 lanes 0.10 ms); many lanes take the
+//      smallest cluster of at most 8 whose CTAs fit three to an SM at 256
+//      threads (golden at 512 lanes: 4 CTAs, 0.98 ms against 1.58 with its
+//      rows dense), else the smallest cluster that holds the lane at one
+//      CTA of 512 threads an SM (the SCVX library: 8 CTAs, 8.3 ms against
+//      16.9 with every row dense at 16).
+//    - The stage probe at the SCVX library's chunk (chunk_bench.py --sweep
+//      stages, its build): with every row dense at 16 CTAs a lane, 21.0 ms
+//      = load 2.2, arithmetic 7.9 (row dots 3.8, M⁻¹ 2.2, column walk 1.7),
+//      remote sum 3.5, cluster barriers 3.9, the rest loop and block
+//      barriers; with the rows declared at 8 CTAs, 8.4 ms = load 0.95,
+//      arithmetic 3.4 (column walk 1.6, M⁻¹ 0.87, row dots 0.64), the
+//      pushed exchange ~0, cluster barriers 1.2, the rest 2.7.
 //    - A cluster the card cannot place (cudaOccupancyMaxActiveClusters
 //      answers 0) is refused with cudaErrorLaunchOutOfResources.
 //
@@ -131,15 +139,16 @@
 //    one CTA a lane; bound by L2 and device-memory latency and bandwidth.
 //    It is the first design of this port, kept for such lanes alone.
 //
-// Tensor cores and TMA are not the tool. Each lane's matrix meets one vector
-// per iteration: a chain of GEMVs with no reuse to feed an MMA tile, and the
-// port keeps f32 with TF32 off. The one load of the matrices per chunk has
-// no compute to hide behind, so an asynchronous copy has nothing to overlap
-// with.
+// Tensor cores and TMA are still not the tool. Each lane's matrix meets one
+// vector per iteration: a chain of GEMVs with no reuse to feed an MMA tile,
+// and the port keeps f32 with TF32 off. The one load of the matrices a chunk
+// has no compute to hide behind (cp.async only keeps it in flight), and rows
+// of n floats are not the 16-byte aligned tiles a TMA copy takes.
 //
 // C interface for ctypes: admm_chunk_f32(...) returns cudaGetLastError().
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -153,7 +162,10 @@ constexpr unsigned kFull = 0xffffffffu;
 enum Variant { kUnsupported = -1, kGlobal = 0, kShared = 1, kRegister = 2, kCluster = 3 };
 
 struct Lane {
-  int n, m, d0, mg, iters;
+  int n, m;
+  int d0, mg;          // the "diag" segment: rows d0 … d0+mg, row d0+i one entry, A[d0+i][i]
+  int t0, tb, th, tw;  // the "blt" segment: rows t0 … t0+tb·th (tb = 0: none)
+  int iters;
   float sigma, alpha;
 };
 
@@ -348,10 +360,8 @@ admm_chunk_reg(const float* __restrict__ Minv, const float* __restrict__ A,
 // ---------------------------------------------------------------------------
 // Row-split kernel: the shared variant (one CTA a lane) and the cluster
 // variant (a lane's rows split over the C CTAs of a thread-block cluster).
-// Every matrix entry lies in shared memory (M⁻¹ in registers where n ≤ 64)
-// for the whole chunk. Rows are stored zero-padded at stride ld, so that a
-// row's dot product reads float4 chunks and a column walk reads neighbouring
-// words.
+// Every matrix entry the kernel keeps lies in shared memory (M⁻¹ in
+// registers where n ≤ 64) for the whole chunk.
 
 // Stage probe. No profiler reaches inside a kernel on every machine, so
 // csrc/admm_chunk_probe.cu builds this file with ADMM_CHUNK_PROBE defined:
@@ -364,27 +374,121 @@ admm_chunk_reg(const float* __restrict__ Minv, const float* __restrict__ A,
 #define PROBE_SKIP(sp, bit) false
 #endif
 enum Stage {
-  kSkipColumnWalk = 1,  // (a) the reads of A for Aᵀt
-  kSkipMinvDots = 2,    // (b) the dot products with M⁻¹
-  kSkipRowDots = 4,     // (c) the dot products with A's rows
-  kSkipRowUpdates = 8,  // (c) projection and dual update, dense and diagonal rows
-  kSkipRemoteSum = 16,  // cluster: the C − 1 remote partials of the rhs
-  kSkipClusterSync = 32 // cluster: block barriers in place of cluster barriers
+  kSkipColumnWalk = 1,   // (a) the reads of A for Aᵀt
+  kSkipMinvDots = 2,     // (b) the dot products with M⁻¹
+  kSkipRowDots = 4,      // (c) the dot products with A's rows
+  kSkipRowUpdates = 8,   // (c) projection and dual update, kept and diagonal rows
+  kSkipRemoteSum = 16,   // cluster: the partials of Aᵀt sent to (or read from) the peers
+  kSkipClusterSync = 32, // cluster: block barriers in place of cluster barriers
+  kSkipBroadcast = 64,   // cluster: x̃ written into the peers' copies
+  kSkipAsyncCopy = 128   // the matrices loaded by plain loads, not cp.async
 };
 
+constexpr int kMaxCluster = 16;  // above 8 the cluster size is "non-portable"
+
+// Row stride in shared memory of a kept row of L columns, K threads a dot
+// product. For K ≥ 8 whole float4 chunks: a quarter warp reads 128
+// contiguous bytes of one row, which meets every bank once at any 16-byte
+// aligned stride. For K < 8 whole rounds of K chunks, the stride setting the
+// 8/K rows of a quarter warp 16K bytes apart.
+// (K is a power of two, so the rounding is by masks: a kernel computes the
+// strides of its rows at every load.)
+__host__ __device__ inline int row_ld(int L, int K) {
+  if (K >= 8) return (L + 3) & ~3;
+  const int q = 4 * K;  // 4, 8 or 16: divides 32
+  const int ld = (L + q - 1) & -q;
+  return (ld & 31 & q) ? ld : ld + q;  // (ld mod 32) / q odd
+}
+
+// The rows of A the row-split kernel keeps, in its order: every row but the
+// "diag" segment's. First the "blt" segment's tb·th rows (block row i keeps
+// its first min((i+1)·tw, n) columns: the rest are its declared zero
+// blocks), then the other rows in row order, each whole. A CTA holds a
+// contiguous range of this order: runs of rows of one stride, the block rows
+// of the segment it reaches, then the other rows.
+struct Kept {
+  int n, d0, mg, t0, tb, th, tw, K;
+  // one CTA a lane with M⁻¹ in registers (n ≤ 64: the condensed QPs): every
+  // kept row at the stride of n, zero past its kept columns, so that a row's
+  // place follows from its index (at rows of 16-80 floats a place read from
+  // a table cost more than the entries it saved: the tile A/B at the
+  // condensed QPs, chunk_bench.py --sweep ab)
+  bool uniform;
+
+  __host__ __device__ int blt_rows() const { return tb * th; }
+  // the row of A of kept row r
+  __host__ __device__ int row(int r) const {
+    const int nt = blt_rows();
+    if (r < nt) return t0 + r;
+    r -= nt;
+    const bool diag_first = d0 < t0;
+    const int a0 = diag_first ? d0 : t0, al = diag_first ? mg : nt;
+    const int b0 = diag_first ? t0 : d0, bl = diag_first ? nt : mg;
+    if (r >= a0) r += al;
+    if (r >= b0) r += bl;
+    return r;
+  }
+  // the kept columns of block row i, and of kept row r
+  __host__ __device__ int block_cols(int i) const {
+    const int c = (i + 1) * tw;
+    return c < n ? c : n;
+  }
+  __host__ __device__ int cols(int r) const { return r < blt_rows() ? block_cols(r / th) : n; }
+  __host__ __device__ int ld(int r) const { return row_ld(uniform ? n : cols(r), K); }
+  // floats of the kept rows before kept row r, each at its stride
+  __host__ __device__ int off(int r) const {
+    if (uniform) return r * row_ld(n, K);
+    int o = 0, rest = r;
+    if (tb > 0) {
+      const int nt = blt_rows(), rr = r < nt ? r : nt, full = rr / th;
+      for (int i = 0; i < full; ++i) o += th * row_ld(block_cols(i), K);
+      if (rr < nt) o += (rr - full * th) * row_ld(block_cols(full), K);
+      rest = r - rr;
+    }
+    return o + rest * row_ld(n, K);
+  }
+  // the first kept row with a column in float4 chunk jj (columns 4jj … 4jj+3):
+  // the kept rows that reach a column are a suffix of the order, since kept
+  // lengths never fall along it
+  __host__ __device__ int first_with_chunk(int jj) const {
+    if (tb == 0) return 0;
+    const int i = 4 * jj / tw;  // block rows i … keep (i+1)·tw > 4jj columns
+    return (i < tb ? i : tb) * th;
+  }
+};
+
+// warps that share a set of 8 column chunks in the column walk of rows at
+// their own strides: the sets are dealt out to NW warps, several warps a set
+// where they are fewer (rows at one stride are walked a warp a set)
+__host__ __device__ inline int walk_slices(int sets, int NW) {
+  return sets >= NW ? 1 : NW / sets;
+}
+
 struct Split {
-  int C;   // CTAs a lane: 1 for the shared variant
-  int K;   // threads that share a row's dot product
-  int ld;  // row stride in shared memory, floats: a multiple of 4K, ≥ n
-  int lv;  // length of the zero-padded vectors
-  int nc, mc, kc;  // rows of M⁻¹, dense rows and diagonal rows a CTA owns at most
-  int minv_reg;    // M⁻¹ in registers (one CTA a lane, n ≤ 64)
+  int C;       // CTAs a lane: 1 for the shared variant
+  int K;       // threads that share a row's dot product
+  int ldm;     // row stride of M⁻¹ in shared memory, floats
+  int lv;      // length of the zero-padded vectors: a multiple of 4K, ≥ 64
+  int q4;      // float4 chunks of a row of n
+  int nc, kc;  // rows of M⁻¹ and diagonal rows a CTA owns at most
+  int mc, ac;  // kept rows and their floats a CTA owns at most
+  int minv_reg;  // M⁻¹ in registers (one CTA a lane, n ≤ 64)
+  int push;      // cluster: partials pushed into the peers (else pulled from them)
+  int rb[kMaxCluster + 1];  // CTA c owns kept rows rb[c] … rb[c+1]
 #ifdef ADMM_CHUNK_PROBE
   int skip;        // stages the probe build leaves out (Stage bits)
 #endif
 
-  __host__ __device__ int floats() const {
-    return (minv_reg ? 0 : nc * ld) + mc * ld + (C > 1 ? 5 : 4) * lv + 7 * mc + 8 * kc;
+  // the partials' buffer: C slots where they are pushed, one where pulled
+  __host__ __device__ int part_floats() const { return C == 1 ? 0 : (push ? C : 1) * lv; }
+  // the column walk's slice sums at T threads a CTA (none where it takes no slices)
+  __host__ __device__ int walk_floats(int T) const {
+    const int ws = minv_reg ? 1 : walk_slices((q4 + 7) / 8, T / 32);
+    return ws > 1 ? ws * lv : 0;
+  }
+  __host__ __device__ int floats(int T) const {
+    return (minv_reg ? 0 : nc * ldm + 2 * mc) + ac + 4 * lv + part_floats() + walk_floats(T) +
+           7 * mc + 8 * kc;
   }
 };
 
@@ -398,16 +502,16 @@ __device__ __forceinline__ void load_chunks(float4 (&v)[CH], const float* vec, i
   for (int i = 0; i < CH; ++i) v[i] = i < ch ? v4[c + K * i] : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// this thread's share of Σ_k row[k]·v[k]: its ch chunks of a zero-padded row
+// this thread's share of Σ_k row[k]·v[k]: chunks c, c+K, … of a row of nch
+// float4 chunks
 template <int CH>
-__device__ __forceinline__ float row_partial(const float* row, const float4 (&v)[CH], int c,
-                                             int K, int ch) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
+__device__ __forceinline__ float row_partial(const float4* row, const float4 (&v)[CH], int c,
+                                             int K, int nch) {
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll
   for (int i = 0; i < CH; ++i) {
-    if (i < ch) {
-      const float4 w = r4[c + K * i];
+    if (c + K * i < nch) {
+      const float4 w = row[c + K * i];
       a0 = fmaf(w.x, v[i].x, a0);
       a1 = fmaf(w.y, v[i].y, a1);
       a2 = fmaf(w.z, v[i].z, a2);
@@ -424,8 +528,8 @@ __device__ __forceinline__ float join(float acc, int K) {
 }
 
 // Registers: four lanes of 256 threads an SM with M⁻¹ in registers (64 a
-// thread); without it three CTAs an SM, which is what the shared memory of a
-// lane split over 8 CTAs leaves room for (85 a thread).
+// thread); without it three CTAs of 256 threads an SM (85 a thread), or one
+// of 512 (128 a thread).
 template <int T, bool kMinvReg, bool kClustered>
 __global__ void __launch_bounds__(T, (kMinvReg ? 1024 : 768) / T)
 admm_chunk_rows(const float* __restrict__ Minv, const float* __restrict__ A,
@@ -437,33 +541,46 @@ admm_chunk_rows(const float* __restrict__ Minv, const float* __restrict__ A,
   static_assert(!(kMinvReg && kClustered), "M⁻¹ in registers: one CTA a lane");
   constexpr int KM = T / 64;            // threads per row of the register-held M⁻¹
   constexpr int CH = kMinvReg ? 4 : 8;  // chunks of a row a thread meets, at most
+  constexpr int NW = T / 32;
   using TM = Tile<64, KM>;
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x;
-  const int n = p.n, m = p.m, d0 = p.d0, mg = p.mg, md = m - mg;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = p.n, m = p.m, d0 = p.d0, mg = p.mg;
   const float alpha = p.alpha, beta = 1.0f - p.alpha, sigma = p.sigma;
-  const Rows dense{d0, mg};
-  const int ld = sp.ld, lv = sp.lv, K = sp.K;
+  const int ldm = sp.ldm, lv = sp.lv, K = sp.K;
+  const Kept kept{n, d0, mg, p.t0, p.tb, p.th, p.tw, K, kMinvReg};
 
   int rank = 0;
   if constexpr (kClustered) rank = static_cast<int>(cg::this_cluster().block_rank());
   const int b = blockIdx.x / sp.C;
-  // this CTA's rows of M⁻¹, of the dense rows and of the diagonal segment
+  // this CTA's rows of M⁻¹, kept rows of A and diagonal rows
   const int n0 = min(rank * sp.nc, n), nc = min(sp.nc, n - n0);
-  const int r0 = min(rank * sp.mc, md), mc = min(sp.mc, md - r0);
+  // (rb read at constant indices: indexed by the rank, the whole Split
+  // would be copied to local memory and every read of it would go there)
+  int r0 = 0, r1 = sp.rb[1];
+  if constexpr (kClustered) {
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c)
+      if (c == rank) { r0 = sp.rb[c]; r1 = sp.rb[c + 1]; }
+  }
+  const int mc = r1 - r0;
   const int k0 = min(rank * sp.kc, mg), kc = min(sp.kc, mg - k0);
+  const int a0 = kClustered ? kept.off(r0) : 0;
 
   const float* Mg = Minv + static_cast<size_t>(b) * n * n;
   const float* Ab = A + static_cast<size_t>(b) * m * n;
 
-  float* sM = smem;                                // own rows of M⁻¹ (nc × ld)
-  float* sA = sM + (kMinvReg ? 0 : sp.nc * ld);    // own dense rows (mc × ld)
-  float* s_rhs = sA + sp.mc * ld;                  // rhs, whole (lv)
+  float* sM = smem;                                // own rows of M⁻¹ (nc × ldm)
+  float* sA = sM + (kMinvReg ? 0 : sp.nc * ldm);   // own kept rows, each at its stride (ac)
+  float* s_rhs = sA + sp.ac;                       // rhs, whole (lv)
   float* s_xt = s_rhs + lv;                        // x̃, whole (lv)
   float* s_x = s_xt + lv;                          // x, whole (lv)
   float* s_q = s_x + lv;                           // q, whole (lv)
-  float* s_part = s_q + lv;                        // own partial of Aᵀt (lv), cluster only
-  float* sz = s_part + (kClustered ? lv : 0);      // own dense rows: z y l u ρ 1/ρ t
+  float* s_part = s_q + lv;                        // partials of Aᵀt, cluster only
+  float* s_walk = s_part + sp.part_floats();       // the walk's slices' sums (ws × lv)
+  // own kept row r: float4 offset in sA and float4 chunks
+  int2* rinfo = reinterpret_cast<int2*>(s_walk + sp.walk_floats(T));
+  float* sz = reinterpret_cast<float*>(rinfo + (kMinvReg ? 0 : sp.mc));  // own kept rows: z y l u ρ 1/ρ t
   float* sy = sz + sp.mc;
   float* sl = sy + sp.mc;
   float* su = sl + sp.mc;
@@ -479,31 +596,68 @@ admm_chunk_rows(const float* __restrict__ Minv, const float* __restrict__ A,
   float* dt = dirho + sp.kc;
   float* dd = dt + sp.kc;
 
-  // ---- one load per chunk. Rows of n floats are not 16-byte aligned in
-  // general (n = 207), so the copy is plain 4-byte loads, coalesced along a
-  // row, into the padded layout.
+  // ---- one load per chunk, by runs of rows of one stride: M⁻¹'s rows,
+  // then each block row of the "blt" segment and the other kept rows. A row
+  // of 64 floats or more is a warp's, its lanes along the row; shorter rows
+  // are copied flat over the run (the stage probe: at the condensed QP's
+  // rows of 16-80 floats the flat copy loads in 0.018 ms where a warp a row
+  // took 0.030; at the SCVX library's rows a warp a row loads in 0.71 ms,
+  // flat 1.14). Rows of n floats are not 16-byte aligned in general
+  // (n = 207), so the copy is 4-byte asynchronous copies (cp.async) into the
+  // padded layout: every thread has all of its copies in flight at once,
+  // where plain loads waited for device memory a few at a time.
+  auto copy = [&](float* dst, const float* src) {
+    if (PROBE_SKIP(sp, kSkipAsyncCopy)) *dst = *src;
+    else __pipeline_memcpy_async(dst, src, sizeof(float));
+  };
   float Mr[kMinvReg ? TM::C : 1];
   if constexpr (kMinvReg) {
     TM::template load<false>(Mr, Mg, n, n, n, tid / KM, tid % KM, Rows{0, 0});
   } else {
-    for (int k = tid; k < nc * ld; k += T) {
-      const int r = k / ld, j = k - r * ld;
-      sM[k] = j < n ? Mg[static_cast<size_t>(n0 + r) * n + j] : 0.f;
+    for (int r = warp; r < nc; r += NW) {
+      const float* src = Mg + static_cast<size_t>(n0 + r) * n;
+      float* dst = sM + r * ldm;
+      for (int j = lane; j < ldm; j += 32) {
+        if (j < n) copy(dst + j, src + j);
+        else dst[j] = 0.f;
+      }
     }
   }
-  for (int k = tid; k < mc * ld; k += T) {
-    const int r = k / ld, j = k - r * ld;
-    sA[k] = j < n ? Ab[static_cast<size_t>(dense.at(r0 + r)) * n + j] : 0.f;
+  // the warps and threads take up each run where the last one left them
+  const int nt = kept.blt_rows();
+  for (int r = 0; r < mc;) {  // a run: a block row of the segment, or the other rows
+    const int kr = r0 + r;
+    const int re = kr < nt ? min(mc, (kr / p.th + 1) * p.th - r0) : mc;
+    const int L = kept.cols(kr), ld = kept.ld(kr), o = kept.off(kr) - a0, rows = re - r;
+    if (ld >= 64) {
+      for (int i = ((warp - r) % NW + NW) % NW; i < rows; i += NW) {
+        const float* src = Ab + static_cast<size_t>(kept.row(kr + i)) * n;
+        float* dst = sA + o + i * ld;
+        for (int j = lane; j < ld; j += 32) {
+          if (j < L) copy(dst + j, src + j);
+          else dst[j] = 0.f;
+        }
+      }
+    } else {
+      for (int k = ((tid - o) % T + T) % T; k < rows * ld; k += T) {
+        const int i = k / ld, j = k - i * ld;
+        if (j < L) copy(sA + o + k, Ab + static_cast<size_t>(kept.row(kr + i)) * n + j);
+        else sA[o + k] = 0.f;
+      }
+    }
+    if constexpr (!kMinvReg)  // rows at one stride need no table
+      for (int i = tid; i < rows; i += T) rinfo[r + i] = make_int2(o / 4 + i * (ld / 4), ld / 4);
+    r = re;
   }
+  __pipeline_commit();
   for (int k = tid; k < lv; k += T) {
     s_rhs[k] = 0.f;
     s_xt[k] = 0.f;
     s_x[k] = k < n ? x0[b * n + k] : 0.f;
     s_q[k] = k < n ? q[b * n + k] : 0.f;
-    if constexpr (kClustered) s_part[k] = 0.f;
   }
   for (int r = tid; r < mc; r += T) {
-    const int i = b * m + dense.at(r0 + r);
+    const int i = b * m + kept.row(r0 + r);
     const float rr = rho[i], zi = z0[i], yi = y0[i];
     sz[r] = zi; sy[r] = yi; sl[r] = l[i]; su[r] = u[i];
     srho[r] = rr; sirho[r] = 1.0f / rr; st[r] = rr * zi - yi;
@@ -515,30 +669,90 @@ admm_chunk_rows(const float* __restrict__ Minv, const float* __restrict__ A,
     drho[k] = rr; dirho[k] = 1.0f / rr; dt[k] = rr * zi - yi;
     dd[k] = Ab[static_cast<size_t>(d0 + k0 + k) * n + (k0 + k)];
   }
+  __pipeline_wait_prior(0);
   __syncthreads();
+  // every CTA of the cluster runs before any reaches into a peer
+  if constexpr (kClustered) cg::this_cluster().sync();
 
-  const int lane = tid & 31, warp = tid >> 5;
+  const float4* sA4 = reinterpret_cast<const float4*>(sA);
+  const float4* sM4 = reinterpret_cast<const float4*>(sM);
   // Aᵀt: a quarter warp reads 8 neighbouring float4 of one row (128 bytes,
   // every bank once); the 4 quarters of a warp take rows r, r+1, r+2, r+3
-  const int part = lane >> 3, q4 = (n + 3) / 4, sets = (q4 + 7) / 8, ld4 = ld / 4;
+  const int part = lane >> 3, q4 = (n + 3) / 4, sets = (q4 + 7) / 8, lv4 = lv / 4;
+  const int ws = kMinvReg ? 1 : walk_slices(sets, NW);
+  const int ldu4 = row_ld(n, K) / 4;  // the float4 stride of rows at one stride
   // row dot products: group g of K threads, thread c its chunks c, c+K, …
   const int G = T / K, g = tid / K, c = tid - g * K, ch = (n + 4 * K - 1) / (4 * K);
 
   for (int it = 0; it < p.iters; ++it) {
-    // (a) this CTA's share of Aᵀt over its own dense rows and diagonal rows
-    for (int set = warp; set < sets; set += T / 32) {
+    // (a) this CTA's share of Aᵀt over its kept rows and diagonal rows: the
+    // 8 column chunks of a set meet only the kept rows from the first that
+    // reaches the set's first chunk on; a warp walks them together (one
+    // start for the warp: the quarters read one row at a time), and a lane
+    // reads a row only where it reaches the lane's chunk. Where the sets are
+    // fewer than the warps (short rows), ws warps share a set's rows, each
+    // writing its slice's sums, which are then added in slice order.
+    // finish: chunk jj's sum plus the diagonal rows, into the rhs (one CTA) or
+    // into slot `rank` of the CTAs c0, c0 + dc, … (a cluster)
+    auto finish = [&](int jj, float4 acc, int c0, int dc) {
+      float a[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * jj + e - k0;
+        if (k >= 0 && k < kc) a[e] = fmaf(dd[k], dt[k], a[e]);
+      }
+      const float4 v = make_float4(a[0], a[1], a[2], a[3]);
+      if constexpr (kClustered) {
+        if (sp.push) {
+          cg::cluster_group cluster = cg::this_cluster();
+          float4* slot = reinterpret_cast<float4*>(s_part) + rank * lv4 + jj;
+          for (int cc = c0; cc < sp.C; cc += dc)
+            if (cc == rank || !PROBE_SKIP(sp, kSkipRemoteSum)) *cluster.map_shared_rank(slot, cc) = v;
+        } else if (c0 == 0) {
+          reinterpret_cast<float4*>(s_part)[jj] = v;
+        }
+      } else if (c0 == 0) {
+        const float4 xv = reinterpret_cast<const float4*>(s_x)[jj];
+        const float4 qv = reinterpret_cast<const float4*>(s_q)[jj];
+        reinterpret_cast<float4*>(s_rhs)[jj] =
+            make_float4(sigma * xv.x - qv.x + a[0], sigma * xv.y - qv.y + a[1],
+                        sigma * xv.z - qv.z + a[2], sigma * xv.w - qv.w + a[3]);
+      }
+    };
+    for (int job = warp; job < sets * ws; job += NW) {
+      int set = job, slice = 0;
+      if (ws > 1) { slice = job / sets; set = job - slice * sets; }
       const int jj = set * 8 + (lane & 7);
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (jj < q4 && !PROBE_SKIP(sp, kSkipColumnWalk)) {
-        const float4* col = reinterpret_cast<const float4*>(sA) + jj;
+      if constexpr (kMinvReg) {
+        // rows at one stride, zero past their kept columns: walked whole,
+        // no row's place read from a table (where a lane's chunk lies past a
+        // row's kept columns it reads zeros)
+        if (jj < q4 && !PROBE_SKIP(sp, kSkipColumnWalk)) {
+          const float4* col = sA4 + jj;
 #pragma unroll 4
-        for (int r = part; r < mc; r += 4) {
-          const float4 w = col[r * ld4];
-          const float t = st[r];
-          acc.x = fmaf(w.x, t, acc.x);
-          acc.y = fmaf(w.y, t, acc.y);
-          acc.z = fmaf(w.z, t, acc.z);
-          acc.w = fmaf(w.w, t, acc.w);
+          for (int r = part; r < mc; r += 4) {
+            const float4 w = col[r * ldu4];
+            const float t = st[r];
+            acc.x = fmaf(w.x, t, acc.x);
+            acc.y = fmaf(w.y, t, acc.y);
+            acc.z = fmaf(w.z, t, acc.z);
+            acc.w = fmaf(w.w, t, acc.w);
+          }
+        }
+      } else if (!PROBE_SKIP(sp, kSkipColumnWalk)) {
+        const int rs = max(kept.first_with_chunk(set * 8) - r0, 0);
+#pragma unroll 4
+        for (int r = rs + part + 4 * slice; r < mc; r += 4 * ws) {
+          const int2 ri = rinfo[r];
+          if (jj < ri.y) {
+            const float4 w = sA4[ri.x + jj];
+            const float t = st[r];
+            acc.x = fmaf(w.x, t, acc.x);
+            acc.y = fmaf(w.y, t, acc.y);
+            acc.z = fmaf(w.z, t, acc.z);
+            acc.w = fmaf(w.w, t, acc.w);
+          }
         }
       }
 #pragma unroll
@@ -548,36 +762,41 @@ admm_chunk_rows(const float* __restrict__ Minv, const float* __restrict__ A,
         acc.z += __shfl_xor_sync(kFull, acc.z, off);
         acc.w += __shfl_xor_sync(kFull, acc.w, off);
       }
-      if (part == 0 && jj < q4) {
-        float a[4] = {acc.x, acc.y, acc.z, acc.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = 4 * jj + e - k0;
-          if (k >= 0 && k < kc) a[e] = fmaf(dd[k], dt[k], a[e]);
+      if (jj < q4) {  // every quarter holds the sum
+        if (ws == 1) finish(jj, acc, part, 4);  // the quarters take turns at the peers
+        else if (part == 0) reinterpret_cast<float4*>(s_walk)[slice * lv4 + jj] = acc;
+      }
+    }
+    if (ws > 1) {
+      __syncthreads();
+      const float4* w4 = reinterpret_cast<const float4*>(s_walk);
+      for (int j = tid; j < q4; j += T) {
+        float4 acc = w4[j];
+        for (int sl = 1; sl < ws; ++sl) {
+          const float4 v = w4[sl * lv4 + j];
+          acc = make_float4(acc.x + v.x, acc.y + v.y, acc.z + v.z, acc.w + v.w);
         }
-        if constexpr (kClustered) {
-          reinterpret_cast<float4*>(s_part)[jj] = make_float4(a[0], a[1], a[2], a[3]);
-        } else {
-          const float4 xv = reinterpret_cast<const float4*>(s_x)[jj];
-          const float4 qv = reinterpret_cast<const float4*>(s_q)[jj];
-          reinterpret_cast<float4*>(s_rhs)[jj] =
-              make_float4(sigma * xv.x - qv.x + a[0], sigma * xv.y - qv.y + a[1],
-                          sigma * xv.z - qv.z + a[2], sigma * xv.w - qv.w + a[3]);
-        }
+        finish(j, acc, 0, 1);
       }
     }
     if constexpr (kClustered) {
-      // rhs = σx − q + the C partials, summed in rank order in every CTA
+      // rhs = σx − q + the C partials, summed in rank order in every CTA, so
+      // that every CTA holds the same rhs bit for bit
       cg::cluster_group cluster = cg::this_cluster();
       if (PROBE_SKIP(sp, kSkipClusterSync)) __syncthreads();
       else cluster.sync();
+      // a thread an entry: n threads each read C partials (unrolled, so
+      // that the loads are in flight together; the sum stays in rank order)
       for (int j = tid; j < n; j += T) {
         float s = 0.f;
-        if (PROBE_SKIP(sp, kSkipRemoteSum)) {
-          s = s_part[j];
+        if (sp.push) {
+#pragma unroll 4
+          for (int cc = 0; cc < sp.C; ++cc) s += s_part[cc * lv + j];
         } else {
 #pragma unroll 4
-          for (int cc = 0; cc < sp.C; ++cc) s += cluster.map_shared_rank(s_part, cc)[j];
+          for (int cc = 0; cc < sp.C; ++cc)
+            s += PROBE_SKIP(sp, kSkipRemoteSum) ? s_part[j]
+                                                : cluster.map_shared_rank(s_part, cc)[j];
         }
         s_rhs[j] = sigma * s_x[j] - s_q[j] + s;
       }
@@ -594,11 +813,13 @@ admm_chunk_rows(const float* __restrict__ Minv, const float* __restrict__ A,
       for (int rb = 0; rb < nc; rb += G) {
         const int r = rb + g;
         const float xt = PROBE_SKIP(sp, kSkipMinvDots) ? 0.f :
-            join(r < nc ? row_partial<CH>(sM + r * ld, rv, c, K, ch) : 0.f, K);
+            join(r < nc ? row_partial<CH>(sM4 + r * (ldm / 4), rv, c, K, ldm / 4) : 0.f, K);
         if (r < nc) {
           if constexpr (kClustered) {
             cg::cluster_group cluster = cg::this_cluster();
-            for (int cc = c; cc < sp.C; cc += K) cluster.map_shared_rank(s_xt, cc)[n0 + r] = xt;
+            for (int cc = c; cc < sp.C; cc += K)
+              if (cc == rank || !PROBE_SKIP(sp, kSkipBroadcast))
+                cluster.map_shared_rank(s_xt, cc)[n0 + r] = xt;
           } else {
             if (c == 0) s_xt[n0 + r] = xt;
           }
@@ -625,8 +846,16 @@ admm_chunk_rows(const float* __restrict__ Minv, const float* __restrict__ A,
       float mine = 0.f;
       for (int i = 0; i < K && rb + i * G < mc; ++i) {
         const int r = rb + i * G + g;
-        const float zt = PROBE_SKIP(sp, kSkipRowDots) ? 0.f :
-            join(r < mc ? row_partial<CH>(sA + r * ld, xv, c, K, ch) : 0.f, K);
+        float zt = 0.f;
+        if (r < mc && !PROBE_SKIP(sp, kSkipRowDots)) {
+          if constexpr (kMinvReg) {  // its place from its index, whole
+            zt = row_partial<CH>(sA4 + r * ldu4, xv, c, K, ldu4);
+          } else {
+            const int2 ri = rinfo[r];
+            zt = row_partial<CH>(sA4 + ri.x, xv, c, K, ri.y);
+          }
+        }
+        zt = join(zt, K);
         if (c == i) mine = zt;
       }
       const int r = rb + c * G + g;
@@ -639,7 +868,7 @@ admm_chunk_rows(const float* __restrict__ Minv, const float* __restrict__ A,
   if (rank == 0)
     for (int j = tid; j < n; j += T) xo[b * n + j] = s_x[j];
   for (int r = tid; r < mc; r += T) {
-    const int i = b * m + dense.at(r0 + r);
+    const int i = b * m + kept.row(r0 + r);
     zo[i] = sz[r];
     yo[i] = sy[r];
   }
@@ -782,9 +1011,7 @@ admm_chunk_global(const float* __restrict__ Minv, const float* __restrict__ A,
 // ---------------------------------------------------------------------------
 // Host side: which variant a shape takes, and its launch.
 
-constexpr int kRowsThreads = 256;  // threads a CTA of the row-split kernel (T)
-constexpr int kRowsK = 8;          // threads per row dot product there (K)
-constexpr int kMaxCluster = 16;    // above 8 the cluster size is "non-portable"
+constexpr int kRowsK = 8;  // threads per row dot product of the row-split kernel (K)
 
 size_t global_bytes(int n, int m, int mg) {
   return sizeof(float) * (4 * static_cast<size_t>(n) + 7 * static_cast<size_t>(m) + mg);
@@ -800,32 +1027,62 @@ int smem_budget(int dev) {
   return g_smem_optin[dev];
 }
 
+int g_smem_sm[kMaxDevices];
+
+int smem_per_sm(int dev) {
+  if (g_smem_sm[dev] == 0)
+    cudaDeviceGetAttribute(&g_smem_sm[dev], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  return g_smem_sm[dev];
+}
+
 int sm_count(int dev) {
   if (g_sms[dev] == 0) cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
   return g_sms[dev];
 }
 
-// The layout of a lane over C CTAs, K threads a row dot product. A row is
-// padded to whole rounds of K float4 chunks; K ≥ 8 threads read 128
-// contiguous bytes of a row at a time and meet every bank once at any such
-// stride, and for K < 8 the stride also sets the 8/K rows of a quarter warp
-// 16K bytes apart.
-Split make_split(int n, int md, int mg, int C, int K) {
-  Split sp;
+// The layout of a lane over C CTAs, K threads a row dot product. M⁻¹'s rows
+// and the diagonal rows are dealt out evenly; the kept rows go out in
+// contiguous runs of even shared memory (row stride plus its eight words of
+// row state), which for a "blt" segment gives the CTAs of its short first
+// block rows more rows than those of its long last ones.
+Split make_split(Kept kp, int md, int mg, int C, int K, bool push) {
+  Split sp{};
+  const int n = kp.n;
+  kp.uniform = C == 1 && n <= 64;  // as the kernel instance with M⁻¹ in registers lays it out
   sp.C = C;
   sp.K = K;
   sp.minv_reg = C == 1 && n <= 64;
-  int ld = (n + 4 * K - 1) / (4 * K) * (4 * K);
-  while (K < 8 && ((ld % 32) % (4 * K) != 0 || ((ld % 32) / (4 * K)) % 2 == 0)) ld += 4 * K;
-  sp.ld = ld;
-  sp.lv = ld > 64 ? ld : 64;
+  sp.push = C > 1 && push;
+  sp.ldm = row_ld(n, K);
+  const int lv = (n + 4 * K - 1) / (4 * K) * (4 * K);
+  sp.lv = lv > 64 ? lv : 64;
+  sp.q4 = (n + 3) / 4;
   sp.nc = (n + C - 1) / C;
-  sp.mc = (md + C - 1) / C;
   sp.kc = (mg + C - 1) / C;
+  const long long total = kp.off(md) + 8LL * md;
+  long long cum = 0;
+  int r = 0;
+  sp.rb[0] = 0;
+  for (int cc = 1; cc < C; ++cc) {
+    const long long target = total * cc / C;
+    // a row goes to the earlier CTA while its middle lies before the cut
+    while (r < md && 2 * cum + kp.ld(r) + 8 <= 2 * target) { cum += kp.ld(r) + 8; ++r; }
+    sp.rb[cc] = r;
+  }
+  for (int cc = C; cc <= kMaxCluster; ++cc) sp.rb[cc] = md;
+  for (int cc = 0; cc < C; ++cc) {
+    const int rows = sp.rb[cc + 1] - sp.rb[cc];
+    const int floats = kp.off(sp.rb[cc + 1]) - kp.off(sp.rb[cc]);
+    if (rows > sp.mc) sp.mc = rows;
+    if (floats > sp.ac) sp.ac = floats;
+  }
   return sp;
 }
 
-size_t split_bytes(const Split& sp) { return sizeof(float) * static_cast<size_t>(sp.floats()); }
+// shared memory of a CTA of T threads (the picker asks at 512, the most)
+size_t split_bytes(const Split& sp, int T = 512) {
+  return sizeof(float) * static_cast<size_t>(sp.floats(T));
+}
 
 // threads per row dot product: 4 where M⁻¹ is held in registers (n ≤ 64), 8
 // for longer rows, or more for a row beyond 8 rounds of chunks
@@ -835,34 +1092,95 @@ int rows_K(int n) {
   return K;
 }
 
-// CTAs a lane for the row-split kernel: 1 when a block's shared memory holds
-// the lane (the shared variant); else the smallest cluster that holds it,
-// doubled up to 8 while a CTA still takes more than a third of an SM's shared
-// memory (three resident CTAs hide each other's barriers), and doubled up to
-// 16 while the launch would leave more than half of the SMs without a CTA;
-// 0 when no cluster holds it.
-int rows_cluster_size(int n, int m, int mg, int B, int device, int K) {
-  const size_t budget = static_cast<size_t>(smem_budget(device));
-  const int md = m - mg;
-  if (n > 32 * K) return 0;  // a row beyond 8 rounds of chunks
-  int C = 0;
-  for (int c = 1; c <= kMaxCluster; c <<= 1)
-    if (split_bytes(make_split(n, md, mg, c, K)) <= budget) { C = c; break; }
-  if (C <= 1) return C;
-  while (C < 8 && 3 * split_bytes(make_split(n, md, mg, C, K)) > budget) C <<= 1;
-  while (C < kMaxCluster && 2 * B * C <= sm_count(device)) C <<= 1;
-  return C;
+// The tiling of the row-split kernel: C CTAs a lane, T threads a CTA, the
+// partials of Aᵀt pushed into the peers (C slots a CTA) or pulled from them.
+struct Tiling { int C, T, push; };
+
+// CTAs of `bytes` of shared memory that one SM holds at once (1 KB a block
+// is the system's)
+int ctas_per_sm(size_t bytes, int device) {
+  return static_cast<int>(static_cast<size_t>(smem_per_sm(device)) / (bytes + 1024));
 }
 
-int variant_for(int n, int m, int mg, int B, int device) {
-  const int md = m - mg;
-  if (n <= 0 || m <= 0 || B <= 0 || mg < 0 || mg > m || mg > n) return kUnsupported;
+// Picked from the tile sweep (chunk_bench.py --sweep cluster, H100):
+// 1. a lane one block holds takes one CTA (the shared variant), 512 threads
+//    (256 with M⁻¹ in registers, n ≤ 64): at 256 and 128 lanes of the sparse
+//    3-DoF QP at N = 15 512 threads beat 256 by 21% and clusters of 2-16;
+// 2. few lanes (a launch that would leave half of the SMs idle) spread a
+//    lane over the most CTAs that keep it so, up to 16: latency-bound;
+// 3. many lanes take the smallest cluster of at most 8 whose CTAs fit three
+//    to an SM, the most the register file holds at 256 threads (pushing the
+//    partials where the slots still fit, else pulling them): at 512 lanes of
+//    the N = 20 QP 4 CTAs of 256 take 0.92 ms, 2 of 512 1.10 and 8 of 256
+//    1.51. Where that would take 16 (non-portable clusters, which the card
+//    places a few to a GPC, and 16 partials to exchange), the smallest
+//    cluster that holds the lane runs one CTA of 512 threads an SM: at the
+//    SCVX library's 704 lanes 8 CTAs of 512 pushing take 7.28 ms, 16 of 256
+//    pulling 7.74, 16 of 256 pushing 9.28;
+// 0 CTAs where no cluster of 16 holds a lane.
+Tiling rows_tiling_uncached(const Kept& kp, int m, int mg, int B, int device) {
+  const size_t budget = static_cast<size_t>(smem_budget(device));
+  const int md = m - mg, K = kp.K;
+  auto bytes = [&](int C, bool push) { return split_bytes(make_split(kp, md, mg, C, K, push)); };
+  if (kp.n > 32 * K) return Tiling{0, 0, 0};  // a row beyond 8 rounds of chunks
+  if (bytes(1, false) <= budget) return Tiling{1, kp.n <= 64 ? 256 : 512, 0};
+  int C = 2;
+  while (C <= kMaxCluster && bytes(C, false) > budget) C <<= 1;
+  if (C > kMaxCluster) return Tiling{0, 0, 0};
+  if (2 * B * C <= sm_count(device)) {
+    while (C < kMaxCluster && 2 * B * C <= sm_count(device)) C <<= 1;
+    return Tiling{C, 256, bytes(C, true) <= budget};
+  }
+  for (int c = C; c <= 8; c <<= 1) {
+    if (ctas_per_sm(bytes(c, true), device) >= 3) return Tiling{c, 256, 1};
+    if (ctas_per_sm(bytes(c, false), device) >= 3) return Tiling{c, 256, 0};
+  }
+  if (C <= 8) return Tiling{C, 512, bytes(C, true) <= budget};
+  const bool push = ctas_per_sm(bytes(C, true), device) >= 2;
+  return Tiling{C, push || ctas_per_sm(bytes(C, false), device) >= 2 ? 256 : 512, push};
+}
+
+// The tilings already picked (make_split walks every kept row): a launch
+// asks for its shape's again.
+struct Pick { int n, m, mg, tb, th, tw, K, B, dev; Tiling t; };
+Pick g_picks[16];
+int g_n_picks = 0;
+
+Tiling rows_tiling(const Kept& kp, int m, int mg, int B, int device) {
+  for (int i = 0; i < g_n_picks && i < 16; ++i) {
+    const Pick& e = g_picks[i];
+    if (e.n == kp.n && e.m == m && e.mg == mg && e.tb == kp.tb && e.th == kp.th &&
+        e.tw == kp.tw && e.K == kp.K && e.B == B && e.dev == device)
+      return e.t;
+  }
+  const Tiling t = rows_tiling_uncached(kp, m, mg, B, device);
+  g_picks[g_n_picks++ % 16] = Pick{kp.n, m, mg, kp.tb, kp.th, kp.tw, kp.K, B, device, t};
+  return t;
+}
+
+Kept kept_rows(const Lane& p, int K) {
+  return Kept{p.n, p.d0, p.mg, p.t0, p.tb, p.th, p.tw, K, false};
+}
+
+// the segments fit A and each other
+bool valid_rows(const Lane& p, int B) {
+  if (p.n <= 0 || p.m <= 0 || B <= 0 || p.mg < 0 || p.mg > p.m || p.mg > p.n) return false;
+  if (p.d0 < 0 || p.d0 + p.mg > p.m || p.tb < 0) return false;
+  if (p.tb == 0) return true;
+  const int nt = p.tb * p.th;
+  if (p.th <= 0 || p.tw <= 0 || p.t0 < 0 || p.t0 + nt > p.m) return false;
+  return p.mg == 0 || p.t0 + nt <= p.d0 || p.d0 + p.mg <= p.t0;
+}
+
+int variant_for(const Lane& p, int B, int device) {
+  const int md = p.m - p.mg;
+  if (!valid_rows(p, B)) return kUnsupported;
   if (device < 0 || device >= kMaxDevices) return kUnsupported;
-  if (n <= 64 && md <= 64) return kRegister;
-  const int C = rows_cluster_size(n, m, mg, B, device, rows_K(n));
+  if (p.n <= 64 && md <= 64) return kRegister;
+  const int C = rows_tiling(kept_rows(p, rows_K(p.n)), p.m, p.mg, B, device).C;
   if (C == 1) return kShared;
   if (C > 1) return kCluster;
-  if (global_bytes(n, m, mg) <= static_cast<size_t>(smem_budget(device))) return kGlobal;
+  if (global_bytes(p.n, p.m, p.mg) <= static_cast<size_t>(smem_budget(device))) return kGlobal;
   return kUnsupported;
 }
 
@@ -904,9 +1222,10 @@ KernelFn register_kernel(int n, int md, int* threads) {
   return small ? &admm_chunk_reg<32, K, false> : &admm_chunk_reg<64, K, false>;
 }
 
-// The last cluster launch configuration found to fit the card.
+// The last cluster launch configurations found to fit the card.
 struct ClusterFit { const void* fn; int dev, C; size_t bytes; };
-ClusterFit g_fit;
+ClusterFit g_fit[8];
+int g_n_fit = 0;
 
 // one launch of the row-split kernel with T threads a CTA, K threads a row
 // and C CTAs a lane (C = 1: the shared variant)
@@ -914,16 +1233,16 @@ template <int T>
 int launch_rows(const float* Minv, const float* A, const float* q, const float* l,
                 const float* u, const float* rho, const float* x, const float* z,
                 const float* y, float* xo, float* zo, float* yo, int B, const Lane& p,
-                int C, int K, int device, cudaStream_t s, int skip = 0) {
+                int C, int K, bool push, int device, cudaStream_t s, int skip = 0) {
   if (C < 1 || C > kMaxCluster || (C & (C - 1)) || K < 1 || K > 32 || (K & (K - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Split sp = make_split(p.n, p.m - p.mg, p.mg, C, K);
+  Split sp = make_split(kept_rows(p, K), p.m - p.mg, p.mg, C, K, push);
 #ifdef ADMM_CHUNK_PROBE
   sp.skip = skip;
 #else
   (void)skip;
 #endif
-  const size_t bytes = split_bytes(sp);
+  const size_t bytes = split_bytes(sp, T);
   if (bytes > static_cast<size_t>(smem_budget(device)) ||
       (p.n + 4 * K - 1) / (4 * K) > (sp.minv_reg ? 4 : 8))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -948,48 +1267,66 @@ int launch_rows(const float* Minv, const float* A, const float* q, const float* 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (!(g_fit.fn == reinterpret_cast<const void*>(fn) && g_fit.dev == device && g_fit.C == C &&
-        g_fit.bytes == bytes)) {
+  bool known = false;
+  for (int i = 0; i < g_n_fit && !known; ++i)
+    known = g_fit[i].fn == reinterpret_cast<const void*>(fn) && g_fit[i].dev == device &&
+            g_fit[i].C == C && g_fit[i].bytes == bytes;
+  if (!known) {
     int clusters = 0;
     const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (clusters == 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
-    g_fit = ClusterFit{reinterpret_cast<const void*>(fn), device, C, bytes};
+    g_fit[g_n_fit % 8] = ClusterFit{reinterpret_cast<const void*>(fn), device, C, bytes};
+    ++g_n_fit;
   }
   return static_cast<int>(
       cudaLaunchKernelEx(&cfg, fn, Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, p, sp));
+}
+
+// the row-split launch with the port's tiling (rows_tiling)
+int launch_rows_auto(const float* Minv, const float* A, const float* q, const float* l,
+                     const float* u, const float* rho, const float* x, const float* z,
+                     const float* y, float* xo, float* zo, float* yo, int B, const Lane& p,
+                     int device, cudaStream_t s, int skip = 0) {
+  const int K = rows_K(p.n);
+  const Tiling t = rows_tiling(kept_rows(p, K), p.m, p.mg, B, device);
+  if (t.T == 512)
+    return launch_rows<512>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B, p, t.C, K, t.push,
+                            device, s, skip);
+  return launch_rows<256>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B, p, t.C, K, t.push,
+                          device, s, skip);
 }
 
 // one chunk launch, the register variant tiled with K threads per row
 template <int K>
 int launch_chunk(const float* Minv, const float* A, const float* q, const float* l,
                  const float* u, const float* rho, const float* x, const float* z,
-                 const float* y, float* xo, float* zo, float* yo,
-                 int B, int n, int m, int d0, int mg, int iters, float sigma, float alpha,
+                 const float* y, float* xo, float* zo, float* yo, int B, const Lane& p,
                  int device, void* stream) {
-  if (B <= 0 || d0 < 0 || d0 + mg > m) return static_cast<int>(cudaErrorInvalidValue);
-  const int variant = variant_for(n, m, mg, B, device);
+  const int variant = variant_for(p, B, device);
   if (variant == kUnsupported) return static_cast<int>(cudaErrorInvalidValue);
-  const Lane p{n, m, d0, mg, iters, sigma, alpha};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == kRegister) {
     int threads = 0;
-    const KernelFn kernel = register_kernel<K>(n, m - mg, &threads);
+    const KernelFn kernel = register_kernel<K>(p.n, p.m - p.mg, &threads);
     kernel<<<B, threads, 0, s>>>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, p);
     return static_cast<int>(cudaGetLastError());
   }
-  if (variant == kShared || variant == kCluster) {
-    const int C = rows_cluster_size(n, m, mg, B, device, rows_K(n));
-    return launch_rows<kRowsThreads>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B, p, C,
-                                     rows_K(n), device, s);
-  }
-  int threads = ((n > m ? n : m) + 31) / 32 * 32;
+  if (variant == kShared || variant == kCluster)
+    return launch_rows_auto(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B, p, device, s);
+  int threads = ((p.n > p.m ? p.n : p.m) + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   if (int err = prepare(reinterpret_cast<const void*>(&admm_chunk_global), device, false))
     return err;
-  admm_chunk_global<<<B, threads, global_bytes(n, m, mg), s>>>(
+  admm_chunk_global<<<B, threads, global_bytes(p.n, p.m, p.mg), s>>>(
       Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+Lane make_lane(int n, int m, int d0, int mg, int t0, int tb, int th, int tw, int iters,
+               float sigma, float alpha) {
+  if (tb <= 0) t0 = tb = th = tw = 0;
+  return Lane{n, m, d0, mg, t0, tb, th, tw, iters, sigma, alpha};
 }
 
 }  // namespace
@@ -1000,31 +1337,56 @@ extern "C" {
 // thread-block cluster; 2: register variant; 1: matrices in one block's
 // shared memory; 0: matrices read from global memory (no cluster holds the
 // lane); -1: the vectors alone exceed a block's shared memory, or the
-// declared diagonal rows outnumber the columns (not supported). The diagonal
-// segment's row offset does not enter the choice.
-int admm_chunk_variant(int n, int m, int mg, int B, int device) {
-  return variant_for(n, m, mg, B, device);
+// declared segments do not fit A (not supported). The segments' row offsets
+// do not enter the choice.
+int admm_chunk_variant(int n, int m, int mg, int tb, int th, int tw, int B, int device) {
+  const int t0 = mg > 0 ? mg : 0;  // any offset clear of the diagonal rows
+  return variant_for(make_lane(n, m, 0, mg, t0, tb, th, tw, 0, 0.f, 0.f), B, device);
 }
 
 // CTAs a lane of the shared (1) and cluster (2, 4, 8, 16) variants; 0 for a
 // shape that takes another variant
-int admm_chunk_cluster_size(int n, int m, int mg, int B, int device) {
-  const int v = variant_for(n, m, mg, B, device);
+int admm_chunk_cluster_size(int n, int m, int mg, int tb, int th, int tw, int B, int device) {
+  const Lane p = make_lane(n, m, 0, mg, mg > 0 ? mg : 0, tb, th, tw, 0, 0.f, 0.f);
+  const int v = variant_for(p, B, device);
   if (v != kShared && v != kCluster) return 0;
-  return rows_cluster_size(n, m, mg, B, device, rows_K(n));
+  return rows_tiling(kept_rows(p, rows_K(n)), m, mg, B, device).C;
+}
+
+// threads a CTA of the launch: the register tile's, the row-split kernel's
+// (256 or 512) or the global variant's; 0 for a shape no variant takes
+int admm_chunk_threads(int n, int m, int mg, int tb, int th, int tw, int B, int device) {
+  const Lane p = make_lane(n, m, 0, mg, mg > 0 ? mg : 0, tb, th, tw, 0, 0.f, 0.f);
+  const int v = variant_for(p, B, device);
+  if (v == kRegister) {
+    int threads = 0;
+    register_kernel<kRowThreads>(n, m - mg, &threads);
+    return threads;
+  }
+  if (v == kShared || v == kCluster) {
+    return rows_tiling(kept_rows(p, rows_K(n)), m, mg, B, device).T;
+  }
+  if (v == kGlobal) {
+    const int threads = ((n > m ? n : m) + 31) / 32 * 32;
+    return threads > kMaxThreads ? kMaxThreads : threads;
+  }
+  return 0;
 }
 
 // Minv (B,n,n), A (B,m,n), q/x (B,n), l/u/rho/z/y (B,m); outputs xo (B,n),
-// zo/yo (B,m). Rows d0 .. d0+mg of A are read as their diagonal alone.
+// zo/yo (B,m). Rows d0 .. d0+mg of A are read as their diagonal alone; rows
+// t0 .. t0+tb·th form a "blt" segment (tb = 0: none) whose block row i is
+// read as its first min((i+1)·tw, n) columns; every other row whole.
 // `device` is the current CUDA device. Returns the CUDA error of the launch:
 // a cluster the card cannot place is cudaErrorLaunchOutOfResources.
 int admm_chunk_f32(const float* Minv, const float* A, const float* q, const float* l,
                    const float* u, const float* rho, const float* x, const float* z,
                    const float* y, float* xo, float* zo, float* yo,
-                   int B, int n, int m, int d0, int mg, int iters, float sigma, float alpha,
-                   int device, void* stream) {
-  return launch_chunk<kRowThreads>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B, n, m,
-                                   d0, mg, iters, sigma, alpha, device, stream);
+                   int B, int n, int m, int d0, int mg, int t0, int tb, int th, int tw,
+                   int iters, float sigma, float alpha, int device, void* stream) {
+  return launch_chunk<kRowThreads>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B,
+                                   make_lane(n, m, d0, mg, t0, tb, th, tw, iters, sigma, alpha),
+                                   device, stream);
 }
 
 }  // extern "C"

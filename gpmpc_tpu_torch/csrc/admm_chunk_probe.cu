@@ -8,20 +8,19 @@
 
 extern "C" {
 
-// admm_chunk_f32 for a shape of the shared or cluster variant, as it picks
-// the tiling for B lanes, without the stages named in `skip`
+// admm_chunk_f32 for a shape of the shared or cluster variant, with the
+// port's tiling for B lanes, without the stages named in `skip`
 int admm_chunk_probe_f32(const float* Minv, const float* A, const float* q, const float* l,
                          const float* u, const float* rho, const float* x, const float* z,
                          const float* y, float* xo, float* zo, float* yo,
-                         int B, int n, int m, int d0, int mg, int iters, float sigma,
-                         float alpha, int skip, int device, void* stream) {
-  if (B <= 0 || d0 < 0 || d0 + mg > m) return static_cast<int>(cudaErrorInvalidValue);
-  const int variant = variant_for(n, m, mg, B, device);
+                         int B, int n, int m, int d0, int mg, int t0, int tb, int th, int tw,
+                         int iters, float sigma, float alpha, int skip, int device,
+                         void* stream) {
+  const Lane p = make_lane(n, m, d0, mg, t0, tb, th, tw, iters, sigma, alpha);
+  const int variant = variant_for(p, B, device);
   if (variant != kShared && variant != kCluster) return static_cast<int>(cudaErrorInvalidValue);
-  const Lane p{n, m, d0, mg, iters, sigma, alpha};
-  return launch_rows<kRowsThreads>(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B, p,
-                                   rows_cluster_size(n, m, mg, B, device, rows_K(n)), rows_K(n),
-                                   device, static_cast<cudaStream_t>(stream), skip);
+  return launch_rows_auto(Minv, A, q, l, u, rho, x, z, y, xo, zo, yo, B, p, device,
+                          static_cast<cudaStream_t>(stream), skip);
 }
 
 }  // extern "C"

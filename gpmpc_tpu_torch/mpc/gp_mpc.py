@@ -39,8 +39,8 @@ from ..dynamics.linearize import trajectory_jacobians
 from ..ops.qp import (SOLVED, IPMConfig, Scaling, build_condensed_qp, build_mpc_qp, extend_qp,
                       join_z, recover_states, solve, solve_ipm, split_z)
 from .constraints import normal_quantile
-from .rti import (RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows, _stage_rows,
-                  init_kkt_carry)
+from .rti import (RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows, _sparse_admm_cfg,
+                  _stage_rows, init_kkt_carry)
 from .uncertainty_prop import box_tightening, propagate_linear
 
 Tensor = torch.Tensor
@@ -202,7 +202,7 @@ def gp_mpc_solve(
         else:
             X_sim = _rollout(step_fn, x0, state.U_lin, dt, lambda k, x, u: torch.zeros_like(x))
 
-    admm_cfg = _condensed_admm_cfg(cfg) if cfg.condensed else cfg.admm
+    admm_cfg = _condensed_admm_cfg(cfg) if cfg.condensed else _sparse_admm_cfg(cfg)
     X_lin, U_lin = X_sim, state.U_lin
     rho, y_prev, kkt_inv = state.rho, state.y_prev, state.kkt_inv
     done = torch.zeros(Bsz, dtype=torch.bool, device=x0.device)
@@ -343,7 +343,7 @@ def gp_mpc_init(
                             cfg.x_min, cfg.x_max, cfg.u_min, cfg.u_max)
         if cfg.Gx is not None or cfg.Gu is not None:
             data = extend_qp(data, *_stage_rows(cfg))
-        warm = init_kkt_carry(data, cfg.admm)
+        warm = init_kkt_carry(data, _sparse_admm_cfg(cfg))
     return GPMPCState(
         X_lin=X_lin, U_lin=U_lin, x_ref=x_ref,
         rho=torch.full((Bsz,), cfg.admm.rho, device=dev),

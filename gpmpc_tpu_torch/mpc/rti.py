@@ -176,6 +176,26 @@ def _condensed_admm_cfg(config) -> ADMMConfig:
     return config.admm.replace(row_structure=tuple(segs))
 
 
+def _sparse_row_structure(N: int, n_x: int, n_u: int) -> tuple:
+    """The sparse form's rows as ``build_constraints`` lays them out over z =
+    [x₀ u₀ x₁ … x_N]: x₀'s identity and the dynamics rows [A_k B_k −I],
+    block row i nonzero in its first (i+1)·(n_x+n_u) columns (the last block
+    clipped at the n columns), then the identity of the variable bounds.
+    Facet rows appended after them stay dense."""
+    nz = (N + 1) * n_x + N * n_u
+    return (("blt", N + 1, n_x, n_x + n_u), ("diag", nz))
+
+
+def _sparse_admm_cfg(config) -> ADMMConfig:
+    """ADMM config with the sparse form's row structure declared
+    (:func:`_sparse_row_structure`), for any config with ``N``, ``n_x``,
+    ``n_u`` and ``admm``. User-set row_structure wins."""
+    if config.admm.row_structure is not None:
+        return config.admm
+    return config.admm.replace(
+        row_structure=_sparse_row_structure(config.N, config.n_x, config.n_u))
+
+
 def _stage_rows(config):
     """(A_ext, l_ext, u_ext) for the configured facet rows."""
     if config.Gx is not None and config.Gx.dim() == 3:
@@ -239,7 +259,8 @@ def _solve_qp(config, state, Aks, Bks, cks, x_current, z0_XU, y0):
     with record_function("rti.qp_build"):
         data = _build_rti_qp(config, Aks, Bks, cks, x_current, state.x_ref)
     with record_function("rti.admm_solve"):
-        sol = solve(data, join_z(X0, U0), y0, config.admm, rho0=state.rho, **warm)
+        sol = solve(data, join_z(X0, U0), y0, _sparse_admm_cfg(config), rho0=state.rho,
+                    **warm)
     X_sol, U_sol = split_z(sol.x, N, config.n_x, config.n_u)
     return sol, X_sol, U_sol
 
@@ -346,9 +367,11 @@ def rti_init(
                 config.x_min, config.x_max, config.u_min, config.u_max,
                 Gx, gx_l, gx_u, config.Gu, config.gu_l, config.gu_u,
                 x_bound_mask=config.x_bound_mask)
+            admm = config.admm
         else:
             data = _build_rti_qp(config, Aks, Bks, cks, x0, x_ref)
-        warm = init_kkt_carry(data, config.admm)
+            admm = _sparse_admm_cfg(config)
+        warm = init_kkt_carry(data, admm)
     return RTIState(
         X_lin=X_lin, U_lin=U_lin, X_prev=X_lin, U_prev=U_lin,
         y_prev=torch.zeros(Bsz, _n_rows(config), device=dev),

@@ -16,15 +16,16 @@ One launch runs one of four variants, picked by shape and lane count
   products keep short.
 - "shared" (a lane that fits one block's shared memory: the condensed QP
   with its state bounds, n = 60, m = 200; the 6-DoF QP with cone facets,
-  m = 380): M⁻¹ in registers where n ≤ 64, A's dense rows once in shared
+  m = 380; the sparse 3-DoF QP at N = 15 with its rows declared, n = 157,
+  m = 269): M⁻¹ in registers where n ≤ 64, A's kept entries once in shared
   memory for both directions, every dot product split over several threads;
-  bound by shared-memory bandwidth, four lanes an SM.
-- "cluster" (a larger lane: the sparse-form QP, n = 207, m = 354): the
-  lane's rows split over a thread-block cluster of 4, 8 or 16 CTAs
-  (:func:`cluster_size`), every matrix entry in shared memory for the whole
-  chunk, partial sums and x̃ exchanged through distributed shared memory;
-  bound by barrier latency for few lanes and by shared-memory bandwidth for
-  many.
+  bound by shared-memory bandwidth.
+- "cluster" (a larger lane: the SCVX library's, n = 407, m = 694; the
+  golden sparse QP at 512 lanes): the lane's rows split over a thread-block
+  cluster of 2 to 16 CTAs (:func:`cluster_size`), every kept matrix entry in
+  shared memory for the whole chunk, the partials of Aᵀt pushed into the
+  peers and x̃ exchanged through distributed shared memory; bound by barrier
+  latency for few lanes and by the waves of lanes for many.
 - "global" (a lane no cluster holds): matrices read from global memory
   every iteration; bound by L2 and device-memory traffic.
 
@@ -34,9 +35,14 @@ A's rows may carry the solver's declared structure (``row_structure``, the
 ``("blockdiag_shared", nb, h, w)``; rows past the declared segments are
 dense and ``None`` means every row dense. The plain version and the solver's
 streamed loop apply each segment through its structural nonzeros alone
-(:func:`compact_structure`, :func:`make_A_ops`). The kernel reads A densely,
-as both TPU kernels do, except for the first ``"diag"`` segment, which it
-applies through its diagonal wherever the segment stands among the rows.
+(:func:`compact_structure`, :func:`make_A_ops`; a "blt" segment of 8 block
+rows or more as one product of its zero-padded blocks). The kernel applies the
+first ``"diag"`` segment through its diagonal and, in the shared and cluster
+variants, reads the first ``"blt"`` segment as its blocks' kept columns
+alone (block row i its first min((i+1)·w, n); :func:`kernel_blt`), wherever
+each stands among the rows; every other row it reads whole, as both TPU
+kernels read A. The port's sparse-form solves declare their rows so
+(``mpc/rti.py::_sparse_admm_cfg``).
 
 - :func:`admm_chunk` — the wrapper. A CUDA tensor launches the kernel (one
   launch per chunk) or raises, also when the card refuses the launch (a
@@ -50,10 +56,13 @@ applies through its diagonal wherever the segment stands among the rows.
 - :func:`make_admm_chunk_lanes` — the JAX factory's counterpart: the same
   wrapper with ``iters``, ``sigma`` and ``alpha`` bound (one kernel serves
   both TPU kernels, lanes first).
-- :func:`variant`, :func:`cluster_size` — which variant a shape and lane
-  count launch, and over how many CTAs a lane.
+- :func:`variant`, :func:`cluster_size`, :func:`threads` — which variant a
+  shape and lane count launch, over how many CTAs a lane, with how many
+  threads a CTA.
 - ``LAUNCHES`` — incremented once per kernel launch, and nowhere else;
-  ``LAUNCHES_BY_SHAPE`` counts the same launches by (n, m).
+  ``LAUNCHES_BY_SHAPE`` counts the same launches by (n, m),
+  ``LAUNCHES_BY_ROWS`` by (n, m, mg, (C, h, w)): the diagonal rows and the
+  "blt" segment each read as declared.
 """
 
 from __future__ import annotations
@@ -66,10 +75,11 @@ import torch
 from . import _build
 
 KERNEL = "admm_chunk"
+BLT_PRODUCT_BLOCKS = 8  # block rows from which make_A_ops applies a "blt" segment as one product
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: dict = {}
+LAUNCHES_BY_ROWS: dict = {}
 VARIANTS = {3: "cluster", 2: "register", 1: "shared", 0: "global"}
-ROWS_THREADS = 256  # threads a CTA of the shared and cluster variants (kRowsThreads)
 
 _Tensors = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -161,9 +171,15 @@ def make_A_ops(ops: tuple, n: int, cast=None):
     """(A_apply, AT_apply) on batched vectors from compacted structure ops.
     ``cast``, if given, is applied to the vector each matrix operand
     multiplies ("diag" segments excepted): the solver's bf16 stream rounds
-    it as it rounds the operands."""
+    it as it rounds the operands. A "blt" segment of fewer than
+    ``BLT_PRODUCT_BLOCKS`` block rows is applied block row by block row, as
+    the JAX solver applies it; a longer one as one product of its blocks
+    zero-padded to n columns, built here once: there N+1 products a call
+    (the sparse form's block rows) cost more than the zeros they skip."""
     pad = torch.nn.functional.pad
     cv = cast or (lambda t: t)
+    ops = tuple((op[0], torch.cat([pad(b, (0, n - b.shape[2])) for b in op[1]], dim=1))
+                if op[0] == "blt" and len(op[1]) >= BLT_PRODUCT_BLOCKS else op for op in ops)
 
     def A_apply(v):
         Bsz = v.shape[0]
@@ -174,6 +190,8 @@ def make_A_ops(ops: tuple, n: int, cast=None):
                 outs.append(_bmv(M, cv(v)))
             elif kind == "diag":
                 outs.append(M * v[:, : M.shape[1]])
+            elif kind == "blt" and torch.is_tensor(M):
+                outs.append(_bmv(M, cv(v)))
             elif kind == "blt":
                 outs.extend(_bmv(blk, cv(v[:, : blk.shape[2]])) for blk in M)
             elif kind == "blockdiag":
@@ -198,6 +216,9 @@ def make_A_ops(ops: tuple, n: int, cast=None):
             elif kind == "diag":
                 nr = M.shape[1]
                 out = out + pad(M * t[:, r0 : r0 + nr], (0, n - nr))
+            elif kind == "blt" and torch.is_tensor(M):
+                nr = M.shape[1]
+                out = out + _bmv(M.transpose(1, 2), cv(t[:, r0 : r0 + nr]))
             elif kind == "blt":
                 nr = 0
                 for blk in M:
@@ -252,10 +273,11 @@ def admm_chunk_plain(Minv, A, q, l, u, rho, x, z, y, iters: int, sigma: float,
 def kernel_rows(A: torch.Tensor, row_structure) -> Tuple[torch.Tensor, int, int]:
     """A as the kernel reads it, with (d0, mg): the kernel applies the mg
     rows from row d0 on (the first "diag" segment, wherever it stands)
-    through their diagonal alone and every other row densely, where it
-    lies: no copy of A is made for it. A further "diag" segment is handed
-    over as dense rows that hold its diagonal alone, which applies the same
-    function and costs a copy of A."""
+    through their diagonal alone and every other row where it lies (the
+    first "blt" segment through its kept entries, :func:`kernel_blt`): no
+    copy of A is made for it. A further "diag" segment is handed over as
+    dense rows that hold its diagonal alone, which applies the same function
+    and costs a copy of A."""
     m, n = A.shape[1], A.shape[2]
     d0 = mg = r0 = 0
     later = []
@@ -280,6 +302,20 @@ def kernel_rows(A: torch.Tensor, row_structure) -> Tuple[torch.Tensor, int, int]
             A[:, r0 : r0 + nr] = 0.0
             A[:, r0 : r0 + nr, :nr] = torch.diag_embed(d)
     return A, d0, mg
+
+
+def kernel_blt(row_structure, m: int) -> Tuple[int, int, int, int]:
+    """The "blt" segment the kernel reads through its kept entries alone:
+    (t0, C, h, w) of the first one declared, rows t0 … t0 + C·h, block row i
+    kept as its first min((i+1)·w, n) columns (the rest are its declared
+    zero blocks); (0, 0, 0, 0) where none is. Further "blt" segments, and
+    the rows of the other kinds but the first "diag", are read whole."""
+    r0 = 0
+    for seg in _segments(row_structure, m):
+        if seg[0] == "blt" and seg[1] * seg[2] > 0:
+            return (r0, seg[1], seg[2], seg[3])
+        r0 += _seg_rows(seg)
+    return (0, 0, 0, 0)
 
 
 def _check(Minv, A, q, l, u, rho, x, z, y) -> Tuple[int, int, int]:
@@ -311,6 +347,7 @@ def _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
             f"the ADMM chunk kernel is built for sm_90a; {A.device} is "
             f"capability {torch.cuda.get_device_capability(A.device)}")
     A, d0, mg = kernel_rows(A, row_structure)
+    blt = kernel_blt(row_structure, m)
     ins = [t.contiguous() for t in (Minv, A, q, l, u, rho, x, z, y)]
     xo = torch.empty_like(ins[6])
     zo = torch.empty_like(ins[7])
@@ -320,16 +357,19 @@ def _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = lib.admm_chunk_f32(
             *[t.data_ptr() for t in ins], xo.data_ptr(), zo.data_ptr(),
-            yo.data_ptr(), B, n, m, d0, mg, int(iters), float(sigma), float(alpha),
+            yo.data_ptr(), B, n, m, d0, mg, *blt, int(iters), float(sigma), float(alpha),
             A.device.index, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"admm_chunk_f32 launch failed: CUDA error {err} (B={B}, n={n}, m={m}, "
-            f"diagonal rows {d0}..{d0 + mg}, variant {variant(n, m, mg, B, A.device)}, "
-            f"{cluster_size(n, m, mg, B, A.device)} CTAs a lane)")
+            f"diagonal rows {d0}..{d0 + mg}, blt segment {blt}, "
+            f"variant {variant(n, m, mg, B, A.device, blt[1:])}, "
+            f"{cluster_size(n, m, mg, B, A.device, blt[1:])} CTAs a lane)")
     LAUNCHES += 1
     LAUNCHES_BY_SHAPE[(n, m)] = LAUNCHES_BY_SHAPE.get((n, m), 0) + 1
+    rows = (n, m, mg, blt[1:])
+    LAUNCHES_BY_ROWS[rows] = LAUNCHES_BY_ROWS.get(rows, 0) + 1
     return xo, zo, yo
 
 
@@ -339,12 +379,14 @@ def _library() -> ctypes.CDLL:
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        lib.admm_chunk_f32.argtypes = [p] * 12 + [i, i, i, i, i, i, f, f, i, p]
+        lib.admm_chunk_f32.argtypes = [p] * 12 + [i] * 10 + [f, f, i, p]
         lib.admm_chunk_f32.restype = i
-        lib.admm_chunk_variant.argtypes = [i, i, i, i, i]
+        lib.admm_chunk_variant.argtypes = [i] * 8
         lib.admm_chunk_variant.restype = i
-        lib.admm_chunk_cluster_size.argtypes = [i, i, i, i, i]
+        lib.admm_chunk_cluster_size.argtypes = [i] * 8
         lib.admm_chunk_cluster_size.restype = i
+        lib.admm_chunk_threads.argtypes = [i] * 8
+        lib.admm_chunk_threads.restype = i
     return lib
 
 
@@ -353,25 +395,35 @@ def _device_index(device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def variant(n: int, m: int, mg: int = 0, lanes: int = 1, device=None) -> str:
-    """The kernel variant a chunk of ``lanes`` lanes with n columns, m rows
-    and mg diagonal rows (anywhere among the rows) launches on ``device``
-    (default: the current CUDA device): "register" (matrices in registers),
-    "shared" (in one block's shared memory), "cluster" (a lane's rows split
-    over the shared memory of a thread-block cluster) or "global" (read from
-    global memory: a lane no cluster holds). Raises for a shape none takes."""
-    v = _library().admm_chunk_variant(n, m, mg, lanes, _device_index(device))
+def variant(n: int, m: int, mg: int = 0, lanes: int = 1, device=None,
+            blt: tuple = (0, 0, 0)) -> str:
+    """The kernel variant a chunk of ``lanes`` lanes with n columns, m rows,
+    mg diagonal rows and a "blt" segment of ``blt`` = (C, h, w) (anywhere
+    among the rows; (0, 0, 0): none) launches on ``device`` (default: the
+    current CUDA device): "register" (matrices in registers), "shared" (in
+    one block's shared memory), "cluster" (a lane's rows split over the
+    shared memory of a thread-block cluster) or "global" (read from global
+    memory: a lane no cluster holds). Raises for a shape none takes."""
+    v = _library().admm_chunk_variant(n, m, mg, *blt, lanes, _device_index(device))
     if v not in VARIANTS:
         raise ValueError(f"no variant of the chunk kernel takes n={n}, m={m}, "
-                         f"diagonal rows {mg}")
+                         f"diagonal rows {mg}, blt segment {blt}")
     return VARIANTS[v]
 
 
-def cluster_size(n: int, m: int, mg: int = 0, lanes: int = 1, device=None) -> int:
+def cluster_size(n: int, m: int, mg: int = 0, lanes: int = 1, device=None,
+                 blt: tuple = (0, 0, 0)) -> int:
     """CTAs a lane of the launch :func:`variant` names: 1 for the shared
     variant, the cluster size (2 to 16, by shape and lane count) for the
     cluster variant, 0 for the others."""
-    return _library().admm_chunk_cluster_size(n, m, mg, lanes, _device_index(device))
+    return _library().admm_chunk_cluster_size(n, m, mg, *blt, lanes, _device_index(device))
+
+
+def threads(n: int, m: int, mg: int = 0, lanes: int = 1, device=None,
+            blt: tuple = (0, 0, 0)) -> int:
+    """Threads a CTA of the launch :func:`variant` names (the row-split
+    kernel takes 512 where one CTA fills an SM's shared memory, else 256)."""
+    return _library().admm_chunk_threads(n, m, mg, *blt, lanes, _device_index(device))
 
 
 def admm_chunk(Minv, A, q, l, u, rho, x, z, y, iters: int, sigma: float,

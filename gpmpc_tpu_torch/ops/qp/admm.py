@@ -325,8 +325,8 @@ def solve(
         ops_stream = _cast_ops(ops_f32)
         A_apply, AT_apply = make_A_ops(ops_stream, n, cast=_bf16)
         A_fact = _materialize_ops(ops_stream, n)
-    else:
-        A_apply, AT_apply = make_A_ops(ops_f32, n)
+    else:  # the kernel modes apply A inside the chunk: no streamed operator is built
+        A_apply, AT_apply = (None, None) if use_kernel else make_A_ops(ops_f32, n)
         A_fact = A
     with record_function("admm.factor"):
         if kkt_inv0 is not None:

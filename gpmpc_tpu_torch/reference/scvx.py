@@ -21,6 +21,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..dynamics.linearize import trajectory_jacobians
+from ..mpc.rti import _sparse_admm_cfg
 from ..ops.qp import ADMMConfig, QPData, SOLVED, join_z, solve, split_z
 from ..ops.qp.mpc_qp import build_constraints, build_stage_rows
 
@@ -177,7 +178,7 @@ def scvx_solve(step_fn_dt: Callable, config: SCVXConfig, x0: Tensor, x_target: T
     ok = torch.zeros(B, dtype=torch.bool, device=dev)
     for _ in range(config.iterations):
         data, X_lin = scvx_qp(step_fn_dt, config, x0, xT, dt, U, tr_scale)
-        sol = solve(data, join_z(X_lin, U), None, config.admm, rho0=rho)
+        sol = solve(data, join_z(X_lin, U), None, _sparse_admm_cfg(config), rho0=rho)
         ok = (sol.status == SOLVED) | (sol.pri_res < config.accept_pri_tol)
         _, U_new = split_z(sol.x, N, n_x, n_u)
         U = torch.where(ok[:, None, None], U_new, U)

@@ -696,3 +696,91 @@ def test_bf16_streamed_solve_on_the_card_matches_the_cpu(cuda_device):
                   config=bf)
     assert (sol_g.x.cpu() - sol_c.x).abs().max().item() <= 1e-3
     assert (sol_g.x.cpu() - f32.x).abs().max().item() <= 1e-3
+
+
+WITNESS_X = 2.0  # chip_smoke.py's witness rule
+
+# A QP with a "blt" segment whose last block row is clipped at n: 7 block
+# rows of 6 rows, 23 columns a block column, n = 150 (the last keeps 150 of
+# its 161), the segment placed first, after dense rows and after the
+# diagonal rows; 10 dense rows follow in each layout.
+BLT_LAYOUTS = {
+    "blt-first": (("blt", 7, 6, 23), ("diag", 150), ("dense", 10)),
+    "blt-after-dense": (("dense", 5), ("blt", 7, 6, 23), ("diag", 150), ("dense", 5)),
+    "blt-after-diag": (("diag", 150), ("blt", 7, 6, 23), ("dense", 10)),
+}
+
+
+@pytest.mark.parametrize("push", [1, 0], ids=["push", "pull"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("layout", sorted(BLT_LAYOUTS))
+def test_blt_segment_on_each_cluster_size(cuda_device, layout, cluster, push):
+    """The "blt" segment read as its kept entries alone, on the shared
+    variant (one CTA a lane) and on clusters of 2, 4 and 8 CTAs, with the
+    partials pushed into the peers or pulled from them, through the tile
+    build (csrc/admm_chunk_tiles.cu: the same kernel with the tiling taken
+    per call), against the plain chunk with the same row structure. The
+    declared zero blocks hold 0.01-sized entries that the kernel must not
+    read. Each tiling sums in its own order, so the kernel is held around
+    the float64 run by the witness rule (chip_smoke.py): within the
+    tolerance plus twice the plain f32 run's own distance from it (the duals
+    of the two ρ-boosted equality rows carry ~5e-3 of f32 noise after 25
+    iterations; a cluster of 8 landed 1.06e-2 from the float64 run where
+    the plain f32 run lands 5.2e-3)."""
+    from gpmpc_tpu_torch.chunk_bench import _tiles_library, rows_chunk
+
+    segs = BLT_LAYOUTS[layout]
+    args = _chunk_args(5, 150, 202, segs, cuda_device, seed=cluster)
+    t0 = K.kernel_blt(segs, 202)[0]
+    noise = torch.zeros_like(args[1])
+    for i in range(7):  # entries inside the declared zero blocks
+        noise[:, t0 + 6 * i:t0 + 6 * (i + 1), min(23 * (i + 1), 150):] = 0.01
+    args[1] = args[1] + noise
+    kw = dict(iters=25, sigma=1e-6, alpha=1.6, row_structure=segs)
+    lib = _tiles_library()
+    got = rows_chunk(lib, 256, 8, cluster, args, segs, 25, push)
+    ref = K.admm_chunk_plain(*[a.double() for a in args], **kw)
+    plain = K.admm_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for k, p, r, atol in zip(got, plain, ref, (3e-4, 3e-4, 2e-3)):
+        f32_noise = (p.double() - r).abs().max().item()
+        assert f32_noise <= 10 * atol
+        torch.testing.assert_close(k.double(), r, rtol=0, atol=atol + WITNESS_X * f32_noise)
+
+
+@pytest.mark.parametrize("layout", sorted(BLT_LAYOUTS))
+def test_wrapper_reads_the_blt_segment(cuda_device, layout):
+    """The port's own launch with the segment declared, no copy of A."""
+    segs = BLT_LAYOUTS[layout]
+    args = _chunk_args(5, 150, 202, segs, cuda_device)
+    Ak, d0, mg = K.kernel_rows(args[1], segs)
+    assert Ak is args[1] and mg == 150 and K.kernel_blt(segs, 202)[1:] == (7, 6, 23)
+    assert K.variant(150, 202, 150, 5, blt=(7, 6, 23)) in ("shared", "cluster")
+    _assert_matches_plain(args, segs, 25)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 25])
+@pytest.mark.parametrize("kind,lanes", [("golden", 4), ("golden", 5), ("golden", 512),
+                                        ("sparse6dof", 4), ("sparse6dof", 5),
+                                        ("suite_rti", 256), ("suite_rti", 64),
+                                        ("fleet3dof", 128), ("scvx", 704)])
+def test_sparse_form_with_its_rows_declared(cuda_device, kind, lanes, iters):
+    """The sparse-form shapes at their real data with the rows the paths now
+    declare (("blt", N+1, n_x, n_x+n_u), ("diag", nz)): none on the global
+    variant, suite_rti and fleet3dof on the shared variant, against the
+    plain chunk with the same structure (scaled tolerances: the iterates
+    reach far above 1)."""
+    from gpmpc_tpu_torch.chunk_bench import sparse_segs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "golden":
+        args = _golden_lanes(lanes, cuda_device)
+    else:
+        args = chunk_inputs(kind, gen, lanes=lanes)
+    segs = sparse_segs(kind)
+    B, m, n = args[1].shape
+    blt = K.kernel_blt(segs, m)
+    assert blt[0] == 0 and blt[1] * blt[2] + n == m
+    v = K.variant(n, m, n, B, blt=blt[1:])
+    assert v == ("shared" if kind in ("suite_rti", "fleet3dof") else "cluster")
+    _assert_matches_plain(args, segs, iters, scaled=True)
