@@ -1,0 +1,10 @@
+"""Host milliseconds a cycle inside the span(s) gpmpc.gp_posterior, under the
+profiler (which inflates host time)."""
+
+SPANS = ('gpmpc.gp_posterior',)
+
+
+def read(data):
+    if not data.units or not any(name in SPANS for name, _, _ in data.host):
+        return None
+    return 1e3 * data.span_seconds(*SPANS) / data.units
