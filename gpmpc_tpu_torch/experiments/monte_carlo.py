@@ -9,6 +9,11 @@ lockstep, and a lane whose outcome is decided is frozen (its state, its
 controller state and its plant state stop changing). ``summarize`` prints a
 campaign's statistics and ``compare_controllers`` flies several
 controllers on shared initial states.
+
+Spans (``utils.profiler.span``) of :func:`run_episode`: ``campaign.step``
+(one whole step) with ``campaign.exit_check`` (the host read that ends the
+loop early), ``campaign.plant`` and ``campaign.outcome`` inside it; the
+controller's own spans nest there too.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..utils.profiler import span
 
 Tensor = torch.Tensor
 
@@ -183,26 +189,33 @@ def run_episode(
     steps = torch.zeros(x0s.shape[0], dtype=torch.int32, device=dev)
     Xs, Us = [x0s], []
     for k in range(sim.max_steps):
-        running = outcome == RUNNING
-        if not store_trajectories and not bool(running.any()):
-            break
-        u, cstate_new = controller_step(cstate, x, k)
-        x_next, pstate_new = pstep(pstate, x, u)
-        diverged = ~torch.isfinite(x_next).all(dim=-1) | (
-            x_next.abs().amax(dim=-1) > sim.divergence_bound)
-        new_outcome = torch.where(
-            diverged, DIVERGENCE,
-            torch.where(x_next[:, 1] <= criteria.landing_altitude,
-                        classify_touchdown(x_next, criteria),
-                        torch.where(x_next[:, 0] <= sim.m_dry, FUEL_EXHAUSTED, RUNNING)))
-        outcome = torch.where(running, new_outcome, outcome)
-        x = torch.where(running[:, None], x_next, x)
-        cstate = _keep_running(running, cstate_new, cstate)
-        pstate = _keep_running(running, pstate_new, pstate)
-        steps = steps + running.to(torch.int32)
-        if store_trajectories:
-            Xs.append(x)
-            Us.append(u)
+        with span("campaign.step"):
+            running = outcome == RUNNING
+            if not store_trajectories:
+                with span("campaign.exit_check"):
+                    any_running = bool(running.any())
+                if not any_running:
+                    break
+            u, cstate_new = controller_step(cstate, x, k)
+            with span("campaign.plant"):
+                x_next, pstate_new = pstep(pstate, x, u)
+            with span("campaign.outcome"):
+                diverged = ~torch.isfinite(x_next).all(dim=-1) | (
+                    x_next.abs().amax(dim=-1) > sim.divergence_bound)
+                new_outcome = torch.where(
+                    diverged, DIVERGENCE,
+                    torch.where(x_next[:, 1] <= criteria.landing_altitude,
+                                classify_touchdown(x_next, criteria),
+                                torch.where(x_next[:, 0] <= sim.m_dry, FUEL_EXHAUSTED,
+                                            RUNNING)))
+                outcome = torch.where(running, new_outcome, outcome)
+                x = torch.where(running[:, None], x_next, x)
+                cstate = _keep_running(running, cstate_new, cstate)
+                pstate = _keep_running(running, pstate_new, pstate)
+                steps = steps + running.to(torch.int32)
+            if store_trajectories:
+                Xs.append(x)
+                Us.append(u)
     outcome = torch.where(outcome == RUNNING, TIMEOUT, outcome)
     out = {
         "outcome": outcome,

@@ -27,7 +27,6 @@ from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics import rocket3dof as r3, rocket6dof as r6
@@ -37,6 +36,7 @@ from ..mpc import GPMPCConfig, RTIConfig
 from ..mpc.gp_mpc import GPMPCState, gp_mpc_init, gp_mpc_solve
 from ..mpc.rti import freeze_lanes
 from ..reference import cubic_descent_reference, pad_reference
+from ..utils.profiler import span
 from .pretrain import _tune_multi
 
 Tensor = torch.Tensor
@@ -155,7 +155,7 @@ def fleet_episode(F_nom: Callable, plant_step: Callable, mpc: GPMPCConfig, gp, u
     landed = torch.zeros(Bsz, dtype=torch.bool, device=x0s.device)
     X, U, Xn, live, errs = [], [], [], [], []
     for k in range(cfg.max_steps):
-        with record_function("fleet.cycle"):
+        with span("fleet.cycle"):
             sol, st_new, x_next = cycle(st, x, k)
             x_out = torch.where(landed[:, None], x, x_next)
             st = freeze_lanes(landed, st, st_new)
@@ -253,13 +253,13 @@ def run_batched_learning(
         flown.append(gps)
         gates.append(fitted)
         ep = fleet_episode(F_nom, plant_step, mpc, gps, fitted, x0s, xT, cfg)
-        with record_function("fleet.refit"):
+        with span("fleet.refit"):
             res = collector.collect_batch(F_nom, ep["X"], ep["U"], ep["Xn"])
             gps = gps.add_data_batch_masked(ep["X"], ep["U"], res, ep["valid"])
             # the refit barrier: every lane refits on its own buffer (k-means + FITC)
             gps = gps.fit(generator)
         if cfg.tune_every > 0 and r % cfg.tune_every == cfg.tune_every - 1:
-            with record_function("fleet.tune"):
+            with span("fleet.tune"):
                 gps = _tune_lane(gps, cfg.tune_steps)
         fitted = fitted | (gps.buffer_count >= cfg.min_points_for_gp)
         for k, v in zip(keys, (ep["landed"], ep["speed"], ep["model_err"],

@@ -34,7 +34,6 @@ from dataclasses import dataclass, field, replace
 from typing import Callable, Union
 
 import torch
-from torch.profiler import record_function
 
 from .._device import as_f32
 from ..gp import Simple3DoFGP, StructuredGPConfig, StructuredRocketGP
@@ -43,6 +42,7 @@ from ..gp.structured_gp import RingBuffer, _data_lengthscales, _stacked_kernels
 from ..mpc import GPMPCConfig
 from ..mpc.gp_mpc import GPMPCState, gp_mpc_init, gp_mpc_solve
 from ..reference import cubic_descent_reference
+from ..utils.profiler import span
 
 Tensor = torch.Tensor
 OnlineGP = Union[Simple3DoFGP, StructuredRocketGP]
@@ -242,7 +242,7 @@ def make_online_gp_mpc_controller(step_fn: Callable[[Tensor, Tensor], Tensor],
     def cstep(st: OnlineGPMPCState, x: Tensor, k: int):
         k = int(k)
         gp = st.gp
-        with record_function("online.observe"):
+        with span("online.observe"):
             # a real flown transition: a stopped lane repeats its frozen
             # state, and observing that non-transition would write a large
             # fake residual into its buffer
@@ -266,7 +266,7 @@ def make_online_gp_mpc_controller(step_fn: Callable[[Tensor, Tensor], Tensor],
         did_refresh = cfg.refresh_every > 0 and k % cfg.refresh_every == cfg.refresh_every - 1
         do_refit = k % cfg.refit_every == cfg.refit_every - 1 and not did_refresh
         if did_refresh or do_refit:
-            with record_function("online.refit"):
+            with span("online.refit"):
                 gp = (_refresh_hypers(gp, cfg.min_points_hypers) if did_refresh
                       else _refit_recent(gp))
         mean_fn, var_fn = _mean_var(gp)

@@ -15,7 +15,7 @@ within an episode.
 called on the batch for rollouts and differentiated knot by knot with
 ``torch.func``, so it must use no in-place ops.
 
-Spans (``record_function``): ``lmpc.rollout``, ``lmpc.knn``,
+Spans (``utils.profiler.span``): ``lmpc.rollout``, ``lmpc.knn``,
 ``lmpc.linearize``, ``lmpc.qp_build``, ``lmpc.ipm``, ``lmpc.admm_solve``.
 """
 
@@ -27,7 +27,6 @@ from functools import lru_cache
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics.linearize import trajectory_jacobians
@@ -38,6 +37,7 @@ from ..ops.qp import (SOLVED, ADMMConfig, IPMConfig, QPData, build_condensed_qp,
 from ..terminal.convex_hull import hull_constraint_rows
 from ..terminal.local_safe_set import KNNResult, default_state_weights, knn_query
 from ..terminal.safe_set import SafeSet
+from ..utils.profiler import span
 
 Tensor = torch.Tensor
 
@@ -227,7 +227,7 @@ def _condensed_segments(config: LMPCConfig, nu: int) -> tuple:
 
 
 def _block_qp(P_base, q_base, A_base, l_base, u_base, A_hull, l_hull, u_hull,
-              q_shift, span, config: LMPCConfig, nb: int) -> QPData:
+              q_shift, q_span, config: LMPCConfig, nb: int) -> QPData:
     """The QP over z = [base; λ; s]: the base cost, the λ ridge and the slack
     penalty (both span-relative), the base rows and then the hull rows."""
     Bsz, K, n_x = q_shift.shape[0], config.n_terminal_vertices, config.n_x
@@ -237,8 +237,8 @@ def _block_qp(P_base, q_base, A_base, l_base, u_base, A_hull, l_hull, u_hull,
     P[:, :nb, :nb] = P_base
     eye_k = torch.eye(K, dtype=dt, device=dev)
     eye_x = torch.eye(n_x, dtype=dt, device=dev)
-    P[:, nb:nb + K, nb:nb + K] = (config.lambda_reg * span)[:, None, None] * eye_k
-    P[:, nb + K:, nb + K:] = (config.slack_weight * span)[:, None, None] * eye_x
+    P[:, nb:nb + K, nb:nb + K] = (config.lambda_reg * q_span)[:, None, None] * eye_k
+    P[:, nb + K:, nb + K:] = (config.slack_weight * q_span)[:, None, None] * eye_x
     q = torch.cat([q_base, q_shift, torch.zeros(Bsz, n_x, dtype=dt, device=dev)], dim=1)
     m_base = A_base.shape[-2]
     A = torch.zeros(Bsz, m_base + A_hull.shape[1], n, dtype=dt, device=dev)
@@ -269,18 +269,18 @@ def _lmpc_qp(step_fn, config: LMPCConfig, safe_set: SafeSet, state: LMPCState,
 
     # re-anchor: forward-simulate the warm-start controls from the measured
     # state so the linearization trajectory is dynamically consistent
-    with record_function("lmpc.rollout"):
+    with span("lmpc.rollout"):
         X_sim = _rollout(step_fn, x0, state.U_lin)
 
     fuel_avail = x0[:, 0] - config.m_dry - config.fuel_margin
-    with record_function("lmpc.knn"):
+    with span("lmpc.knn"):
         res = _terminal_vertices(config, safe_set, state, X_sim[:, -1], fuel_avail)
 
-    with record_function("lmpc.linearize"):
+    with span("lmpc.linearize"):
         Aks, Bks, cks = trajectory_jacobians(step_fn, X_sim, state.U_lin)
     state = state.replace(X_lin=X_sim)
 
-    with record_function("lmpc.qp_build"):
+    with span("lmpc.qp_build"):
         inf = torch.full_like(res.distances, float("inf"))
         nearest = torch.where(res.valid, res.distances, inf).argmin(-1)
         lam0 = torch.nn.functional.one_hot(nearest, K).to(x0.dtype)
@@ -290,7 +290,7 @@ def _lmpc_qp(step_fn, config: LMPCConfig, safe_set: SafeSet, state: LMPCState,
         q_lam = torch.where(res.valid, res.q_values, zero)
         q_min = torch.where(res.valid, q_lam, inf).amin(-1, keepdim=True)
         q_shift = torch.where(res.valid, q_lam - q_min, zero)
-        span = q_shift.amax(-1).clamp_min(1.0)
+        q_span = q_shift.amax(-1).clamp_min(1.0)
         zQ = torch.zeros(n_x, n_x, dtype=x0.dtype, device=x0.device)
         Gs = ds = None
         if config.condensed:
@@ -306,7 +306,7 @@ def _lmpc_qp(step_fn, config: LMPCConfig, safe_set: SafeSet, state: LMPCState,
             l_hull[:, :n_x] -= ds[:, -1]
             u_hull[:, :n_x] -= ds[:, -1]
             data = _block_qp(base.P, base.q, base.A, base.l, base.u, A_hull, l_hull, u_hull,
-                             q_shift, span, config, nu)
+                             q_shift, q_span, config, nu)
         else:
             P_base, q_base = build_cost(N, config.Q, config.R, zQ, state.x_ref)
             A_base, l_base, u_base = build_constraints(
@@ -314,7 +314,7 @@ def _lmpc_qp(step_fn, config: LMPCConfig, safe_set: SafeSet, state: LMPCState,
             A_hull, l_hull, u_hull, _ = hull_constraint_rows(
                 res.states, res.q_values, res.valid, nz, xN_offset=nz - n_x, soft=True)
             data = _block_qp(P_base, q_base, A_base, l_base, u_base, A_hull, l_hull, u_hull,
-                             q_shift, span, config, nz)
+                             q_shift, q_span, config, nz)
     return _HullQP(data=data, state=state, res=res, lam0=lam0, q_lam=q_lam, Gs=Gs, ds=ds)
 
 
@@ -331,7 +331,7 @@ def lmpc_solve(step_fn: Callable[[Tensor, Tensor], Tensor], config: LMPCConfig,
 
     if config.condensed and config.solver == "ipm":
         perm = _ipm_row_order(data.m - (n_x + 1 + K), n_x, K, x0.device)
-        with record_function("lmpc.ipm"):
+        with span("lmpc.ipm"):
             sol = solve_ipm(QPData(P=data.P, q=data.q, A=data.A[:, perm], l=data.l[:, perm],
                                    u=data.u[:, perm]),
                             IPMConfig(n_eq=n_x + 1, iters=config.ipm_iters))
@@ -351,7 +351,7 @@ def lmpc_solve(step_fn: Callable[[Tensor, Tensor], Tensor], config: LMPCConfig,
         else:
             z0 = torch.cat([join_z(state.X_lin, state.U_lin), lam0, s0], dim=1)
             admm = config.admm
-        with record_function("lmpc.admm_solve"):
+        with span("lmpc.admm_solve"):
             sol = solve(data, z0, None, admm, rho0=state.rho)
 
     if config.condensed:

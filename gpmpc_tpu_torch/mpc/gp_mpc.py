@@ -32,12 +32,12 @@ from dataclasses import dataclass, field, replace
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics.linearize import trajectory_jacobians
 from ..ops.qp import (SOLVED, IPMConfig, Scaling, build_condensed_qp, build_mpc_qp, extend_qp,
                       join_z, recover_states, solve, solve_ipm, split_z)
+from ..utils.profiler import span
 from .constraints import normal_quantile
 from .rti import (RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows, _sparse_admm_cfg,
                   _stage_rows, init_kkt_carry)
@@ -190,9 +190,10 @@ def gp_mpc_solve(
 
     # re-anchor: forward-simulate the warm-start controls from the measured
     # state so the linearization trajectory is dynamically consistent.
-    # The record_function spans name the cycle's stages in a torch.profiler
-    # trace (gpmpc_tpu_torch/profile_cycle.py reads them).
-    with record_function("gpmpc.rollout"):
+    # The spans (utils.profiler.span) name the cycle's stages in a
+    # torch.profiler trace; portbench/core/trace.py and profile_cycle.py
+    # read them.
+    with span("gpmpc.rollout"):
         if config.augment_rollout and config.rollout_gp_tape:
             # frozen residual tape: one batched GP eval at the incumbent knots
             tape = gp_mean_fn(state.X_lin[:, :-1], state.U_lin)
@@ -211,19 +212,19 @@ def gp_mpc_solve(
     for _ in range(config.scp_iterations):
         # linearize the NOMINAL dynamics; the GP mean enters only the affine
         # defect term c_k
-        with record_function("gpmpc.linearize"):
+        with span("gpmpc.linearize"):
             Aks, Bks, cks_nom = trajectory_jacobians(step_fn, X_lin, U_lin)
-        with record_function("gpmpc.gp_posterior"):
+        with span("gpmpc.gp_posterior"):
             cks = cks_nom + dt * gp_mean_fn(X_lin[:, :-1], U_lin)
             gp_vars = gp_var_fn(X_lin[:, :-1], U_lin)
 
         # uncertainty propagation + tightened per-stage box bounds
-        with record_function("gpmpc.propagate_tighten"):
+        with span("gpmpc.propagate_tighten"):
             Sigmas, (Xlo, Xhi, Ulo, Uhi) = _tightened_bounds(
                 config, Aks, X_lin, U_lin, gp_vars)
 
         if cfg.condensed:
-            with record_function("gpmpc.qp_build"):
+            with span("gpmpc.qp_build"):
                 Gx_r, gx_l_r, gx_u_r = _gx_rows(cfg, X_lin)
                 data, Gs, ds = build_condensed_qp(
                     Aks, Bks, cks, x0, cfg.Q, cfg.R, cfg.Qf, state.x_ref,
@@ -233,22 +234,22 @@ def gp_mpc_solve(
             if cfg.solver == "ipm":
                 # the box QP has no equality rows once x0 is eliminated; the
                 # IPM's f32 duals do not enter the carried ADMM workspace
-                with record_function("gpmpc.ipm"):
+                with span("gpmpc.ipm"):
                     sol = replace(solve_ipm(data, IPMConfig(n_eq=0, iters=cfg.ipm_iters)),
                                   rho=rho, y=y_prev)
             else:
-                with record_function("gpmpc.admm_solve"):
+                with span("gpmpc.admm_solve"):
                     sol = solve(data, U_lin.reshape(Bsz, -1), y_prev, admm_cfg, rho0=rho)
             U_new = sol.x.reshape(Bsz, N, n_u)
             X_new = recover_states(Gs, ds, sol.x, x0)
         else:
-            with record_function("gpmpc.qp_build"):
+            with span("gpmpc.qp_build"):
                 data = build_mpc_qp(Aks, Bks, cks, x0, cfg.Q, cfg.R, cfg.Qf, state.x_ref,
                                     Xlo, Xhi, Ulo, Uhi)
                 if cfg.Gx is not None or cfg.Gu is not None:
                     # facet rows ride along in every SCP subproblem, as in RTI
                     data = extend_qp(data, *_stage_rows(cfg))
-            with record_function("gpmpc.admm_solve"):
+            with span("gpmpc.admm_solve"):
                 if config.warm_kkt:
                     sol = solve(data, join_z(X_lin, U_lin), y_prev, admm_cfg, rho0=rho,
                                 fixed_scaling=Scaling(D=state.scal_D, E=state.scal_E,

@@ -30,7 +30,6 @@ from dataclasses import dataclass, field, fields, replace
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics.linearize import trajectory_jacobians
@@ -51,6 +50,7 @@ from ..ops.qp import (
 )
 from ..ops.qp.admm import _factor, _rho_vec
 from ..ops.qp.ruiz import ruiz_equilibrate
+from ..utils.profiler import span
 
 Tensor = torch.Tensor
 
@@ -230,7 +230,7 @@ def _solve_qp(config, state, Aks, Bks, cks, x_current, z0_XU, y0):
     warm = (dict(fixed_scaling=Scaling(D=state.scal_D, E=state.scal_E, c=state.scal_c),
                  kkt_inv0=state.kkt_inv) if config.warm_kkt else {})
     if config.condensed:
-        with record_function("rti.qp_build"):
+        with span("rti.qp_build"):
             Gx, gx_l, gx_u = _gx_rows(config, state.X_lin)
             data, Gs, ds = build_condensed_qp(
                 Aks, Bks, cks, x_current, config.Q, config.R, config.Qf, state.x_ref,
@@ -244,11 +244,11 @@ def _solve_qp(config, state, Aks, Bks, cks, x_current, z0_XU, y0):
             if config.warm_kkt:
                 raise ValueError("solver='ipm' does not compose with warm_kkt "
                                  "(no KKT inverse to carry)")
-            with record_function("rti.ipm"):
+            with span("rti.ipm"):
                 sol = replace(solve_ipm(data, IPMConfig(n_eq=0, iters=config.ipm_iters)),
                               rho=state.rho, y=y0)
         else:
-            with record_function("rti.admm_solve"):
+            with span("rti.admm_solve"):
                 sol = solve(data, U0.reshape(Bsz, -1), y0, _condensed_admm_cfg(config),
                             rho0=state.rho, **warm)
         return sol, recover_states(Gs, ds, sol.x, x_current), sol.x.reshape(Bsz, N, config.n_u)
@@ -256,9 +256,9 @@ def _solve_qp(config, state, Aks, Bks, cks, x_current, z0_XU, y0):
         raise ValueError(
             "solver='ipm' requires the condensed form (the sparse z=[X;U] "
             "layout interleaves its dynamics equality rows)")
-    with record_function("rti.qp_build"):
+    with span("rti.qp_build"):
         data = _build_rti_qp(config, Aks, Bks, cks, x_current, state.x_ref)
-    with record_function("rti.admm_solve"):
+    with span("rti.admm_solve"):
         sol = solve(data, join_z(X0, U0), y0, _sparse_admm_cfg(config), rho0=state.rho,
                     **warm)
     X_sol, U_sol = split_z(sol.x, N, config.n_x, config.n_u)
@@ -432,7 +432,7 @@ def rti_prepare(step_fn, config: RTIConfig, state: RTIState):
     """Preparation phase: linearize along the current trajectory *before*
     the measurement arrives. Returns the (Aks, Bks, cks) to hand to
     :func:`rti_feedback`."""
-    with record_function("rti.linearize"):
+    with span("rti.linearize"):
         return trajectory_jacobians(step_fn, state.X_lin, state.U_lin)
 
 
@@ -442,7 +442,7 @@ def rti_step(step_fn: Callable[[Tensor, Tensor], Tensor], config: RTIConfig,
     is (B, n_x)."""
     if config.reanchor:
         # re-simulate the linearization trajectory from the measured state
-        with record_function("rti.rollout"):
+        with span("rti.rollout"):
             state = state.replace(X_lin=_rollout(step_fn, x_current, state.U_lin))
     return rti_feedback(config, state, rti_prepare(step_fn, config, state), x_current)
 

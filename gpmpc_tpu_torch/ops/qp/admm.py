@@ -21,9 +21,11 @@ segment kind of the JAX solver ("dense", "diag", "blt", "blockdiag",
 "blockdiag_shared"). At every chunk boundary the termination test and, with
 ``infeas_certs``, OSQP's δx/δy infeasibility certificates run per lane; a
 lane that is solved or certified infeasible is frozen with its status and
-residuals, and the chunk loop stops once every lane is done. ``polish``
-runs the active-set KKT polish on the unscaled exit point, per lane with
-masks instead of per-lane active sets.
+residuals, and the chunk loop stops once every lane is done (the host read
+that tests it is the span ``admm.exit_check``; ``TRACE_RECORDS`` counts the
+lane-iterations spent on frozen lanes). ``polish`` runs the active-set KKT
+polish on the unscaled exit point, per lane with masks instead of per-lane
+active sets.
 
 Successive solves can carry the adapted ρ (``rho0``), the Ruiz scaling
 (``fixed_scaling``) and the KKT inverse (``kkt_inv0``): the inverse is then
@@ -50,8 +52,8 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
+from ...utils.profiler import profiling, span
 from ..kernels import admm_chunk as chunk_kernel
 from ..kernels.admm_chunk import compact_structure, make_A_ops
 from .ruiz import Scaling, ruiz_equilibrate
@@ -62,6 +64,13 @@ _RHO_MAX = 1e6
 _INF = 1e20  # treat |bound| above this as infinite
 
 _KERNEL_MODES = ("on", "auto", "lanes", "lanes_interpret")
+
+# One record a solve while a torch.profiler runs, and none otherwise: the
+# lanes B, the chunks run, the check interval, the f32 tail's iterations and
+# the per-lane iteration count (the solution's ``iterations``, held by
+# reference: no device op, no sync). Over a window, the lane-iterations on
+# live lanes are Σ iterations, those launched Σ B·(chunks·interval + tail).
+TRACE_RECORDS: list = []
 
 
 @dataclass(frozen=True)
@@ -328,7 +337,7 @@ def solve(
     else:  # the kernel modes apply A inside the chunk: no streamed operator is built
         A_apply, AT_apply = (None, None) if use_kernel else make_A_ops(ops_f32, n)
         A_fact = A
-    with record_function("admm.factor"):
+    with span("admm.factor"):
         if kkt_inv0 is not None:
             L = _ns_refresh(P, A_fact, rho_v, cfg.sigma, kkt_inv0, iters=cfg.ns_iters)
         else:
@@ -420,16 +429,21 @@ def solve(
     r_dual = torch.zeros(B, dtype=dtype, device=dev)
 
     n_adapt = min(cfg.rho_adapt_chunks, n_chunks) if cfg.adaptive_rho else 0
+    chunks = 0
     for k in range(n_chunks):
         allow_refactor = k < n_adapt
         # early exit: stop at the first chunk boundary where every lane is
         # done (frozen lanes are identity updates, so the output is the same
         # as the fixed schedule). The first chunk needs no host sync.
-        if cfg.early_exit and not allow_refactor and k > 0 and bool(done.all()):
-            break
+        if cfg.early_exit and not allow_refactor and k > 0:
+            with span("admm.exit_check"):
+                all_done = bool(done.all())
+            if all_done:
+                break
         x_prev, y_prev = x, y
-        with record_function("admm.chunk"):
+        with span("admm.chunk"):
             x_n, z_n, y_n = run_chunk(x, z, y, rho_v, L)
+        chunks += 1
         # freeze converged / infeasible lanes
         keep = ~done
         x = torch.where(keep[:, None], x_n, x)
@@ -437,7 +451,7 @@ def solve(
         y = torch.where(keep[:, None], y_n, y)
         it = it + torch.where(keep, cfg.check_interval, 0).to(torch.int32)
 
-        with record_function("admm.residuals"):
+        with span("admm.residuals"):
             rp, rd, prim_norm, dual_norm = residuals(x, z, y)
             converged = (rp <= cfg.eps_abs + cfg.eps_rel * prim_norm) & (
                 rd <= cfg.eps_abs + cfg.eps_rel * dual_norm)
@@ -456,18 +470,24 @@ def solve(
         done = done | converged
 
         if cfg.adaptive_rho and allow_refactor:
-            ratio = torch.sqrt(
-                (rp / prim_norm.clamp_min(1e-10))
-                / (rd / dual_norm.clamp_min(1e-10)).clamp_min(1e-10)
-            )
-            rho_new = (rho * ratio.clamp(0.1, 10.0)).clamp(_RHO_MIN, _RHO_MAX)
-            upd = (~done) & ((ratio > 5.0) | (ratio < 0.2))
-            rho = torch.where(upd, rho_new, rho)
-            rho_v_new = _rho_vec(l, u, rho)
-            rho_v = torch.where(upd[:, None], rho_v_new, rho_v)
-            L = torch.where(upd[:, None, None], _factor(P, A_fact, rho_v_new, cfg.sigma), L)
+            with span("admm.rho_update"):
+                ratio = torch.sqrt(
+                    (rp / prim_norm.clamp_min(1e-10))
+                    / (rd / dual_norm.clamp_min(1e-10)).clamp_min(1e-10)
+                )
+                rho_new = (rho * ratio.clamp(0.1, 10.0)).clamp(_RHO_MIN, _RHO_MAX)
+                upd = (~done) & ((ratio > 5.0) | (ratio < 0.2))
+                rho = torch.where(upd, rho_new, rho)
+                rho_v_new = _rho_vec(l, u, rho)
+                rho_v = torch.where(upd[:, None], rho_v_new, rho_v)
+                L = torch.where(upd[:, None, None], _factor(P, A_fact, rho_v_new, cfg.sigma),
+                                L)
 
-    if bf16 and cfg.tail_f32_iters > 0 and not bool(done.all()):
+    tail = 0
+    if bf16 and cfg.tail_f32_iters > 0:
+        with span("admm.exit_check"):
+            tail = 0 if bool(done.all()) else cfg.tail_f32_iters
+    if tail:
         # the f32 tail: re-converge toward the f32 fixed point from the bf16
         # iterate with the f32 operands and their own factorization from the
         # true A; lanes already done stay frozen. A batch that is all done
@@ -485,6 +505,9 @@ def solve(
         tail_ok = (rp <= cfg.eps_abs + cfg.eps_rel * prim_norm) & (
             rd <= cfg.eps_abs + cfg.eps_rel * dual_norm)
         status = torch.where(keep & tail_ok, torch.full_like(status, SOLVED), status)
+    if profiling():
+        TRACE_RECORDS.append({"lanes": B, "chunks": chunks, "interval": cfg.check_interval,
+                              "tail": tail, "iterations": it})
 
     # unscale
     x_u = D * x
@@ -492,7 +515,7 @@ def solve(
     z_u = Einv * z
 
     if cfg.polish:
-        with record_function("admm.polish"):
+        with span("admm.polish"):
             x_u, y_u, z_u, r_prim, r_dual, status = _accept_polish(
                 data, cfg, x_u, y_u, z_u, r_prim, r_dual, status)
     obj = 0.5 * (x_u * _mv(data.P, x_u)).sum(-1) + (data.q * x_u).sum(-1)

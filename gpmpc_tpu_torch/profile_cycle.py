@@ -54,7 +54,8 @@ warms it up and reports:
   ``online.refit`` on the online paths, ``fleet.cycle`` on the fleet
   paths, ``lmpc.*`` on the LMPC paths, ``safety.check``, ``safety.grad``,
   ``safety.qp`` and ``safety.select`` inside the filter on the safety path) its host time, and for the
-  whole window the device's busy share (sum of kernel times over wall time),
+  whole window the device's busy share (the union of the device ops'
+  intervals over wall time, so that ops overlapping on streams count once),
   the kernel launches per cycle and the kernels that take the most device
   time.
 
@@ -74,7 +75,7 @@ from dataclasses import replace
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from .learning import explore_gp_3dof, run_batched_learning
 from .learning.batched_learner import _gated_fns, _tune_lane, fleet_cycle, fleet_reference
@@ -92,8 +93,8 @@ from .mpc import (RTIConfig, gp_mpc_init, gp_mpc_solve, make_rti_controller, rti
                   rti_init, rti_step)
 from .reference import cubic_descent_reference, pad_reference
 from .terminal import knn_bucket, trim
+from .utils.profiler import SPAN_PREFIXES, span
 
-SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.", "fleet.", "lmpc.", "safety.")
 PATHS = {"main": BATCH, "rti": BATCH, "rti_warm": BATCH, "rti_cholesky": BATCH,
          "pretrain": 4, "calibration": BATCH,
          "sixdof": BATCH, "pretrain6dof": 4, "online": BATCH,
@@ -233,7 +234,7 @@ def _fleet_cycle(model: str, batch: int, dev):
     def cycle(state, xs):
         k = min(step[0], fp.config.max_steps - 1)  # past the episode, hold its last window
         step[0] += 1
-        with record_function("fleet.cycle"):
+        with span("fleet.cycle"):
             _, state, xs = fleet(state, xs, k)
             return state, xs
 
@@ -270,6 +271,16 @@ def _lmpc_cycle(model: str, batch: int, dev):
     return cycle, lmpc_init(lp.config, xs, lp.x_target), xs
 
 
+def _union_us(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
 def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
     """Warm up 5 cycles, time ``cycles`` with CUDA events, then profile
     ``prof_cycles``."""
@@ -298,8 +309,7 @@ def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
     # ranges (the first to the last device op issued inside them); every
     # other device event is a kernel or a copy
     spans = {}
-    busy_us = 0.0
-    n_ops = 0
+    intervals = []
     per_op = {}
     for evt in prof.events():
         dur = float(evt.time_range.elapsed_us())
@@ -310,11 +320,12 @@ def run(path: str, batch: int, cycles: int, prof_cycles: int) -> dict:
             key = "device_range_ms_per_cycle" if on_device else "host_ms_per_cycle"
             sp[key] += dur / 1e3 / prof_cycles
         elif on_device:
-            busy_us += dur
-            n_ops += 1
+            intervals.append((float(evt.time_range.start), float(evt.time_range.end)))
             k = per_op.setdefault(evt.name, [0, 0.0])
             k[0] += 1
             k[1] += dur
+    busy_us = _union_us(intervals)
+    n_ops = len(intervals)
     top = [{"name": name[:120], "launches_per_cycle": count / prof_cycles,
             "device_ms_per_cycle": us / 1e3 / prof_cycles}
            for name, (count, us) in sorted(per_op.items(), key=lambda kv: -kv[1][1])[:15]]

@@ -10,6 +10,10 @@ linearization point, and solves every lane's QP in one batched ADMM call
 when the solve is SOLVED or its primal residual is below
 ``accept_pri_tol``. Free final time is an outer sweep over candidate time
 steps, batched with the initial states on the lane axis.
+
+Spans (``utils.profiler.span``): ``scvx.rollout``, ``scvx.linearize``,
+``scvx.qp_build``, ``scvx.solve`` (the ``admm.*`` spans inside),
+``scvx.accept``, ``scvx.select``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from ..dynamics.linearize import trajectory_jacobians
 from ..mpc.rti import _sparse_admm_cfg
 from ..ops.qp import ADMMConfig, QPData, SOLVED, join_z, solve, split_z
 from ..ops.qp.mpc_qp import build_constraints, build_stage_rows
+from ..utils.profiler import span
 
 Tensor = torch.Tensor
 
@@ -126,29 +131,33 @@ def scvx_qp(step_fn_dt: Callable, config: SCVXConfig, x0: Tensor, x_target: Tens
     B, dev = x0.shape[0], x0.device
     xT, dt = _lanes(x0, x_target, dt)
     nz = (N + 1) * n_x + N * n_u
-    X_lin = _rollout(step_fn_dt, x0, U, dt)
-    Aks, Bks, cks = trajectory_jacobians(step_fn_dt, X_lin, U, dt[:, None])
-    tr_x, tr_u = config.trust_x * tr_scale, config.trust_u * tr_scale
-    Xlo = torch.maximum(config.x_min, X_lin - tr_x)
-    Xhi = torch.minimum(config.x_max, X_lin + tr_x)
-    Ulo = torch.maximum(config.u_min, U - tr_u)
-    Uhi = torch.minimum(config.u_max, U + tr_u)
-    A, l, u = build_constraints(Aks, Bks, cks, x0, Xlo, Xhi, Ulo, Uhi)
-    if config.Gx is not None or config.Gu is not None:
-        A_ext, l_ext, u_ext = build_stage_rows(N, n_x, n_u, config.Gx, config.gx_l,
-                                               config.gx_u, config.Gu, config.gu_l, config.gu_u)
-        A = torch.cat([A, A_ext.expand(B, *A_ext.shape)], dim=1)
-        l = torch.cat([l, l_ext.expand(B, -1)], dim=1)
-        u = torch.cat([u, u_ext.expand(B, -1)], dim=1)
-    P, Q_track, Qf_term = _cost(config, B, dev)
-    alphas = torch.linspace(0.0, 1.0, N + 1, device=dev)[None, :, None]
-    X_ref = (1 - alphas) * x0[:, None] + alphas * xT[:, None]
-    qx = -(X_ref[:, :-1] @ Q_track.T) - config.w_prox * X_lin[:, :-1]
-    qu = -config.w_prox * U
-    qN = -(xT @ Qf_term.T) - config.w_prox * X_lin[:, -1]
-    q = torch.cat([torch.cat([qx, qu], dim=2).reshape(B, -1), qN], dim=1)
-    fuel = torch.zeros(nz, device=dev)
-    fuel[nz - n_x] = config.w_fuel  # the linear true-fuel term on m_N
+    with span("scvx.rollout"):
+        X_lin = _rollout(step_fn_dt, x0, U, dt)
+    with span("scvx.linearize"):
+        Aks, Bks, cks = trajectory_jacobians(step_fn_dt, X_lin, U, dt[:, None])
+    with span("scvx.qp_build"):
+        tr_x, tr_u = config.trust_x * tr_scale, config.trust_u * tr_scale
+        Xlo = torch.maximum(config.x_min, X_lin - tr_x)
+        Xhi = torch.minimum(config.x_max, X_lin + tr_x)
+        Ulo = torch.maximum(config.u_min, U - tr_u)
+        Uhi = torch.minimum(config.u_max, U + tr_u)
+        A, l, u = build_constraints(Aks, Bks, cks, x0, Xlo, Xhi, Ulo, Uhi)
+        if config.Gx is not None or config.Gu is not None:
+            A_ext, l_ext, u_ext = build_stage_rows(N, n_x, n_u, config.Gx, config.gx_l,
+                                                   config.gx_u, config.Gu, config.gu_l,
+                                                   config.gu_u)
+            A = torch.cat([A, A_ext.expand(B, *A_ext.shape)], dim=1)
+            l = torch.cat([l, l_ext.expand(B, -1)], dim=1)
+            u = torch.cat([u, u_ext.expand(B, -1)], dim=1)
+        P, Q_track, Qf_term = _cost(config, B, dev)
+        alphas = torch.linspace(0.0, 1.0, N + 1, device=dev)[None, :, None]
+        X_ref = (1 - alphas) * x0[:, None] + alphas * xT[:, None]
+        qx = -(X_ref[:, :-1] @ Q_track.T) - config.w_prox * X_lin[:, :-1]
+        qu = -config.w_prox * U
+        qN = -(xT @ Qf_term.T) - config.w_prox * X_lin[:, -1]
+        q = torch.cat([torch.cat([qx, qu], dim=2).reshape(B, -1), qN], dim=1)
+        fuel = torch.zeros(nz, device=dev)
+        fuel[nz - n_x] = config.w_fuel  # the linear true-fuel term on m_N
     return QPData(P=P, q=q - fuel, A=A, l=l, u=u), X_lin
 
 
@@ -178,13 +187,16 @@ def scvx_solve(step_fn_dt: Callable, config: SCVXConfig, x0: Tensor, x_target: T
     ok = torch.zeros(B, dtype=torch.bool, device=dev)
     for _ in range(config.iterations):
         data, X_lin = scvx_qp(step_fn_dt, config, x0, xT, dt, U, tr_scale)
-        sol = solve(data, join_z(X_lin, U), None, _sparse_admm_cfg(config), rho0=rho)
-        ok = (sol.status == SOLVED) | (sol.pri_res < config.accept_pri_tol)
-        _, U_new = split_z(sol.x, N, n_x, n_u)
-        U = torch.where(ok[:, None, None], U_new, U)
+        with span("scvx.solve"):
+            sol = solve(data, join_z(X_lin, U), None, _sparse_admm_cfg(config), rho0=rho)
+        with span("scvx.accept"):
+            ok = (sol.status == SOLVED) | (sol.pri_res < config.accept_pri_tol)
+            _, U_new = split_z(sol.x, N, n_x, n_u)
+            U = torch.where(ok[:, None, None], U_new, U)
         rho = sol.rho
         tr_scale *= config.trust_shrink
-    X = _rollout(step_fn_dt, x0, U, dt)
+    with span("scvx.rollout"):
+        X = _rollout(step_fn_dt, x0, U, dt)
     defect = (X[:, -1, 1:] - xT[:, 1:]).abs().amax(dim=1)
     out = SCVXSolution(X=X, U=U, converged=ok & (defect < 1.0), fuel_used=x0[:, 0] - X[:, -1, 0],
                        defect=defect, dt=dt)
@@ -204,11 +216,12 @@ def scvx_free_time(step_fn_dt: Callable, config: SCVXConfig, x0: Tensor, x_targe
     dts = dt_candidates.to(x0).repeat(B)
     sols = scvx_solve(step_fn_dt, config, x0.repeat_interleave(C, dim=0),
                       xT.repeat_interleave(C, dim=0), dts)
-    conv = sols.converged.reshape(B, C)
-    score = torch.where(conv, sols.fuel_used.reshape(B, C), torch.inf)
-    score = torch.where(conv.any(dim=1, keepdim=True), score, sols.defect.reshape(B, C))
-    pick = torch.arange(B, device=x0.device) * C + score.argmin(dim=1)
-    out = SCVXSolution(*(t[pick] for t in sols))
+    with span("scvx.select"):
+        conv = sols.converged.reshape(B, C)
+        score = torch.where(conv, sols.fuel_used.reshape(B, C), torch.inf)
+        score = torch.where(conv.any(dim=1, keepdim=True), score, sols.defect.reshape(B, C))
+        pick = torch.arange(B, device=x0.device) * C + score.argmin(dim=1)
+        out = SCVXSolution(*(t[pick] for t in sols))
     return SCVXSolution(*(t[0] for t in out)) if single else out
 
 

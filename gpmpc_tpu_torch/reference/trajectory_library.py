@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..utils.profiler import span
 
 Tensor = torch.Tensor
 
@@ -123,21 +124,25 @@ class TrajectoryLibrary:
         w = torch.ones_like(x0) if weights is None else weights
         return (((self.X[:, 0, :] - x0[..., None, :]) ** 2) * w[..., None, :]).sum(-1)
 
+    def _nearest(self, d2: Tensor) -> Tensor:
+        return torch.where(self.active, d2, torch.inf).argmin(dim=-1)
+
     def nearest(self, x0: Tensor, weights: Optional[Tensor] = None) -> Tensor:
         """Index of the active trajectory whose initial state is nearest x0
         ((n_x,) or a batch (B, n_x))."""
-        d2 = self._d2(x0, weights)
-        return torch.where(self.active, d2, torch.inf).argmin(dim=-1)
+        with span("scvx.library_query"):
+            return self._nearest(self._d2(x0, weights))
 
     def best_within_radius(self, x0: Tensor, radius, by: str = "cost",
                            weights: Optional[Tensor] = None) -> Tensor:
         """Lowest-cost (or -fuel) active trajectory whose initial state lies
         within ``radius`` of x0; the nearest one where none does."""
-        d2 = self._d2(x0, weights)
-        inside = self.active & (d2 <= torch.as_tensor(radius).to(d2)[..., None] ** 2)
-        metric = self.cost if by == "cost" else self.fuel
-        idx = torch.where(inside, metric, torch.inf).argmin(dim=-1)
-        return torch.where(inside.any(dim=-1), idx, self.nearest(x0, weights))
+        with span("scvx.library_query"):
+            d2 = self._d2(x0, weights)
+            inside = self.active & (d2 <= torch.as_tensor(radius).to(d2)[..., None] ** 2)
+            metric = self.cost if by == "cost" else self.fuel
+            idx = torch.where(inside, metric, torch.inf).argmin(dim=-1)
+            return torch.where(inside.any(dim=-1), idx, self._nearest(d2))
 
     def get_statistics(self) -> dict:
         af = self.active.to(torch.float32)

@@ -28,11 +28,11 @@ from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from .._device import DeviceLike, resolve_device
 from ..ops.qp import SOLVED, ADMMConfig, QPData
 from ..ops.qp import solve as qp_solve
+from ..utils.profiler import span
 
 Tensor = torch.Tensor
 
@@ -158,7 +158,7 @@ def filter_control(step_fn: Callable, backup, invariant, config: SafetyFilterCon
     x = x.detach()
     u_nominal = u_nominal.detach()
     target = _target(config, invariant)
-    with record_function("safety.check"):
+    with span("safety.check"):
         # the check's rollout is the first SCP iteration's linearization
         # point: one forward serves both
         with torch.enable_grad():
@@ -169,19 +169,19 @@ def filter_control(step_fn: Callable, backup, invariant, config: SafetyFilterCon
     u_lin = u_nominal
     qp_ok = torch.ones_like(safe)
     for it in range(config.scp_iterations):
-        with record_function("safety.grad"):
+        with span("safety.grad"):
             if it == 0:
                 (g,) = torch.autograd.grad(V_nom.sum(), u_req)
                 V0 = V0_nom
             else:
                 V0, g = _value_and_grad(step_fn, backup, invariant, N, x, u_lin)
-        with record_function("safety.qp"):
+        with span("safety.qp"):
             data = _intervention_qp(config, u_nominal, u_lin, V0, g, target)
             z0 = torch.cat([u_lin, torch.zeros_like(u_lin[:, :1])], dim=1)
             sol = qp_solve(data, z0, None, admm)
             qp_ok = sol.status == SOLVED
             u_lin = torch.where(qp_ok[:, None], sol.x[:, :n_u], u_lin)
-    with record_function("safety.select"):
+    with span("safety.select"):
         u_filtered = torch.where(qp_ok[:, None], u_lin, backup.control(x))
         u_out = torch.where(safe[:, None], u_nominal, u_filtered)
     return SafetyFilterResult(u=u_out, intervened=~safe, safe=safe, lyapunov_value=V0_nom,

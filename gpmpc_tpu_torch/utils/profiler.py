@@ -10,6 +10,14 @@ every timed section synchronizes the devices of the tensors handed to it
 (``torch.cuda.synchronize`` for a CUDA tensor; nothing for a CPU one), and
 :func:`trace` wraps a region in ``torch.profiler`` for kernel-level
 inspection.
+
+The program names its layers in such a trace with :func:`span`: a
+``record_function`` range while a ``torch.profiler`` runs (host range and
+device-side annotation on the profiler's one clock with the kernels), and a
+shared no-op context otherwise, which costs the flag check of
+:func:`profiling`. Every span name starts with one of ``SPAN_PREFIXES``;
+``portbench/core/trace.py`` and ``profile_cycle.py`` tell spans from device
+ops by them.
 """
 
 from __future__ import annotations
@@ -23,6 +31,22 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+# the prefixes of the program's span names: on the device a span is a range
+# over the ops issued inside it, not an op
+SPAN_PREFIXES = ("gpmpc.", "rti.", "admm.", "online.", "fleet.", "lmpc.", "safety.", "scvx.",
+                 "campaign.")
+
+_NO_SPAN = contextlib.nullcontext()
+
+profiling = torch.autograd._profiler_enabled  # whether a torch.profiler is running
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a ``torch.profiler`` runs,
+    else a shared no-op context."""
+    return record_function(name) if profiling() else _NO_SPAN
 
 
 def _leaves(tree):

@@ -1,0 +1,218 @@
+"""The port's spans and window records on the CPU: the span helper and its
+cost-free path, the span names against the benchmark's prefixes, the ADMM
+window records against a hand count, the campaign's and the SCVX layer's
+spans in a CPU trace, and the benchmark's new readers on the cells'
+rehearsal traces."""
+
+import ast
+import json
+import math
+import sys
+import time
+from pathlib import Path
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from gpmpc_tpu_torch.utils import profiler as prof_mod
+from gpmpc_tpu_torch.utils.profiler import SPAN_PREFIXES, span
+
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "gpmpc_tpu_torch"
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+# the per-layer metrics that read the spans and records checked here
+NEW_METRICS = ("span_ms.scvx_build", "span_ms.scvx_build.plan", "admm_live_share.scvx",
+               "admm_live_share.plan", "host_syncs.cycle", "host_syncs.scvx", "host_syncs.plan",
+               "device_ops.rollout_linearize", "span_ms.campaign_self")
+
+
+def _host_events(p):
+    return [(e.name, e.time_range.start, e.time_range.end) for e in p.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+
+
+def test_span_is_a_named_range_under_the_profiler_and_free_without(monkeypatch):
+    made = []
+
+    def counted(name):
+        made.append(name)
+        return torch.profiler.record_function(name)
+
+    monkeypatch.setattr(prof_mod, "record_function", counted)
+    assert not prof_mod.profiling()
+    with span("scvx.off") as s:
+        torch.ones(2) + 1
+    assert made == [] and s is None and span("admm.off") is span("campaign.off")
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        assert prof_mod.profiling()
+        with span("scvx.on"):
+            with span("admm.inner"):
+                torch.ones(2) + 1
+    assert made == ["scvx.on", "admm.inner"]
+    ev = {n: (s, e) for n, s, e in _host_events(p) if n in ("scvx.on", "admm.inner")}
+    assert ev["scvx.on"][0] <= ev["admm.inner"][0] <= ev["admm.inner"][1] <= ev["scvx.on"][1]
+    with span("admm.chunk"):  # off again: no range
+        pass
+    assert made == ["scvx.on", "admm.inner"]
+
+
+def _span_literals():
+    """(file, call name, first argument) of every ``span``/``record_function``
+    call in the package whose first argument is a string."""
+    for path in sorted(PACKAGE.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, ast.Call) or not node.args:
+                continue
+            f = node.func
+            name = f.id if isinstance(f, ast.Name) else getattr(f, "attr", None)
+            arg = node.args[0]
+            if name in ("span", "record_function") and isinstance(arg, ast.Constant) \
+                    and isinstance(arg.value, str):
+                yield path.relative_to(ROOT), name, arg.value
+
+
+def test_span_names_carry_the_benchmark_prefixes():
+    from portbench.core.trace import SPAN_PREFIXES as BENCH_PREFIXES
+
+    assert SPAN_PREFIXES == BENCH_PREFIXES
+    found = list(_span_literals())
+    names = {n for _, _, n in found}
+    assert {"scvx.rollout", "scvx.linearize", "scvx.qp_build", "scvx.solve", "scvx.accept",
+            "scvx.select", "scvx.library_query", "campaign.step", "campaign.plant",
+            "campaign.outcome", "campaign.exit_check", "admm.exit_check",
+            "admm.rho_update", "gpmpc.rollout", "admm.chunk"} <= names
+    for where, call, name in found:
+        assert call == "span", (where, name)  # one mechanism: the helper
+        assert name.startswith(SPAN_PREFIXES), (where, name)
+    # a module that calls the helper binds no other ``span``: a local of that
+    # name would shadow it in its function
+    for path in {ROOT / where for where, _, _ in found}:
+        tree = ast.parse(path.read_text())
+        bound = [n for n in ast.walk(tree)
+                 if isinstance(n, ast.Name) and n.id == "span" and isinstance(n.ctx, ast.Store)
+                 or isinstance(n, ast.arg) and n.arg == "span"]
+        assert not bound, path
+
+
+def _qp_batch():
+    """Six small strictly convex QPs of different conditioning: their lanes
+    converge at different chunk boundaries."""
+    from gpmpc_tpu_torch.ops.qp import QPData
+
+    g = torch.Generator().manual_seed(0)
+    B, n, m = 6, 5, 8
+    M = torch.randn(B, n, n, generator=g)
+    w = torch.linspace(1, 50, n)
+    P = (M @ M.transpose(1, 2) + 0.1 * torch.eye(n)) * w[:, None] * w[None, :]
+    P = P / torch.tensor([1, 3, 10, 30, 100, 300.0])[:, None, None]
+    return QPData(P=P, q=torch.randn(B, n, generator=g), A=torch.randn(B, m, n, generator=g),
+                  l=-torch.rand(B, m, generator=g) - 0.1, u=torch.rand(B, m, generator=g) + 0.1)
+
+
+@pytest.mark.parametrize("case", ["chunks", "f32_tail"])
+def test_trace_records_count_live_and_launched_lane_iterations(monkeypatch, case):
+    from gpmpc_tpu_torch.ops.qp import ADMMConfig, admm, solve
+
+    monkeypatch.setattr(admm, "TRACE_RECORDS", [])
+    data = _qp_batch()
+    if case == "chunks":
+        cfg = ADMMConfig(max_iter=500, check_interval=10, eps_abs=1e-5, eps_rel=1e-5)
+    else:  # a budget too short for some lanes: the f32 tail runs on them
+        cfg = ADMMConfig(max_iter=80, check_interval=10, eps_abs=1e-2, eps_rel=1e-2,
+                         matvec_dtype="bf16", use_pallas="off", tail_f32_iters=20)
+    sol = solve(data, config=cfg)
+    assert admm.TRACE_RECORDS == []  # nothing without a profiler
+    with profile(activities=[ProfilerActivity.CPU]):
+        sol = solve(data, config=cfg)
+    it = sol.iterations
+    assert len(set(it.tolist())) > 1  # lanes stopped at different boundaries
+    (rec,) = admm.TRACE_RECORDS
+    if case == "chunks":
+        # every lane is done at the last boundary, past the ρ-adaptation chunks
+        chunks, tail = max(int(it.max()) // 10, cfg.rho_adapt_chunks), 0
+        assert int(it.max()) < cfg.max_iter
+    else:
+        chunks, tail = 8, 20
+        assert int(it.min()) < 80 < int(it.max())
+    assert (rec["lanes"], rec["chunks"], rec["interval"], rec["tail"]) == (6, chunks, 10, tail)
+    live, launched = int(rec["iterations"].sum()), 6 * (chunks * 10 + tail)
+    assert live == int(it.sum()) < launched
+
+
+def test_campaign_step_spans_once_a_step():
+    from gpmpc_tpu_torch.experiments import LandingCriteria, SimulationConfig, run_episode
+
+    B, steps = 3, 5
+    x0 = torch.tensor([[2.0, 30.0, 0.0, 0.0, -1.0, 0.0, 0.0]]).repeat(B, 1)
+
+    def cstep(cs, x, k):
+        with span("gpmpc.rollout"):
+            return torch.zeros(B, 3), cs
+
+    plant = lambda x, u: x + torch.tensor([0.0, -0.1, 0, 0, 0, 0, 0])  # noqa: E731
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        res = run_episode(lambda x: torch.zeros(B), cstep, plant, x0,
+                          SimulationConfig(max_steps=steps), LandingCriteria(),
+                          store_trajectories=False)
+    assert res["steps"].tolist() == [steps] * B
+    ev = _host_events(p)
+    count = {n: sum(1 for e in ev if e[0] == n) for n in (
+        "campaign.step", "campaign.exit_check", "campaign.plant", "campaign.outcome")}
+    assert count == dict.fromkeys(count, steps)
+    steps_iv = [e for e in ev if e[0] == "campaign.step"]
+    for name in ("campaign.exit_check", "campaign.plant", "campaign.outcome", "gpmpc.rollout"):
+        for _, s, e in (x for x in ev if x[0] == name):
+            assert any(a <= s and e <= b for _, a, b in steps_iv), name
+
+
+def test_scvx_spans_nest_the_solver_inside_the_solve():
+    from gpmpc_tpu_torch.main_path import scvx_library_path
+    from gpmpc_tpu_torch.reference import scvx_free_time
+
+    lp = scvx_library_path("cpu")
+    cfg = lp.config.replace(N=6, iterations=2, admm=lp.config.admm.replace(max_iter=50))
+    x0 = torch.tensor([[2.0, 12.0, 0.5, -0.5, -2.0, 0.1, 0.0]])
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        sol = scvx_free_time(lp.step_dt, cfg, x0, lp.x_target, torch.tensor([0.3, 0.35]))
+    assert torch.isfinite(sol.U).all()
+    ev = _host_events(p)
+    by = {}
+    for name, s, e in ev:
+        by.setdefault(name, []).append((s, e))
+    for name in ("scvx.rollout", "scvx.linearize", "scvx.qp_build", "scvx.accept"):
+        assert len(by[name]) >= 2, name
+    assert len(by["scvx.solve"]) == 2 and len(by["scvx.select"]) == 1
+    admm_spans = [(n, s, e) for n, s, e in ev if n.startswith("admm.")]
+    assert {"admm.factor", "admm.chunk", "admm.residuals", "admm.rho_update"} <= {
+        n for n, _, _ in admm_spans}
+    for name, s, e in admm_spans:
+        assert any(a <= s and e <= b for a, b in by["scvx.solve"]), name
+
+
+@pytest.mark.parametrize("workload", ["scvx3dof-plan11", "gpmpc3dof-mc4096"])
+def test_new_readers_on_rehearsal_traces(monkeypatch, workload):
+    """The cell at its rehearsal size, traced on the CPU as ``run.py --trace
+    1`` traces it: each new span metric of the cell reads a finite value,
+    each new device metric nothing (a CPU run has no device trace)."""
+    from gpmpc_tpu_torch.ops.qp import admm
+    from portbench import run as bench
+
+    monkeypatch.setattr(admm, "TRACE_RECORDS", [])
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    _, cell, _, _, _ = bench.drive(workload, 2147483999, 0.1, True, True, torch.device("cpu"),
+                                   time.perf_counter())
+    data = cell.tracer.data
+    mine = [m for m in bench.cell_metrics(spec, "per_layer", workload)
+            if m["name"] in NEW_METRICS]
+    assert {m["source"] for m in mine} == {"program_span", "device_trace"}
+    for m in mine:
+        value = bench.reader(m["name"])(data)
+        if m["source"] == "device_trace":
+            assert value is None, m["name"]
+        else:
+            assert value is not None and math.isfinite(value) and value > 0, m["name"]
