@@ -25,10 +25,15 @@ entry points a user calls, and checks the hand-written kernel on the way:
    suite_rti*, scvx) run with their rows declared as the paths declare them
    (the dynamics rows "blt", the bounds "diag": the kernel reads the blocks'
    kept columns alone) and again with every row dense under a "_dense"
-   suffix, as the paths launched them before;
+   suffix, as the paths launched them before; then the fused rollout and
+   linearization kernel (``phase_rollout_kernel``) against its plain
+   version at 512 and 4,096 lanes of 20 knots, with and without drag and
+   the GP tape, with its registers and spills, and its time beside its
+   bound and the plain version;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
-   steps with the launch counters reset just before and read just after,
-   and hold one cycle on the card against the same cycle on the CPU;
+   steps with the launch counters reset just before and read just after
+   (one chunk and one rollout_linearize launch a cycle), and hold one
+   cycle on the card against the same cycle on the CPU;
 5. a closed-loop landing of the fleet under the dispersed plant, judged by
    the landing demo's pass criteria;
 6. the RTI path: the GP-free RTI cycle on the nominal plant, timed and
@@ -188,6 +193,12 @@ ONLINE_SAFETY_EPISODES = 3
 # card vs CPU on the filter: u within 1e-3 or twice the CPU's own spread
 # under one-ulp changes of the state (the witness rule)
 SAFETY_U_ATOL, SAFETY_WITNESS_X = 1e-3, 2.0
+# the port's CUDA sources (gpmpc_tpu_torch/csrc), built together
+KERNELS = ("admm_chunk", "rollout_linearize")
+# the fused rollout kernel against a float64 run of its plain version: within
+# twice the float32 plain version's own distance from that run (the witness
+# rule), or 1e-6 of the output's scale where float32 lands closer still
+ROLLOUT_WITNESS_X, ROLLOUT_FLOOR = 2.0, 1e-6
 # the TPU kernels this path's kernel replaces (gpmpc_tpu/ops/pallas)
 REPLACES = ("gpmpc_tpu/ops/pallas/admm_kernel.py:29 (_chunk_kernel via admm_chunk:75), "
             "gpmpc_tpu/ops/pallas/admm_kernel.py:137 (_lanes_kernel via make_admm_chunk_lanes:227)")
@@ -228,11 +239,12 @@ def phase_build():
     from gpmpc_tpu_torch.ops.kernels import _build
 
     t0 = time.time()
-    _build.build(["admm_chunk"])  # one nvcc per source, started together
-    log(f"[build] admm_chunk built in {time.time() - t0:.1f} s")
-    for line in _build.build_log("admm_chunk").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[build]   {line.strip()}")
+    _build.build(KERNELS)  # one nvcc per source, started together
+    log(f"[build] {', '.join(KERNELS)} built in {time.time() - t0:.1f} s")
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build]   {line.strip()}")
 
 
 def phase_kernels():
@@ -406,6 +418,76 @@ def phase_kernels():
     return timings
 
 
+def _rollout_inputs(B, N, dev, seed=0):
+    """States spread about the main path's (30 ± 5 m, −3 m/s, lateral and
+    mass offsets), controls about hover, a tape of the GP's lifted size
+    (tests/test_torch_cuda.py's)."""
+    rng = np.random.default_rng(seed)
+    x0 = np.array([2, 30, 0, 0, -3, 0, 0]) + rng.normal(size=(B, 7)) * [0.2, 5, 1, 1, 0.5, 0.3, 0.3]
+    U = np.array([2, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
+    tape = 0.1 * rng.normal(size=(B, N, 7))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return t(x0), t(U), t(tape)
+
+
+def phase_rollout_kernel(dev=torch.device("cuda")):
+    """The fused rollout and linearization kernel against its plain version
+    (the eager route it replaces) at the GP-MPC cells' widths, 512 and 4,096
+    lanes of N = 20 knots, with and without drag and the tape; at the main
+    path's (the nominal step, the tape) timed beside its bound and the
+    plain version. Returns the timings."""
+    from gpmpc_tpu_torch.chunk_bench import cuda_ms, graph_ms, host_us, ptxas_report
+    from gpmpc_tpu_torch.dynamics import Rocket3DoFParams, Rocket3DoFStep
+    from gpmpc_tpu_torch.ops.kernels import _build
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
+
+    regs, spill_st, spill_ld = ptxas_report(_build.build_log(RL.KERNEL), "rollout_linearize_kernel")
+    log(f"[rollout] rollout_linearize_kernel: {RL.threads()} threads a block (32 lanes), "
+        f"{regs} registers, spill stores {spill_st} B, loads {spill_ld} B")
+    timings = []
+    for lanes in (BATCH, 4096):
+        x0, U, T = _rollout_inputs(lanes, N, dev)
+        for drag, use_tape in ((False, True), (True, True), (False, False), (True, False)):
+            kw = dict(rho=1.0, C_D=1.0, A_ref=0.1) if drag else {}
+            step = Rocket3DoFStep(Rocket3DoFParams(device=dev, **kw), DT)
+            tape = T if use_tape else None
+            got = RL.rollout_linearize(step, x0, U, tape)
+            f32 = RL.rollout_linearize_plain(step, x0, U, tape)
+            f64 = RL.rollout_linearize_plain(step, x0.double(), U.double(),
+                                             None if tape is None else tape.double())
+            torch.cuda.synchronize()
+            what = f"B={lanes} N={N} {'drag' if drag else 'nominal'} {'tape' if use_tape else 'no tape'}"
+            parts = []
+            for name, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
+                witness = (p.double() - r).abs().max().item()
+                lim = max(ROLLOUT_WITNESS_X * witness,
+                          ROLLOUT_FLOOR * max(1.0, r.abs().max().item()))
+                err = (k.double() - r).abs().max().item()
+                vs_plain = (k - p).abs().max().item()
+                parts.append(f"{name} {err:.3e} (plain f32 {witness:.3e}, limit {lim:.3e}, "
+                             f"kernel vs plain {vs_plain:.3e})")
+                if not bool(torch.isfinite(k).all()) or err > lim:
+                    raise RuntimeError(f"rollout_linearize disagrees with its plain version "
+                                       f"({what}): {parts[-1]}")
+            log(f"[rollout] {what}: from the float64 run: " + "; ".join(parts))
+            if drag or not use_tape:
+                continue
+            launch = lambda: RL.rollout_linearize(step, x0, U, tape)
+            ms, ms2 = graph_ms(launch, 20), graph_ms(launch, 20)
+            eager_ms, wrap_us = cuda_ms(launch, 50), host_us(launch, 200)
+            plain_ms = cuda_ms(lambda: RL.rollout_linearize_plain(step, x0, U, tape), 3)
+            bnd, by, nbytes, flops = RL.bound_ms(lanes, N)
+            timings.append(dict(lanes=lanes, N=N, ms=ms, ms_repeat=ms2, eager_ms=eager_ms,
+                                wrapper_us=wrap_us, plain_ms=plain_ms, bound_ms=bnd,
+                                bound_by=by, registers=regs, threads=RL.threads()))
+            log(f"[rollout] B={lanes} N={N} main path's step and tape: kernel {ms:.4f} ms "
+                f"(repeat {ms2:.4f}; CUDA graph of 20 launches), eager back-to-back calls "
+                f"{eager_ms:.4f} ms, wrapper host time {wrap_us:.1f} us a call, plain "
+                f"{plain_ms:.4f} ms, bound {bnd:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e6:.1f} MFLOP), share of bound {bnd / ms:.3f}")
+    return timings
+
+
 def _to(obj, dev, dtype=None):
     """Copy a (nested) dataclass of tensors to ``dev``, its floating-point
     tensors cast to ``dtype`` if given."""
@@ -454,11 +536,13 @@ def _time_cycles(cycle, state, xs, cycles, dev, what):
     just after. Returns (sol, state, xs, ms per cycle from CUDA events, ms
     per cycle on the host clock, launches)."""
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
 
     for _ in range(5):  # warm-up: allocator, cuBLAS/cuSOLVER handles, kernel load
         sol, state, xs = cycle(state, xs)
     torch.cuda.synchronize(dev)
     K.LAUNCHES = 0  # counts from here on are this path's
+    RL.LAUNCHES = 0
     K.LAUNCHES_BY_SHAPE.clear()
     K.LAUNCHES_BY_ROWS.clear()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -481,6 +565,7 @@ def phase_main_path(dev=torch.device("cuda")):
     from gpmpc_tpu_torch.learning import explore_gp_3dof
     from gpmpc_tpu_torch.main_path import fleet_x0, gp_fns, main_path
     from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
 
     mp = main_path(dev)
     cfg = mp.config
@@ -502,14 +587,18 @@ def phase_main_path(dev=torch.device("cuda")):
     cycles = 20
     sol, state, xs, dev_ms, host_ms, launches = _time_cycles(
         cycle, state, xs, cycles, dev, "the main path")
+    roll_launches = RL.LAUNCHES
     chunks = cfg.scp_iterations * (cfg.base.admm.max_iter // cfg.base.admm.check_interval)
     if launches != cycles * chunks:
         raise RuntimeError(f"admm_chunk launched {launches} times in {cycles} cycles, "
                            f"expected {cycles * chunks}")
+    if roll_launches != cycles:
+        raise RuntimeError(f"rollout_linearize launched {roll_launches} times in {cycles} "
+                           f"cycles, expected {cycles}")
     log(f"[main] {cycles} cycles x {BATCH} lanes: {dev_ms:.3f} ms/cycle (CUDA events), "
         f"{host_ms:.3f} ms/cycle (host clock), {BATCH * 1000.0 / host_ms:.1f} solves/s; "
-        f"admm_chunk launches {launches} ({chunks}/cycle); "
-        f"accepted {float(sol.success.float().mean()):.4f}")
+        f"admm_chunk launches {launches} ({chunks}/cycle), rollout_linearize launches "
+        f"{roll_launches} (1/cycle); accepted {float(sol.success.float().mean()):.4f}")
 
     # the same cycle on the CPU from the same state: the plain path as reference
     lanes = 8
@@ -525,8 +614,8 @@ def phase_main_path(dev=torch.device("cuda")):
         f"max|dX_opt|={dX:.3e} (atol 1e-3)")
     if du > 1e-3 or dX > 1e-3:
         raise RuntimeError("the card's cycle disagrees with the CPU reference")
-    return dict(launches=launches, ms_per_cycle=dev_ms, host_ms_per_cycle=host_ms,
-                solves_per_s=BATCH * 1000.0 / host_ms), (mean_fn, var_fn)
+    return dict(launches=launches, rollout_launches=roll_launches, ms_per_cycle=dev_ms,
+                host_ms_per_cycle=host_ms, solves_per_s=BATCH * 1000.0 / host_ms), (mean_fn, var_fn)
 
 
 def _judge(tag, xs, landed, steps, seconds):
@@ -2337,6 +2426,7 @@ def main():
     log(f"[build] kernel libraries in {enable_compilation_cache()}")
     _phase(phase_build)
     timings = _phase(phase_kernels)
+    roll_t = _phase(phase_rollout_kernel)
     main_res, fns = _phase(phase_main_path)
     land = _phase(phase_landing, fns)
     rti_res = _phase(phase_rti)
@@ -2451,6 +2541,13 @@ def main():
                                        "wrapper_us", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")}
                    for t in timings],
+    }, {
+        "name": "rollout_linearize",
+        "route": "cuda",
+        "source": "gpmpc_tpu_torch/csrc/rollout_linearize.cu",
+        "replaces": "none: the JAX package leaves the rollout and its jacfwd to XLA",
+        "launches": main_res["rollout_launches"],
+        "shapes": roll_t,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

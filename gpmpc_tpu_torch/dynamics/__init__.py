@@ -23,6 +23,7 @@ from .linearize import (
     ad_jacobians,
     discretize_jacobians,
     numerical_jacobians,
+    residual_rollout,
     trajectory_jacobians,
     verify_jacobians,
 )
@@ -31,6 +32,7 @@ from .rocket3dof import (
     Rocket3DoFConfig,
     Rocket3DoFDynamics,
     Rocket3DoFParams,
+    Rocket3DoFStep,
     create_rocket_3dof,
 )
 from .rocket6dof import (
@@ -45,11 +47,12 @@ from .rocket6dof import (
 
 __all__ = [
     "AffineModel", "Rocket3DoF", "Rocket3DoFConfig", "Rocket3DoFDynamics", "Rocket3DoFParams",
-    "Rocket6DoF", "Rocket6DoFConfig", "Rocket6DoFDynamics", "Rocket6DoFParams", "STEP_FNS",
-    "ad_jacobians", "create_rocket_3dof", "create_szmuk_rocket", "dcm_from_quaternion",
-    "discretize_jacobians", "euler_step", "get_step_fn", "heun_step", "hermite_simpson_defect",
-    "integrate_sensitivity", "integrate_trajectory", "midpoint_step", "numerical_jacobians",
-    "quaternion_derivative", "quaternion_euler_step", "quaternion_exponential_step",
-    "quaternion_multiply", "rk4_step", "rocket3dof", "rocket6dof", "tilt_angle",
-    "trajectory_jacobians", "trapezoidal_defect", "verify_jacobians",
+    "Rocket3DoFStep", "Rocket6DoF", "Rocket6DoFConfig", "Rocket6DoFDynamics",
+    "Rocket6DoFParams", "STEP_FNS", "ad_jacobians", "create_rocket_3dof", "create_szmuk_rocket",
+    "dcm_from_quaternion", "discretize_jacobians", "euler_step", "get_step_fn", "heun_step",
+    "hermite_simpson_defect", "integrate_sensitivity", "integrate_trajectory", "midpoint_step",
+    "numerical_jacobians", "quaternion_derivative", "quaternion_euler_step",
+    "quaternion_exponential_step", "quaternion_multiply", "residual_rollout", "rk4_step",
+    "rocket3dof", "rocket6dof", "tilt_angle", "trajectory_jacobians", "trapezoidal_defect",
+    "verify_jacobians",
 ]

@@ -1,7 +1,8 @@
 """Linearization utilities (counterpart of ``gpmpc_tpu/dynamics/linearize.py``):
 forward-mode and finite-difference Jacobians, their verification, affine
-models, the discretization of continuous Jacobians, and the batched affine
-models along trajectories that the RTI/SCP solvers use.
+models, the discretization of continuous Jacobians, the residual-augmented
+rollout, and the batched affine models along trajectories that the RTI/SCP
+solvers use.
 
 Every function takes points with any leading batch dimensions: ``x`` (…,
 n_x), ``u`` (…, n_u). ``f`` takes unbatched vectors and uses no in-place ops
@@ -124,6 +125,18 @@ def discretize_jacobians(A_c: torch.Tensor, B_c: torch.Tensor, dt: float,
         E = torch.linalg.matrix_exp(M * dt)
         return E[..., :n, :n], E[..., :n, n:]
     raise ValueError(f"unknown method {method!r}")
+
+
+def residual_rollout(F: Callable, x0: torch.Tensor, U: torch.Tensor, dt: float,
+                     residual_fn: Callable) -> torch.Tensor:
+    """Forward simulate x⁺ = F(x, u) + dt·residual_fn(k, x, u) from x0 (B,
+    n_x) under U (B, N, n_u): the states (B, N+1, n_x)."""
+    xs = [x0]
+    x = x0
+    for k in range(U.shape[1]):
+        x = F(x, U[:, k]) + dt * residual_fn(k, x, U[:, k])
+        xs.append(x)
+    return torch.stack(xs, dim=1)
 
 
 def trajectory_jacobians(F: Callable, X: torch.Tensor, U: torch.Tensor, *lane_args

@@ -112,6 +112,20 @@ def step(params: Rocket3DoFParams, x, u, dt=None) -> torch.Tensor:
     return get_step_fn(params.integrator)(partial(f, params), x, u, dt)
 
 
+@dataclass(frozen=True)
+class Rocket3DoFStep:
+    """The discrete step ``F(x, u) = step(params, x, u, dt)`` as a value.
+    Callers and ``torch.func`` see the same function as through a lambda;
+    ``mpc/gp_mpc.py`` reads from it that the fused rollout kernel
+    (``ops/kernels/rollout_linearize.py``) computes the same thing."""
+
+    params: Rocket3DoFParams
+    dt: float
+
+    def __call__(self, x, u) -> torch.Tensor:
+        return step(self.params, x, u, self.dt)
+
+
 def hover_thrust(params: Rocket3DoFParams, x) -> torch.Tensor:
     """Thrust that exactly cancels gravity at the current mass."""
     return -x[..., 0:1] * params.g_I

@@ -124,8 +124,8 @@ def main_path(device: DeviceLike = "cuda") -> MainPath:
     xT[0] = 2.0
     return MainPath(
         params=p,
-        F=lambda x, u: r3.step(p, x, u, DT),
-        F_true=lambda x, u: r3.step(p_true, x, u, DT),
+        F=r3.Rocket3DoFStep(p, DT),
+        F_true=r3.Rocket3DoFStep(p_true, DT),
         config=cfg,
         x_target=xT,
     )

@@ -34,7 +34,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from .._device import DeviceLike, as_f32, resolve_device
-from ..dynamics.linearize import trajectory_jacobians
+from ..dynamics.linearize import residual_rollout, trajectory_jacobians
+from ..dynamics.rocket3dof import Rocket3DoFStep
+from ..ops.kernels.rollout_linearize import rollout_linearize
 from ..ops.qp import (SOLVED, IPMConfig, Scaling, build_condensed_qp, build_mpc_qp, extend_qp,
                       join_z, recover_states, solve, solve_ipm, split_z)
 from ..utils.profiler import span
@@ -114,14 +116,16 @@ def _check_supported(config: GPMPCConfig) -> None:
         raise ValueError("stage_rows_fn (linearized state rows) requires condensed=True")
 
 
-def _rollout(step_fn, x0, U, dt, residual_fn):
-    """Forward simulate x⁺ = F(x,u) + dt·residual_fn(k, x, u)."""
-    xs = [x0]
-    x = x0
-    for k in range(U.shape[1]):
-        x = step_fn(x, U[:, k]) + dt * residual_fn(k, x, U[:, k])
-        xs.append(x)
-    return torch.stack(xs, dim=1)
+def fused_rollout(step_fn, config: GPMPCConfig, x0: Tensor) -> bool:
+    """Whether the rollout and the first linearization go to
+    ``rollout_linearize`` (one kernel launch on the card): where it computes
+    what the eager route computes, the 3-DoF rocket's RK4 step
+    (:class:`Rocket3DoFStep`) in float32 under the frozen GP tape or a zero
+    residual. A lambda step, the GP inside the rollout loop, another
+    integrator or dtype keep the eager route."""
+    return (isinstance(step_fn, Rocket3DoFStep) and step_fn.params.integrator == "rk4"
+            and (config.rollout_gp_tape or not config.augment_rollout)
+            and x0.dtype == torch.float32)
 
 
 def _tightened_bounds(config: GPMPCConfig, Aks, X_lin, U_lin, gp_vars):
@@ -193,15 +197,25 @@ def gp_mpc_solve(
     # The spans (utils.profiler.span) name the cycle's stages in a
     # torch.profiler trace; portbench/core/trace.py and profile_cycle.py
     # read them.
+    # The fused route also linearizes the rollout for the first SCP
+    # iteration (lin), inside this span.
+    lin = None
     with span("gpmpc.rollout"):
-        if config.augment_rollout and config.rollout_gp_tape:
+        if fused_rollout(step_fn, config, x0):
+            tape = (gp_mean_fn(state.X_lin[:, :-1], state.U_lin).contiguous()
+                    if config.augment_rollout else None)
+            X_sim, *lin = rollout_linearize(step_fn, x0.contiguous(), state.U_lin.contiguous(),
+                                            tape, dt=dt)
+        elif config.augment_rollout and config.rollout_gp_tape:
             # frozen residual tape: one batched GP eval at the incumbent knots
             tape = gp_mean_fn(state.X_lin[:, :-1], state.U_lin)
-            X_sim = _rollout(step_fn, x0, state.U_lin, dt, lambda k, x, u: tape[:, k])
+            X_sim = residual_rollout(step_fn, x0, state.U_lin, dt, lambda k, x, u: tape[:, k])
         elif config.augment_rollout:
-            X_sim = _rollout(step_fn, x0, state.U_lin, dt, lambda k, x, u: gp_mean_fn(x, u))
+            X_sim = residual_rollout(step_fn, x0, state.U_lin, dt,
+                                     lambda k, x, u: gp_mean_fn(x, u))
         else:
-            X_sim = _rollout(step_fn, x0, state.U_lin, dt, lambda k, x, u: torch.zeros_like(x))
+            X_sim = residual_rollout(step_fn, x0, state.U_lin, dt,
+                                     lambda k, x, u: torch.zeros_like(x))
 
     admm_cfg = _condensed_admm_cfg(cfg) if cfg.condensed else _sparse_admm_cfg(cfg)
     X_lin, U_lin = X_sim, state.U_lin
@@ -209,11 +223,14 @@ def gp_mpc_solve(
     done = torch.zeros(Bsz, dtype=torch.bool, device=x0.device)
     any_ok = torch.zeros_like(done)
     Sigmas = None
-    for _ in range(config.scp_iterations):
+    for it in range(config.scp_iterations):
         # linearize the NOMINAL dynamics; the GP mean enters only the affine
         # defect term c_k
         with span("gpmpc.linearize"):
-            Aks, Bks, cks_nom = trajectory_jacobians(step_fn, X_lin, U_lin)
+            if it == 0 and lin is not None:
+                Aks, Bks, cks_nom = lin
+            else:
+                Aks, Bks, cks_nom = trajectory_jacobians(step_fn, X_lin, U_lin)
         with span("gpmpc.gp_posterior"):
             cks = cks_nom + dt * gp_mean_fn(X_lin[:, :-1], U_lin)
             gp_vars = gp_var_fn(X_lin[:, :-1], U_lin)
@@ -338,7 +355,7 @@ def gp_mpc_init(
         if step_fn is None:
             raise ValueError("warm_kkt requires gp_mpc_init(..., step_fn=...)")
         mean = gp_mean_fn or (lambda x, u: torch.zeros_like(x))
-        X_fact = _rollout(step_fn, x0, U_lin, cfg.dt, lambda k, x, u: mean(x, u))
+        X_fact = residual_rollout(step_fn, x0, U_lin, cfg.dt, lambda k, x, u: mean(x, u))
         Aks, Bks, cks = trajectory_jacobians(step_fn, X_fact, U_lin)
         data = build_mpc_qp(Aks, Bks, cks, x0, cfg.Q, cfg.R, cfg.Qf, x_ref,
                             cfg.x_min, cfg.x_max, cfg.u_min, cfg.u_max)
@@ -399,5 +416,5 @@ class SimpleGPPredictor:
 
     def rollout(self, x0: Tensor, U: Tensor) -> Tensor:
         """x0 (B, n_x), U (B, T, n_u) → X (B, T+1, n_x)."""
-        return _rollout(self.step_fn, x0, U, self.dt,
-                        lambda k, x, u: self.gp_mean_fn(x, u))
+        return residual_rollout(self.step_fn, x0, U, self.dt,
+                                lambda k, x, u: self.gp_mean_fn(x, u))

@@ -1,14 +1,16 @@
-"""The CUDA chunk kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (the ADMM chunk, the fused rollout and linearization)
+against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: without a Hopper device every test skips. The module
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -q
 
-Tolerances are tests/test_pallas.py's (atol 3e-4 on x and z, 2e-3 on y),
-taken around a float64 run of the plain version and widened by how far the
-float32 plain version itself lands from it: on ρ-boosted equality rows f32
-reordering noise alone moves the duals by up to 3.3e-3 after 50 iterations.
+The chunk's tolerances are tests/test_pallas.py's (atol 3e-4 on x and z,
+2e-3 on y), taken around a float64 run of the plain version and widened by
+how far the float32 plain version itself lands from it: on ρ-boosted
+equality rows f32 reordering noise alone moves the duals by up to 3.3e-3
+after 50 iterations.
 That widening is held to at most ten times the tolerance.
 """
 
@@ -784,3 +786,99 @@ def test_sparse_form_with_its_rows_declared(cuda_device, kind, lanes, iters):
     v = K.variant(n, m, n, B, blt=blt[1:])
     assert v == ("shared" if kind in ("suite_rti", "fleet3dof") else "cluster")
     _assert_matches_plain(args, segs, iters, scaled=True)
+
+
+# The fused rollout and linearization kernel (csrc/rollout_linearize.cu).
+# Each output is held around a float64 run of the plain version: within
+# twice the float32 plain version's own distance from that run (the witness
+# rule), or 1e-6 of the output's scale where float32 lands closer still.
+ROLLOUT_WITNESS_X, ROLLOUT_FLOOR = 2.0, 1e-6
+
+
+def _rollout_inputs(B, N, dev, seed=0):
+    """States spread about the main path's (30 ± 5 m, −3 m/s, lateral and
+    mass offsets), controls about hover, a tape of the GP's lifted size."""
+    rng = np.random.default_rng(seed)
+    x0 = np.array([2, 30, 0, 0, -3, 0, 0]) + rng.normal(size=(B, 7)) * [0.2, 5, 1, 1, 0.5, 0.3, 0.3]
+    U = np.array([2, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
+    tape = 0.1 * rng.normal(size=(B, N, 7))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return t(x0), t(U), t(tape)
+
+
+def _assert_rollout_matches_plain(step, x0, U, tape):
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
+
+    got = RL.rollout_linearize(step, x0, U, tape)
+    f32 = RL.rollout_linearize_plain(step, x0, U, tape)
+    f64 = RL.rollout_linearize_plain(step, x0.double(), U.double(),
+                                     None if tape is None else tape.double())
+    torch.cuda.synchronize()
+    for name, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
+        assert k.shape == p.shape and bool(torch.isfinite(k).all()), name
+        witness = (p.double() - r).abs().max().item()
+        lim = max(ROLLOUT_WITNESS_X * witness, ROLLOUT_FLOOR * max(1.0, r.abs().max().item()))
+        err = (k.double() - r).abs().max().item()
+        assert err <= lim, (f"{name}: kernel {err:.3e} from the float64 run, plain f32 "
+                            f"{witness:.3e}, limit {lim:.3e}; kernel vs plain "
+                            f"{(k - p).abs().max().item():.3e}")
+
+
+@pytest.mark.parametrize("tape", [True, False], ids=["tape", "zero-residual"])
+@pytest.mark.parametrize("drag", [False, True], ids=["nominal", "drag"])
+@pytest.mark.parametrize("B", [512, 4096])
+def test_rollout_linearize_kernel_matches_plain(cuda_device, B, drag, tape):
+    from gpmpc_tpu_torch.dynamics import Rocket3DoFParams, Rocket3DoFStep
+
+    kw = dict(rho=1.0, C_D=1.0, A_ref=0.1) if drag else {}
+    step = Rocket3DoFStep(Rocket3DoFParams(device=cuda_device, **kw), 0.1)
+    x0, U, T = _rollout_inputs(B, 20, cuda_device)
+    _assert_rollout_matches_plain(step, x0, U, T if tape else None)
+
+
+@pytest.mark.parametrize("B", [1, 33])
+def test_rollout_linearize_kernel_on_a_ragged_block(cuda_device, B):
+    """Lane counts that leave a block's 32 lanes partly empty, at N = 3."""
+    from gpmpc_tpu_torch.dynamics import Rocket3DoFParams, Rocket3DoFStep
+
+    step = Rocket3DoFStep(Rocket3DoFParams(device=cuda_device, rho=1.0, C_D=1.0, A_ref=0.1), 0.1)
+    x0, U, T = _rollout_inputs(B, 3, cuda_device, seed=1)
+    _assert_rollout_matches_plain(step, x0, U, T)
+
+
+def _stand_in_gp():
+    """A smooth stand-in for the GP (no fit needed): a small state-dependent
+    mean on the velocity rows, constant variances."""
+    def mean(X, U):
+        out = torch.zeros_like(X)
+        out[..., 4:7] = 0.05 * torch.tanh(0.1 * X[..., 4:7] + 0.01 * U)
+        return out
+
+    return mean, lambda X, U: torch.full((*X.shape[:-1], 3), 1e-3, device=X.device)
+
+
+def test_main_path_launches_the_rollout_kernel_once_a_cycle(cuda_device):
+    """main_path()'s cycle at 512 lanes: one rollout_linearize launch a
+    cycle, and u0 and X_opt within the main path's card-vs-CPU 1e-3 of the
+    eager route (a lambda of the same step) from the same state."""
+    from gpmpc_tpu_torch.dynamics import rocket3dof as r3
+    from gpmpc_tpu_torch.main_path import fleet_x0, main_path
+    from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
+
+    mp = main_path(cuda_device)
+    mean, var = _stand_in_gp()
+    xs = fleet_x0(512, cuda_device)
+    state = gp_mpc_init(mp.config, xs, mp.x_target, device=cuda_device)
+    eager = lambda x, u: r3.step(mp.params, x, u, 0.1)
+    for cycle in range(3):
+        before = RL.LAUNCHES
+        sol, new_state = gp_mpc_solve(mp.F, mean, var, mp.config, state, xs)
+        assert RL.LAUNCHES == before + 1
+        ref, _ = gp_mpc_solve(eager, mean, var, mp.config, state, xs)
+        assert RL.LAUNCHES == before + 1  # the lambda takes the eager route
+        torch.cuda.synchronize()
+        du = (sol.u0 - ref.u0).abs().max().item()
+        dX = (sol.X_opt - ref.X_opt).abs().max().item()
+        assert du <= 1e-3 and dX <= 1e-3, f"cycle {cycle}: max|du0| {du:.3e}, max|dX| {dX:.3e}"
+        state, xs = new_state, mp.F_true(xs, sol.u0)
