@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..utils.profiler import span
 from .features import (
     RotationalFeatureExtractor,
     Simple3DoFFeatureExtractor,
@@ -392,12 +393,21 @@ class StructuredRocketGP(_Persistent):
         return replace(self, trans_gp=_refit(self.trans_gp, self.trans_buffer),
                        rot_gp=_refit(self.rot_gp, self.rot_buffer))
 
+    def _posterior(self, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, var) in the sub-GPs' own precision. The spans name each
+        sub-GP's features and posterior in a profiler trace."""
+        with span("gpmpc.gp_trans"):
+            mt, vt = _predict(self.trans_gp, self.trans_extractor.extract(x, u))
+        with span("gpmpc.gp_rot"):
+            mr, vr = _predict(self.rot_gp, self.rot_extractor.extract(x, u))
+        return torch.cat([mt, mr], dim=-1), torch.cat([vt, vr], dim=-1)
+
     def predict(self, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, var), each (..., 6) = [d_v, d_ω], at states/controls with any
-        leading dims (the first the lane axis of a GP per lane)."""
-        mt, vt = _predict(self.trans_gp, self.trans_extractor.extract(x, u))
-        mr, vr = _predict(self.rot_gp, self.rot_extractor.extract(x, u))
-        return torch.cat([mt, mr], dim=-1), torch.cat([vt, vr], dim=-1)
+        leading dims (the first the lane axis of a GP per lane), in the
+        states' dtype; sub-GPs held in float64 compute in float64."""
+        mean, var = self._posterior(x, u)
+        return mean.to(x.dtype), var.to(x.dtype)
 
     predict_batch = predict
 
@@ -409,7 +419,8 @@ class StructuredRocketGP(_Persistent):
     def predict_gated(self, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
         """Variance-gated mean: scaled by w = clip(1 − σ²/σ²_prior, 0, 1) per
         output, so the correction fades to zero where the GP has no data."""
-        return _gate(*self.predict(x, u), self.prior_variance())
+        mean, var = _gate(*self._posterior(x, u), self.prior_variance())
+        return mean.to(x.dtype), var.to(x.dtype)
 
     def is_novel(self, x, u) -> torch.Tensor:
         """(...) bool: some output's posterior variance exceeds

@@ -54,6 +54,13 @@ def _tune_multi(gp_state: MultiOutputSparseGPState, tune_steps: int
     return refit_sparse_multi(kernels, g.Z, g.X, g.Y, g.mask, log_noise, g.method)
 
 
+def _refit_float64(g: MultiOutputSparseGPState) -> MultiOutputSparseGPState:
+    """The sparse GP with its data, hyperparameters and factors in float64."""
+    d = lambda t: t.double()
+    return refit_sparse_multi(g.kernels.map_params(d), d(g.Z), d(g.X), d(g.Y), g.mask,
+                              d(g.log_noise), g.method)
+
+
 def _on_policy_episodes(controller_init, controller_step, plant_step, clamp_fn,
                         x0s: torch.Tensor, episode_len: int, excitation: float,
                         noise: torch.Tensor
@@ -277,4 +284,9 @@ def pretrain_gp_6dof(
     if tune_steps > 0:
         gp = replace(gp, trans_gp=_tune_multi(gp.trans_gp, tune_steps),
                      rot_gp=_tune_multi(gp.rot_gp, tune_steps))
+    # the tuned K_uu is near singular (noise at its floor, lengthscales at
+    # their cap: condition 1e8-1e12), and float32 factors moved the posterior
+    # variance by up to O(1) of σ² on the card: the factors and the posterior
+    # are float64, the GP's answers the query's dtype (StructuredRocketGP)
+    gp = replace(gp, trans_gp=_refit_float64(gp.trans_gp), rot_gp=_refit_float64(gp.rot_gp))
     return (gp, *gp_fns(gp, gated))

@@ -216,3 +216,96 @@ def test_new_readers_on_rehearsal_traces(monkeypatch, workload):
             assert value is None, m["name"]
         else:
             assert value is not None and math.isfinite(value) and value > 0, m["name"]
+
+
+def _structured_gp_cycle(lanes=2):
+    """One 6-DoF GP-MPC cycle (Path D's configuration) with a small fitted
+    StructuredRocketGP, under the profiler: its host events."""
+    from gpmpc_tpu_torch.gp import StructuredGPConfig, StructuredRocketGP
+    from gpmpc_tpu_torch.learning import gp_fns
+    from gpmpc_tpu_torch.main_path import sixdof_path
+    from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
+
+    g = torch.Generator().manual_seed(3)
+    sp = sixdof_path("cpu")
+    x = sp.x_target.repeat(32, 1)
+    x[:, 1] = 5.0 + 15.0 * torch.rand(32, generator=g)
+    x[:, 4:7] = torch.tensor([-3.0, 0.1, -0.1]) + 0.3 * torch.randn(32, 3, generator=g)
+    u = torch.tensor([2.0, 0.0, 0.0]) + 0.1 * torch.randn(32, 3, generator=g)
+    gp = StructuredRocketGP.create(StructuredGPConfig(max_data_points=32, n_inducing=8),
+                                   device="cpu")
+    gp = gp.add_data_batch(x, u, 0.1 * torch.randn(32, 6, generator=g)).fit(g)
+    mean_fn, var_fn = gp_fns(gp)
+    state = gp_mpc_init(sp.config, x[:lanes], sp.x_target, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        sol, _ = gp_mpc_solve(sp.F, mean_fn, var_fn, sp.config, state, x[:lanes])
+    assert torch.isfinite(sol.u0).all()
+    return _host_events(p)
+
+
+def test_structured_gp_spans_once_per_posterior_evaluation():
+    """A 6-DoF cycle evaluates the structured GP three times: the residual
+    tape (inside gpmpc.rollout), then its mean and its variances (inside
+    gpmpc.gp_posterior); each evaluation opens gpmpc.gp_trans and then
+    gpmpc.gp_rot once, one after the other."""
+    ev = _structured_gp_cycle()
+    by = {}
+    for name, s, e in ev:
+        by.setdefault(name, []).append((s, e))
+    trans, rot = sorted(by["gpmpc.gp_trans"]), sorted(by["gpmpc.gp_rot"])
+    assert len(trans) == len(rot) == 3
+    for (ts, te), (rs, re_) in zip(trans, rot):
+        assert te <= rs  # the translational sub-GP, then the rotational one
+    inside = lambda iv, name: any(a <= iv[0] and iv[1] <= b for a, b in by[name])
+    for iv in trans + rot:
+        assert inside(iv, "gpmpc.gp_posterior") or inside(iv, "gpmpc.rollout")
+    assert sum(inside(iv, "gpmpc.gp_posterior") for iv in trans) == 2
+    assert sum(inside(iv, "gpmpc.gp_posterior") for iv in rot) == 2
+
+
+def test_3dof_cycle_enters_no_structured_gp_span():
+    from gpmpc_tpu_torch.learning import explore_gp_3dof
+    from gpmpc_tpu_torch.main_path import main_path
+    from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
+
+    mp = main_path("cpu")
+    g = torch.Generator().manual_seed(0)
+    _, mean_fn, var_fn = explore_gp_3dof(g, g, mp.params, mp.F_true, n_points=32,
+                                         n_inducing=8, device="cpu")
+    x = torch.tensor([[2.0, 20.0, 0.5, -0.5, -3.0, 0.1, 0.0]] * 2)
+    state = gp_mpc_init(mp.config, x, mp.x_target, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, state, x)
+    names = {n for n, _, _ in _host_events(p)}
+    assert "gpmpc.gp_posterior" in names
+    assert not names & {"gpmpc.gp_trans", "gpmpc.gp_rot"}
+
+
+def test_6dof_cell_readers_on_its_rehearsal_trace(monkeypatch):
+    """The 6-DoF cell at its rehearsal size, traced on the CPU as ``run.py
+    --trace 1`` traces it: the two readers it adds (``span_ms.gp_rot``,
+    ``span_ms.propagate_tighten``) and its other span and host-clock metrics
+    read finite values, its device metrics nothing (a CPU run has no device
+    trace)."""
+    from gpmpc_tpu_torch.ops.qp import admm
+    from portbench import run as bench
+
+    monkeypatch.setattr(admm, "TRACE_RECORDS", [])
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    workload = "gpmpc6dof-rt512"
+    # a cycle takes ~0.15 s here alone and several times that beside the
+    # suite's other workers: the traced cycles 1-2 need three in the window
+    _, cell, outcome, _, _ = bench.drive(workload, 2147483999, 4.0, True, True,
+                                         torch.device("cpu"), time.perf_counter())
+    assert cell.tracer.traced_units == 2
+    data = cell.tracer.data
+    data.host_clock = dict(outcome.e2e)  # as run.py hands the host-clock readers
+    mine = bench.cell_metrics(spec, "per_layer", workload)
+    names = {m["name"] for m in mine}
+    assert {"span_ms.gp_rot.sixdof", "span_ms.propagate_tighten.sixdof"} <= names
+    for m in mine:
+        value = bench.reader(m["name"])(data)
+        if m["source"] == "device_trace":
+            assert value is None, m["name"]
+        else:
+            assert value is not None and math.isfinite(value) and value > 0, m["name"]
