@@ -29,7 +29,9 @@ entry points a user calls, and checks the hand-written kernel on the way:
    linearization kernel (``phase_rollout_kernel``) against its plain
    version at 512 and 4,096 lanes of 20 knots, with and without drag and
    the GP tape, with its registers and spills, and its time beside its
-   bound and the plain version;
+   bound and the plain version; then the 6-DoF one
+   (``phase_rollout_kernel6dof``) at Path D's 512 lanes of 20 knots, with
+   and without aero and the tape, the same way;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
    steps with the launch counters reset just before and read just after
    (one chunk and one rollout_linearize launch a cycle), and hold one
@@ -54,7 +56,7 @@ entry points a user calls, and checks the hand-written kernel on the way:
 9. Path D, the 6-DoF quaternion GP-MPC cycle: ``pretrain_gp_6dof`` on the
    card (six sparse-form 6-DoF RTI episodes, the campaign's count, through
    the cluster variant, two FITC fits, Adam tuning), the 512-lane cycle (the shared variant, one or
-   two launches a cycle) timed, counted and held against the CPU, then the
+   two launches a cycle; one rollout_linearize6dof launch) timed, counted and held against the CPU, then the
    150-step landing campaign through ``run_campaign``, judged by its success
    share;
 10. Path E, the online-learning GP-MPC cycle (a GP per lane, observed every
@@ -194,7 +196,7 @@ ONLINE_SAFETY_EPISODES = 3
 # under one-ulp changes of the state (the witness rule)
 SAFETY_U_ATOL, SAFETY_WITNESS_X = 1e-3, 2.0
 # the port's CUDA sources (gpmpc_tpu_torch/csrc), built together
-KERNELS = ("admm_chunk", "rollout_linearize")
+KERNELS = ("admm_chunk", "rollout_linearize", "rollout_linearize6dof")
 # the fused rollout kernel against a float64 run of its plain version: within
 # twice the float32 plain version's own distance from that run (the witness
 # rule), or 1e-6 of the output's scale where float32 lands closer still
@@ -488,6 +490,94 @@ def phase_rollout_kernel(dev=torch.device("cuda")):
     return timings
 
 
+def _rollout6_inputs(B, N, dev, seed=0):
+    """Descent states about Path D's (15-20 m, −2 m/s, mass and lateral
+    offsets, unit quaternions near upright, small rates), controls about
+    hover, a tape of the two-GP residual's lifted size on every row
+    (tests/test_torch_cuda.py's)."""
+    rng = np.random.default_rng(seed)
+    x0 = np.zeros((B, 14))
+    x0[:, 0] = 1.5 + 0.4 * rng.random(B)
+    x0[:, 1] = 15.0 + 5.0 * rng.random(B)
+    x0[:, 2:4] = rng.normal(size=(B, 2))
+    x0[:, 4:7] = np.array([-2.0, 0.1, 0.0]) + 0.5 * rng.normal(size=(B, 3))
+    q = np.array([1.0, 0, 0, 0]) + 0.2 * rng.normal(size=(B, 4))
+    x0[:, 7:11] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    x0[:, 11:14] = 0.2 * rng.normal(size=(B, 3))
+    U = np.array([2.0, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
+    tape = 0.05 * rng.normal(size=(B, N, 14))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return t(x0), t(U), t(tape)
+
+
+def _step64(step):
+    """The same 6-DoF step with its parameters' tensors in float64."""
+    p = dataclasses.replace(step.params)
+    for name in ("J_B", "J_B_inv", "r_T_B", "r_cp_B", "g_I", "C_A"):
+        object.__setattr__(p, name, getattr(step.params, name).double())
+    return type(step)(p, step.dt)
+
+
+def phase_rollout_kernel6dof(dev=torch.device("cuda")):
+    """The 6-DoF fused rollout and linearization kernel against its plain
+    version (the eager route it replaces) at Path D's width, 512 lanes of
+    N = 20 knots, with and without the plant's aero and the tape; at Path
+    D's own (the nominal step, the tape) timed beside its bound and the
+    plain version. Returns the timings."""
+    from gpmpc_tpu_torch.chunk_bench import cuda_ms, graph_ms, host_us, ptxas_report
+    from gpmpc_tpu_torch.dynamics import Rocket6DoFParams, Rocket6DoFStep
+    from gpmpc_tpu_torch.ops.kernels import _build
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
+
+    regs, spill_st, spill_ld = ptxas_report(_build.build_log(RL6.KERNEL),
+                                            "rollout_linearize6dof_kernel")
+    log(f"[rollout6] rollout_linearize6dof_kernel: {RL6.threads()} threads a block "
+        f"({RL6.lanes_per_block()} lanes), {regs} registers, spill stores {spill_st} B, "
+        f"loads {spill_ld} B")
+    timings = []
+    x0, U, T = _rollout6_inputs(BATCH, N, dev)
+    for aero, use_tape in ((False, True), (True, True), (False, False), (True, False)):
+        kw = dict(rho=0.8, C_A=0.05 * torch.eye(3)) if aero else {}
+        step = Rocket6DoFStep(Rocket6DoFParams(device=dev, **kw), DT)
+        tape = T if use_tape else None
+        got = RL6.rollout_linearize6dof(step, x0, U, tape)
+        f32 = RL6.rollout_linearize6dof_plain(step, x0, U, tape)
+        f64 = RL6.rollout_linearize6dof_plain(_step64(step), x0.double(), U.double(),
+                                              None if tape is None else tape.double())
+        torch.cuda.synchronize()
+        what = (f"B={BATCH} N={N} {'aero' if aero else 'nominal'} "
+                f"{'tape' if use_tape else 'no tape'}")
+        parts = []
+        for name, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
+            witness = (p.double() - r).abs().max().item()
+            lim = max(ROLLOUT_WITNESS_X * witness, ROLLOUT_FLOOR * max(1.0, r.abs().max().item()))
+            err = (k.double() - r).abs().max().item()
+            vs_plain = (k - p).abs().max().item()
+            parts.append(f"{name} {err:.3e} (plain f32 {witness:.3e}, limit {lim:.3e}, "
+                         f"kernel vs plain {vs_plain:.3e})")
+            if not bool(torch.isfinite(k).all()) or err > lim:
+                raise RuntimeError(f"rollout_linearize6dof disagrees with its plain version "
+                                   f"({what}): {parts[-1]}")
+        log(f"[rollout6] {what}: from the float64 run: " + "; ".join(parts))
+        if aero or not use_tape:
+            continue
+        launch = lambda: RL6.rollout_linearize6dof(step, x0, U, tape)
+        ms, ms2 = graph_ms(launch, 20), graph_ms(launch, 20)
+        eager_ms, wrap_us = cuda_ms(launch, 50), host_us(launch, 200)
+        plain_ms = cuda_ms(lambda: RL6.rollout_linearize6dof_plain(step, x0, U, tape), 3)
+        bnd, by, nbytes, flops = RL6.bound_ms(BATCH, N)
+        timings.append(dict(lanes=BATCH, N=N, ms=ms, ms_repeat=ms2, eager_ms=eager_ms,
+                            wrapper_us=wrap_us, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                            registers=regs, spill_stores=spill_st, spill_loads=spill_ld,
+                            threads=RL6.threads(), lanes_per_block=RL6.lanes_per_block()))
+        log(f"[rollout6] B={BATCH} N={N} Path D's step and tape: kernel {ms:.4f} ms "
+            f"(repeat {ms2:.4f}; CUDA graph of 20 launches), eager back-to-back calls "
+            f"{eager_ms:.4f} ms, wrapper host time {wrap_us:.1f} us a call, plain "
+            f"{plain_ms:.4f} ms, bound {bnd:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e6:.1f} MFLOP), share of bound {bnd / ms:.3f}")
+    return timings
+
+
 def _to(obj, dev, dtype=None):
     """Copy a (nested) dataclass of tensors to ``dev``, its floating-point
     tensors cast to ``dtype`` if given."""
@@ -537,12 +627,14 @@ def _time_cycles(cycle, state, xs, cycles, dev, what):
     per cycle on the host clock, launches)."""
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
     from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
 
     for _ in range(5):  # warm-up: allocator, cuBLAS/cuSOLVER handles, kernel load
         sol, state, xs = cycle(state, xs)
     torch.cuda.synchronize(dev)
     K.LAUNCHES = 0  # counts from here on are this path's
     RL.LAUNCHES = 0
+    RL6.LAUNCHES = 0
     K.LAUNCHES_BY_SHAPE.clear()
     K.LAUNCHES_BY_ROWS.clear()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -936,6 +1028,8 @@ def phase_sixdof(dev=torch.device("cuda")):
     from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
     from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg, _n_rows
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
 
     # the GP fit: six 64-step episodes of the sparse-form 6-DoF RTI
     # controller (the campaign's count, run_campaign_tpu.py:301-303; the
@@ -986,9 +1080,15 @@ def phase_sixdof(dev=torch.device("cuda")):
     if not cycles <= launches <= chunks * cycles:  # the second chunk is skipped when all converge
         raise RuntimeError(f"admm_chunk launched {launches} times in {cycles} 6-DoF cycles, "
                            f"expected {cycles} to {chunks * cycles}")
+    roll_launches = RL6.LAUNCHES
+    if roll_launches != cycles or RL.LAUNCHES != 0:
+        raise RuntimeError(f"rollout_linearize6dof launched {roll_launches} times and "
+                           f"rollout_linearize {RL.LAUNCHES} in {cycles} 6-DoF cycles, "
+                           f"expected {cycles} and 0")
     log(f"[sixdof] {cycles} cycles x {BATCH} lanes: {dev_ms:.3f} ms/cycle (CUDA events), "
         f"{host_ms:.3f} ms/cycle (host clock), {BATCH * 1000.0 / host_ms:.1f} solves/s; "
-        f"admm_chunk launches {launches} ({launches / cycles:.2f}/cycle, {cyc_variant} variant); "
+        f"admm_chunk launches {launches} ({launches / cycles:.2f}/cycle, {cyc_variant} variant), "
+        f"rollout_linearize6dof launches {roll_launches}; "
         f"accepted {float(sol.success.float().mean()):.4f}")
 
     lanes = 8
@@ -1039,6 +1139,7 @@ def phase_sixdof(dev=torch.device("cuda")):
         raise RuntimeError(f"the 6-DoF campaign's success share {flight['success_share']:.4f} "
                            f"is under {SIXDOF_SUCCESS} (failing lanes above)")
     return dict(pretrain_s=seconds, pretrain_launches=pre_launches, lml=lml, launches=launches,
+                rollout_launches=roll_launches,
                 ms_per_cycle=dev_ms, host_ms_per_cycle=host_ms,
                 solves_per_s=BATCH * 1000.0 / host_ms, du0=du, flight=flight)
 
@@ -2427,6 +2528,7 @@ def main():
     _phase(phase_build)
     timings = _phase(phase_kernels)
     roll_t = _phase(phase_rollout_kernel)
+    roll6_t = _phase(phase_rollout_kernel6dof)
     main_res, fns = _phase(phase_main_path)
     land = _phase(phase_landing, fns)
     rti_res = _phase(phase_rti)
@@ -2548,6 +2650,13 @@ def main():
         "replaces": "none: the JAX package leaves the rollout and its jacfwd to XLA",
         "launches": main_res["rollout_launches"],
         "shapes": roll_t,
+    }, {
+        "name": "rollout_linearize6dof",
+        "route": "cuda",
+        "source": "gpmpc_tpu_torch/csrc/rollout_linearize6dof.cu",
+        "replaces": "none: the JAX package leaves the rollout and its jacfwd to XLA",
+        "launches": six_res["rollout_launches"],
+        "shapes": roll6_t,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -40,6 +40,7 @@ from .rocket6dof import (
     Rocket6DoFConfig,
     Rocket6DoFDynamics,
     Rocket6DoFParams,
+    Rocket6DoFStep,
     create_szmuk_rocket,
     dcm_from_quaternion,
     tilt_angle,
@@ -48,7 +49,8 @@ from .rocket6dof import (
 __all__ = [
     "AffineModel", "Rocket3DoF", "Rocket3DoFConfig", "Rocket3DoFDynamics", "Rocket3DoFParams",
     "Rocket3DoFStep", "Rocket6DoF", "Rocket6DoFConfig", "Rocket6DoFDynamics",
-    "Rocket6DoFParams", "STEP_FNS", "ad_jacobians", "create_rocket_3dof", "create_szmuk_rocket",
+    "Rocket6DoFParams", "Rocket6DoFStep", "STEP_FNS", "ad_jacobians", "create_rocket_3dof",
+    "create_szmuk_rocket",
     "dcm_from_quaternion", "discretize_jacobians", "euler_step", "get_step_fn", "heun_step",
     "hermite_simpson_defect", "integrate_sensitivity", "integrate_trajectory", "midpoint_step",
     "numerical_jacobians", "quaternion_derivative", "quaternion_euler_step",

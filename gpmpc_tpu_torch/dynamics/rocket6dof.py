@@ -182,6 +182,20 @@ def step(params: Rocket6DoFParams, x, u, dt=None) -> torch.Tensor:
     return normalize_quaternion(get_step_fn(params.integrator)(partial(f, params), x, u, dt))
 
 
+@dataclass(frozen=True)
+class Rocket6DoFStep:
+    """The discrete step ``F(x, u) = step(params, x, u, dt)`` as a value.
+    Callers and ``torch.func`` see the same function as through a lambda;
+    ``mpc/gp_mpc.py`` reads from it that the fused rollout kernel
+    (``ops/kernels/rollout_linearize6dof.py``) computes the same thing."""
+
+    params: Rocket6DoFParams
+    dt: float
+
+    def __call__(self, x, u) -> torch.Tensor:
+        return step(self.params, x, u, self.dt)
+
+
 def simulate(params: Rocket6DoFParams, x0, U, dt=None) -> torch.Tensor:
     """Open-loop rollout: x0 (…, 14), U (…, N, 3) → (…, N+1, 14)."""
     xs = [x0]

@@ -382,7 +382,7 @@ def sixdof_path(device: DeviceLike = "cuda") -> SixDoFPath:
     xT = r6.create_initial_state(p, altitude=0.0)
     return SixDoFPath(
         params=p,
-        F=lambda x, u: r6.step(p, x, u, DT),
+        F=r6.Rocket6DoFStep(p, DT),
         F_true=lambda x, u: r6.step(p_true, x, u, DT) + DT * wind,
         config=GPMPCConfig(base=base, scp_iterations=1, tighten=True, rollout_gp_tape=True),
         x_target=xT,

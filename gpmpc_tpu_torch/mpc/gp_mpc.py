@@ -36,7 +36,9 @@ import torch
 from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics.linearize import residual_rollout, trajectory_jacobians
 from ..dynamics.rocket3dof import Rocket3DoFStep
+from ..dynamics.rocket6dof import Rocket6DoFStep
 from ..ops.kernels.rollout_linearize import rollout_linearize
+from ..ops.kernels.rollout_linearize6dof import rollout_linearize6dof
 from ..ops.qp import (SOLVED, IPMConfig, Scaling, build_condensed_qp, build_mpc_qp, extend_qp,
                       join_z, recover_states, solve, solve_ipm, split_z)
 from ..utils.profiler import span
@@ -116,14 +118,26 @@ def _check_supported(config: GPMPCConfig) -> None:
         raise ValueError("stage_rows_fn (linearized state rows) requires condensed=True")
 
 
+def fused_kernel(step_fn) -> Optional[Callable]:
+    """The fused rollout wrapper written for the step's type:
+    ``rollout_linearize`` for the 3-DoF rocket's step value
+    (:class:`Rocket3DoFStep`), ``rollout_linearize6dof`` for the 6-DoF one's
+    (:class:`Rocket6DoFStep`), None for any other step."""
+    if isinstance(step_fn, Rocket3DoFStep):
+        return rollout_linearize
+    if isinstance(step_fn, Rocket6DoFStep):
+        return rollout_linearize6dof
+    return None
+
+
 def fused_rollout(step_fn, config: GPMPCConfig, x0: Tensor) -> bool:
-    """Whether the rollout and the first linearization go to
-    ``rollout_linearize`` (one kernel launch on the card): where it computes
-    what the eager route computes, the 3-DoF rocket's RK4 step
-    (:class:`Rocket3DoFStep`) in float32 under the frozen GP tape or a zero
-    residual. A lambda step, the GP inside the rollout loop, another
-    integrator or dtype keep the eager route."""
-    return (isinstance(step_fn, Rocket3DoFStep) and step_fn.params.integrator == "rk4"
+    """Whether the rollout and the first linearization go to the step's
+    :func:`fused_kernel` (one kernel launch on the card): where it computes
+    what the eager route computes, a rocket's RK4 step value in float32
+    under the frozen GP tape or a zero residual. A lambda step, the GP
+    inside the rollout loop, another integrator or dtype keep the eager
+    route."""
+    return (fused_kernel(step_fn) is not None and step_fn.params.integrator == "rk4"
             and (config.rollout_gp_tape or not config.augment_rollout)
             and x0.dtype == torch.float32)
 
@@ -204,8 +218,8 @@ def gp_mpc_solve(
         if fused_rollout(step_fn, config, x0):
             tape = (gp_mean_fn(state.X_lin[:, :-1], state.U_lin).contiguous()
                     if config.augment_rollout else None)
-            X_sim, *lin = rollout_linearize(step_fn, x0.contiguous(), state.U_lin.contiguous(),
-                                            tape, dt=dt)
+            X_sim, *lin = fused_kernel(step_fn)(step_fn, x0.contiguous(),
+                                                state.U_lin.contiguous(), tape, dt=dt)
         elif config.augment_rollout and config.rollout_gp_tape:
             # frozen residual tape: one batched GP eval at the incumbent knots
             tape = gp_mean_fn(state.X_lin[:, :-1], state.U_lin)

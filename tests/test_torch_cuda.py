@@ -1,5 +1,5 @@
-"""The CUDA kernels (the ADMM chunk, the fused rollout and linearization)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels (the ADMM chunk, the 3-DoF and 6-DoF fused rollouts and
+linearizations) against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: without a Hopper device every test skips. The module
 imports no JAX, so it also runs on a machine without it:
@@ -882,3 +882,129 @@ def test_main_path_launches_the_rollout_kernel_once_a_cycle(cuda_device):
         dX = (sol.X_opt - ref.X_opt).abs().max().item()
         assert du <= 1e-3 and dX <= 1e-3, f"cycle {cycle}: max|du0| {du:.3e}, max|dX| {dX:.3e}"
         state, xs = new_state, mp.F_true(xs, sol.u0)
+
+
+# The 6-DoF fused rollout and linearization kernel
+# (csrc/rollout_linearize6dof.cu), held by the same witness rule around a
+# float64 run of its plain version.
+
+
+def _rollout6_inputs(B, N, dev, seed=0):
+    """Descent states about Path D's (15-20 m, −2 m/s, mass and lateral
+    offsets, unit quaternions near upright, small rates), controls about
+    hover, a tape of the two-GP residual's lifted size on every row."""
+    rng = np.random.default_rng(seed)
+    x0 = np.zeros((B, 14))
+    x0[:, 0] = 1.5 + 0.4 * rng.random(B)
+    x0[:, 1] = 15.0 + 5.0 * rng.random(B)
+    x0[:, 2:4] = rng.normal(size=(B, 2))
+    x0[:, 4:7] = np.array([-2.0, 0.1, 0.0]) + 0.5 * rng.normal(size=(B, 3))
+    q = np.array([1.0, 0, 0, 0]) + 0.2 * rng.normal(size=(B, 4))
+    x0[:, 7:11] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    x0[:, 11:14] = 0.2 * rng.normal(size=(B, 3))
+    U = np.array([2.0, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
+    tape = 0.05 * rng.normal(size=(B, N, 14))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return t(x0), t(U), t(tape)
+
+
+def _step64(step):
+    """The same 6-DoF step with its parameters' tensors in float64 (the
+    parameters hold float32 values; this evaluates exactly those)."""
+    import dataclasses
+
+    p = dataclasses.replace(step.params)
+    for name in ("J_B", "J_B_inv", "r_T_B", "r_cp_B", "g_I", "C_A"):
+        object.__setattr__(p, name, getattr(step.params, name).double())
+    return type(step)(p, step.dt)
+
+
+def _assert_rollout6_matches_plain(step, x0, U, tape):
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
+
+    before = RL6.LAUNCHES
+    got = RL6.rollout_linearize6dof(step, x0, U, tape)
+    assert RL6.LAUNCHES == before + 1
+    f32 = RL6.rollout_linearize6dof_plain(step, x0, U, tape)
+    f64 = RL6.rollout_linearize6dof_plain(_step64(step), x0.double(), U.double(),
+                                          None if tape is None else tape.double())
+    torch.cuda.synchronize()
+    for name, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
+        assert k.shape == p.shape and bool(torch.isfinite(k).all()), name
+        witness = (p.double() - r).abs().max().item()
+        lim = max(ROLLOUT_WITNESS_X * witness, ROLLOUT_FLOOR * max(1.0, r.abs().max().item()))
+        err = (k.double() - r).abs().max().item()
+        assert err <= lim, (f"{name}: kernel {err:.3e} from the float64 run, plain f32 "
+                            f"{witness:.3e}, limit {lim:.3e}; kernel vs plain "
+                            f"{(k - p).abs().max().item():.3e}")
+
+
+@pytest.mark.parametrize("tape", [True, False], ids=["tape", "zero-residual"])
+@pytest.mark.parametrize("aero", [False, True], ids=["nominal", "aero"])
+def test_rollout_linearize6dof_kernel_matches_plain(cuda_device, aero, tape):
+    """512 lanes of 20 knots, Path D's nominal model and its plant's aero
+    (ρ = 0.8, C_A = 0.05·I)."""
+    from gpmpc_tpu_torch.dynamics import Rocket6DoFParams, Rocket6DoFStep
+
+    kw = dict(rho=0.8, C_A=0.05 * torch.eye(3)) if aero else {}
+    step = Rocket6DoFStep(Rocket6DoFParams(device=cuda_device, **kw), 0.1)
+    x0, U, T = _rollout6_inputs(512, 20, cuda_device)
+    _assert_rollout6_matches_plain(step, x0, U, T if tape else None)
+
+
+@pytest.mark.parametrize("B", [1, 33])
+def test_rollout_linearize6dof_kernel_on_a_ragged_block(cuda_device, B):
+    """Lane counts that leave a block's lanes partly empty, at N = 3."""
+    from gpmpc_tpu_torch.dynamics import Rocket6DoFParams, Rocket6DoFStep
+
+    step = Rocket6DoFStep(Rocket6DoFParams(device=cuda_device, rho=0.8,
+                                           C_A=0.05 * torch.eye(3)), 0.1)
+    x0, U, T = _rollout6_inputs(B, 3, cuda_device, seed=1)
+    _assert_rollout6_matches_plain(step, x0, U, T)
+
+
+def test_path_d_launches_the_rollout6dof_kernel_once_a_cycle(cuda_device):
+    """sixdof_path()'s cycle at 512 lanes with a stand-in GP: one
+    rollout_linearize6dof launch a cycle and none of the 3-DoF kernel; u0
+    and X_opt within the card-vs-CPU 1e-3 of the eager route (a lambda of
+    the same step) from the same state, on all but 1% of the lanes. A lane
+    meets two threshold tests a cycle: ADMM freezes it at the check after
+    30 iterations if it passes the termination test there, and its plan is
+    accepted or its rollout flown. Float32 rounding alone moves a lane that
+    lies on either threshold across: on Path D's fleet the eager route
+    itself, under one-ulp changes of the state, parts on 0-2 lanes a cycle
+    by up to 0.36, and the kernel route from it on 0-3. A fault of the
+    kernel would move every lane's plan; its outputs themselves are held
+    by the witness rule above."""
+    from gpmpc_tpu_torch.dynamics import rocket6dof as r6
+    from gpmpc_tpu_torch.main_path import sixdof_fleet_x0, sixdof_path
+    from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
+
+    def mean(X, U):
+        out = torch.zeros_like(X)
+        out[..., 4:7] = 0.05 * torch.tanh(0.1 * X[..., 4:7] + 0.01 * U)
+        out[..., 11:14] = 0.02 * torch.tanh(X[..., 11:14] + 0.01 * U)
+        return out
+
+    var = lambda X, U: torch.full((*X.shape[:-1], 6), 1e-3, device=X.device)
+    sp = sixdof_path(cuda_device)
+    lanes = 512
+    xs = sixdof_fleet_x0(torch.Generator(device=cuda_device).manual_seed(7), lanes, cuda_device)
+    state = gp_mpc_init(sp.config, xs, sp.x_target, device=cuda_device)
+    eager = lambda x, u: r6.step(sp.params, x, u, 0.1)
+    for cycle in range(3):
+        before, before3 = RL6.LAUNCHES, RL.LAUNCHES
+        sol, new_state = gp_mpc_solve(sp.F, mean, var, sp.config, state, xs)
+        assert (RL6.LAUNCHES, RL.LAUNCHES) == (before + 1, before3)
+        ref, _ = gp_mpc_solve(eager, mean, var, sp.config, state, xs)
+        assert (RL6.LAUNCHES, RL.LAUNCHES) == (before + 1, before3)  # the lambda: eager
+        torch.cuda.synchronize()
+        d = torch.maximum((sol.u0 - ref.u0).abs().amax(1),
+                          (sol.X_opt - ref.X_opt).abs().amax((1, 2)))
+        parted = int((d > 1e-3).sum())
+        assert parted <= lanes // 100, (
+            f"cycle {cycle}: {parted} lanes beyond 1e-3 in u0 or X_opt (max {d.max().item():.3e}, "
+            f"median {d.median().item():.3e})")
+        state, xs = new_state, sp.F_true(xs, sol.u0)
