@@ -26,12 +26,11 @@ entry points a user calls, and checks the hand-written kernel on the way:
    (the dynamics rows "blt", the bounds "diag": the kernel reads the blocks'
    kept columns alone) and again with every row dense under a "_dense"
    suffix, as the paths launched them before; then the fused rollout and
-   linearization kernel (``phase_rollout_kernel``) against its plain
-   version at 512 and 4,096 lanes of 20 knots, with and without drag and
-   the GP tape, with its registers and spills, and its time beside its
-   bound and the plain version; then the 6-DoF one
-   (``phase_rollout_kernel6dof``) at Path D's 512 lanes of 20 knots, with
-   and without aero and the tape, the same way;
+   linearization kernels (``phase_rollout_kernels``), each against its
+   plain version at its GP-MPC cells' lanes of 20 knots (512 and 4,096 for
+   the 3-DoF rocket, Path D's 512 for the 6-DoF one), with and without the
+   plant's drag or aero and the GP tape, with its registers and spills, and
+   its time beside its bound and the plain version;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
    steps with the launch counters reset just before and read just after
    (one chunk and one rollout_linearize launch a cycle), and hold one
@@ -420,161 +419,78 @@ def phase_kernels():
     return timings
 
 
-def _rollout_inputs(B, N, dev, seed=0):
-    """States spread about the main path's (30 ± 5 m, −3 m/s, lateral and
-    mass offsets), controls about hover, a tape of the GP's lifted size
-    (tests/test_torch_cuda.py's)."""
-    rng = np.random.default_rng(seed)
-    x0 = np.array([2, 30, 0, 0, -3, 0, 0]) + rng.normal(size=(B, 7)) * [0.2, 5, 1, 1, 0.5, 0.3, 0.3]
-    U = np.array([2, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
-    tape = 0.1 * rng.normal(size=(B, N, 7))
-    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-    return t(x0), t(U), t(tape)
+# the fused rollout kernels' models and their lane counts at N = 20 knots
+# (the GP-MPC cells': 512 and 4,096 for the 3-DoF rocket, Path D's 512 for
+# the 6-DoF one)
+ROLLOUT_MODELS = {"3dof": (BATCH, 4096), "6dof": (BATCH,)}
 
 
-def phase_rollout_kernel(dev=torch.device("cuda")):
-    """The fused rollout and linearization kernel against its plain version
-    (the eager route it replaces) at the GP-MPC cells' widths, 512 and 4,096
-    lanes of N = 20 knots, with and without drag and the tape; at the main
-    path's (the nominal step, the tape) timed beside its bound and the
-    plain version. Returns the timings."""
-    from gpmpc_tpu_torch.chunk_bench import cuda_ms, graph_ms, host_us, ptxas_report
-    from gpmpc_tpu_torch.dynamics import Rocket3DoFParams, Rocket3DoFStep
+def phase_rollout_kernels(dev=torch.device("cuda")):
+    """Each fused rollout and linearization kernel against its plain version
+    (the eager route it replaces) at its GP-MPC cells' widths
+    (``ROLLOUT_MODELS``), N = 20 knots, with and without the plant's drag or
+    aero and the tape; at each path's own (the nominal step, the tape) timed
+    beside its bound and the plain version. Returns the timings by model."""
+    from gpmpc_tpu_torch.chunk_bench import (cuda_ms, graph_ms, host_us, ptxas_report,
+                                             rollout_inputs, rollout_step, step64)
     from gpmpc_tpu_torch.ops.kernels import _build
     from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
 
-    regs, spill_st, spill_ld = ptxas_report(_build.build_log(RL.KERNEL), "rollout_linearize_kernel")
-    log(f"[rollout] rollout_linearize_kernel: {RL.threads()} threads a block (32 lanes), "
-        f"{regs} registers, spill stores {spill_st} B, loads {spill_ld} B")
-    timings = []
-    for lanes in (BATCH, 4096):
-        x0, U, T = _rollout_inputs(lanes, N, dev)
-        for drag, use_tape in ((False, True), (True, True), (False, False), (True, False)):
-            kw = dict(rho=1.0, C_D=1.0, A_ref=0.1) if drag else {}
-            step = Rocket3DoFStep(Rocket3DoFParams(device=dev, **kw), DT)
-            tape = T if use_tape else None
-            got = RL.rollout_linearize(step, x0, U, tape)
-            f32 = RL.rollout_linearize_plain(step, x0, U, tape)
-            f64 = RL.rollout_linearize_plain(step, x0.double(), U.double(),
-                                             None if tape is None else tape.double())
-            torch.cuda.synchronize()
-            what = f"B={lanes} N={N} {'drag' if drag else 'nominal'} {'tape' if use_tape else 'no tape'}"
-            parts = []
-            for name, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
-                witness = (p.double() - r).abs().max().item()
-                lim = max(ROLLOUT_WITNESS_X * witness,
-                          ROLLOUT_FLOOR * max(1.0, r.abs().max().item()))
-                err = (k.double() - r).abs().max().item()
-                vs_plain = (k - p).abs().max().item()
-                parts.append(f"{name} {err:.3e} (plain f32 {witness:.3e}, limit {lim:.3e}, "
-                             f"kernel vs plain {vs_plain:.3e})")
-                if not bool(torch.isfinite(k).all()) or err > lim:
-                    raise RuntimeError(f"rollout_linearize disagrees with its plain version "
-                                       f"({what}): {parts[-1]}")
-            log(f"[rollout] {what}: from the float64 run: " + "; ".join(parts))
-            if drag or not use_tape:
-                continue
-            launch = lambda: RL.rollout_linearize(step, x0, U, tape)
-            ms, ms2 = graph_ms(launch, 20), graph_ms(launch, 20)
-            eager_ms, wrap_us = cuda_ms(launch, 50), host_us(launch, 200)
-            plain_ms = cuda_ms(lambda: RL.rollout_linearize_plain(step, x0, U, tape), 3)
-            bnd, by, nbytes, flops = RL.bound_ms(lanes, N)
-            timings.append(dict(lanes=lanes, N=N, ms=ms, ms_repeat=ms2, eager_ms=eager_ms,
-                                wrapper_us=wrap_us, plain_ms=plain_ms, bound_ms=bnd,
-                                bound_by=by, registers=regs, threads=RL.threads()))
-            log(f"[rollout] B={lanes} N={N} main path's step and tape: kernel {ms:.4f} ms "
-                f"(repeat {ms2:.4f}; CUDA graph of 20 launches), eager back-to-back calls "
-                f"{eager_ms:.4f} ms, wrapper host time {wrap_us:.1f} us a call, plain "
-                f"{plain_ms:.4f} ms, bound {bnd:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
-                f"{flops / 1e6:.1f} MFLOP), share of bound {bnd / ms:.3f}")
-    return timings
-
-
-def _rollout6_inputs(B, N, dev, seed=0):
-    """Descent states about Path D's (15-20 m, −2 m/s, mass and lateral
-    offsets, unit quaternions near upright, small rates), controls about
-    hover, a tape of the two-GP residual's lifted size on every row
-    (tests/test_torch_cuda.py's)."""
-    rng = np.random.default_rng(seed)
-    x0 = np.zeros((B, 14))
-    x0[:, 0] = 1.5 + 0.4 * rng.random(B)
-    x0[:, 1] = 15.0 + 5.0 * rng.random(B)
-    x0[:, 2:4] = rng.normal(size=(B, 2))
-    x0[:, 4:7] = np.array([-2.0, 0.1, 0.0]) + 0.5 * rng.normal(size=(B, 3))
-    q = np.array([1.0, 0, 0, 0]) + 0.2 * rng.normal(size=(B, 4))
-    x0[:, 7:11] = q / np.linalg.norm(q, axis=1, keepdims=True)
-    x0[:, 11:14] = 0.2 * rng.normal(size=(B, 3))
-    U = np.array([2.0, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
-    tape = 0.05 * rng.normal(size=(B, N, 14))
-    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-    return t(x0), t(U), t(tape)
-
-
-def _step64(step):
-    """The same 6-DoF step with its parameters' tensors in float64."""
-    p = dataclasses.replace(step.params)
-    for name in ("J_B", "J_B_inv", "r_T_B", "r_cp_B", "g_I", "C_A"):
-        object.__setattr__(p, name, getattr(step.params, name).double())
-    return type(step)(p, step.dt)
-
-
-def phase_rollout_kernel6dof(dev=torch.device("cuda")):
-    """The 6-DoF fused rollout and linearization kernel against its plain
-    version (the eager route it replaces) at Path D's width, 512 lanes of
-    N = 20 knots, with and without the plant's aero and the tape; at Path
-    D's own (the nominal step, the tape) timed beside its bound and the
-    plain version. Returns the timings."""
-    from gpmpc_tpu_torch.chunk_bench import cuda_ms, graph_ms, host_us, ptxas_report
-    from gpmpc_tpu_torch.dynamics import Rocket6DoFParams, Rocket6DoFStep
-    from gpmpc_tpu_torch.ops.kernels import _build
-    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
-
-    regs, spill_st, spill_ld = ptxas_report(_build.build_log(RL6.KERNEL),
-                                            "rollout_linearize6dof_kernel")
-    log(f"[rollout6] rollout_linearize6dof_kernel: {RL6.threads()} threads a block "
-        f"({RL6.lanes_per_block()} lanes), {regs} registers, spill stores {spill_st} B, "
-        f"loads {spill_ld} B")
-    timings = []
-    x0, U, T = _rollout6_inputs(BATCH, N, dev)
-    for aero, use_tape in ((False, True), (True, True), (False, False), (True, False)):
-        kw = dict(rho=0.8, C_A=0.05 * torch.eye(3)) if aero else {}
-        step = Rocket6DoFStep(Rocket6DoFParams(device=dev, **kw), DT)
-        tape = T if use_tape else None
-        got = RL6.rollout_linearize6dof(step, x0, U, tape)
-        f32 = RL6.rollout_linearize6dof_plain(step, x0, U, tape)
-        f64 = RL6.rollout_linearize6dof_plain(_step64(step), x0.double(), U.double(),
-                                              None if tape is None else tape.double())
-        torch.cuda.synchronize()
-        what = (f"B={BATCH} N={N} {'aero' if aero else 'nominal'} "
-                f"{'tape' if use_tape else 'no tape'}")
-        parts = []
-        for name, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
-            witness = (p.double() - r).abs().max().item()
-            lim = max(ROLLOUT_WITNESS_X * witness, ROLLOUT_FLOOR * max(1.0, r.abs().max().item()))
-            err = (k.double() - r).abs().max().item()
-            vs_plain = (k - p).abs().max().item()
-            parts.append(f"{name} {err:.3e} (plain f32 {witness:.3e}, limit {lim:.3e}, "
-                         f"kernel vs plain {vs_plain:.3e})")
-            if not bool(torch.isfinite(k).all()) or err > lim:
-                raise RuntimeError(f"rollout_linearize6dof disagrees with its plain version "
-                                   f"({what}): {parts[-1]}")
-        log(f"[rollout6] {what}: from the float64 run: " + "; ".join(parts))
-        if aero or not use_tape:
-            continue
-        launch = lambda: RL6.rollout_linearize6dof(step, x0, U, tape)
-        ms, ms2 = graph_ms(launch, 20), graph_ms(launch, 20)
-        eager_ms, wrap_us = cuda_ms(launch, 50), host_us(launch, 200)
-        plain_ms = cuda_ms(lambda: RL6.rollout_linearize6dof_plain(step, x0, U, tape), 3)
-        bnd, by, nbytes, flops = RL6.bound_ms(BATCH, N)
-        timings.append(dict(lanes=BATCH, N=N, ms=ms, ms_repeat=ms2, eager_ms=eager_ms,
-                            wrapper_us=wrap_us, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                            registers=regs, spill_stores=spill_st, spill_loads=spill_ld,
-                            threads=RL6.threads(), lanes_per_block=RL6.lanes_per_block()))
-        log(f"[rollout6] B={BATCH} N={N} Path D's step and tape: kernel {ms:.4f} ms "
-            f"(repeat {ms2:.4f}; CUDA graph of 20 launches), eager back-to-back calls "
-            f"{eager_ms:.4f} ms, wrapper host time {wrap_us:.1f} us a call, plain "
-            f"{plain_ms:.4f} ms, bound {bnd:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e6:.1f} MFLOP), share of bound {bnd / ms:.3f}")
+    timings = {}
+    for model, widths in ROLLOUT_MODELS.items():
+        Step = type(rollout_step(model, dev, False))
+        name = RL.kernel_name(Step)
+        threads, lanes_per_block = RL.threads(Step), RL.lanes_per_block(Step)
+        regs, spill_st, spill_ld = ptxas_report(_build.build_log(name), f"{name}_kernel")
+        log(f"[rollout] {name}_kernel: {threads} threads a block ({lanes_per_block} lanes), "
+            f"{regs} registers, spill stores {spill_st} B, loads {spill_ld} B")
+        timings[model] = []
+        for lanes in widths:
+            x0, U, T = rollout_inputs(model, lanes, N, dev)
+            for plant, use_tape in ((False, True), (True, True), (False, False), (True, False)):
+                step = rollout_step(model, dev, plant)
+                tape = T if use_tape else None
+                before = RL.LAUNCHES[name]
+                got = RL.rollout_linearize(step, x0, U, tape)
+                if RL.LAUNCHES[name] != before + 1:
+                    raise RuntimeError(f"{name} was not launched for a {Step.__name__}")
+                f32 = RL.rollout_linearize_plain(step, x0, U, tape)
+                f64 = RL.rollout_linearize_plain(step64(step), x0.double(), U.double(),
+                                                 None if tape is None else tape.double())
+                torch.cuda.synchronize()
+                what = (f"{name} B={lanes} N={N} {'plant' if plant else 'nominal'} "
+                        f"{'tape' if use_tape else 'no tape'}")
+                parts = []
+                for out, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
+                    witness = (p.double() - r).abs().max().item()
+                    lim = max(ROLLOUT_WITNESS_X * witness,
+                              ROLLOUT_FLOOR * max(1.0, r.abs().max().item()))
+                    err = (k.double() - r).abs().max().item()
+                    vs_plain = (k - p).abs().max().item()
+                    parts.append(f"{out} {err:.3e} (plain f32 {witness:.3e}, limit {lim:.3e}, "
+                                 f"kernel vs plain {vs_plain:.3e})")
+                    if not bool(torch.isfinite(k).all()) or err > lim:
+                        raise RuntimeError(f"{name} disagrees with its plain version "
+                                           f"({what}): {parts[-1]}")
+                log(f"[rollout] {what}: from the float64 run: " + "; ".join(parts))
+                if plant or not use_tape:
+                    continue
+                launch = lambda: RL.rollout_linearize(step, x0, U, tape)
+                ms, ms2 = graph_ms(launch, 20), graph_ms(launch, 20)
+                eager_ms, wrap_us = cuda_ms(launch, 50), host_us(launch, 200)
+                plain_ms = cuda_ms(lambda: RL.rollout_linearize_plain(step, x0, U, tape), 3)
+                bnd, by, nbytes, flops = RL.bound_ms(Step, lanes, N)
+                timings[model].append(dict(
+                    lanes=lanes, N=N, ms=ms, ms_repeat=ms2, eager_ms=eager_ms,
+                    wrapper_us=wrap_us, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                    registers=regs, spill_stores=spill_st, spill_loads=spill_ld,
+                    threads=threads, lanes_per_block=lanes_per_block))
+                log(f"[rollout] {name} B={lanes} N={N} the path's step and tape: kernel "
+                    f"{ms:.4f} ms (repeat {ms2:.4f}; CUDA graph of 20 launches), eager "
+                    f"back-to-back calls {eager_ms:.4f} ms, wrapper host time {wrap_us:.1f} us "
+                    f"a call, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms by {by} "
+                    f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), share of bound "
+                    f"{bnd / ms:.3f}")
     return timings
 
 
@@ -627,14 +543,12 @@ def _time_cycles(cycle, state, xs, cycles, dev, what):
     per cycle on the host clock, launches)."""
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
     from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
-    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
 
     for _ in range(5):  # warm-up: allocator, cuBLAS/cuSOLVER handles, kernel load
         sol, state, xs = cycle(state, xs)
     torch.cuda.synchronize(dev)
     K.LAUNCHES = 0  # counts from here on are this path's
-    RL.LAUNCHES = 0
-    RL6.LAUNCHES = 0
+    RL.LAUNCHES.update(dict.fromkeys(RL.LAUNCHES, 0))
     K.LAUNCHES_BY_SHAPE.clear()
     K.LAUNCHES_BY_ROWS.clear()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -679,14 +593,14 @@ def phase_main_path(dev=torch.device("cuda")):
     cycles = 20
     sol, state, xs, dev_ms, host_ms, launches = _time_cycles(
         cycle, state, xs, cycles, dev, "the main path")
-    roll_launches = RL.LAUNCHES
+    roll_launches = RL.LAUNCHES["rollout_linearize"]
     chunks = cfg.scp_iterations * (cfg.base.admm.max_iter // cfg.base.admm.check_interval)
     if launches != cycles * chunks:
         raise RuntimeError(f"admm_chunk launched {launches} times in {cycles} cycles, "
                            f"expected {cycles * chunks}")
-    if roll_launches != cycles:
-        raise RuntimeError(f"rollout_linearize launched {roll_launches} times in {cycles} "
-                           f"cycles, expected {cycles}")
+    if RL.LAUNCHES != {"rollout_linearize": cycles, "rollout_linearize6dof": 0}:
+        raise RuntimeError(f"the rollout kernels launched {RL.LAUNCHES} in {cycles} cycles, "
+                           f"expected rollout_linearize {cycles} times and the 6-DoF one 0")
     log(f"[main] {cycles} cycles x {BATCH} lanes: {dev_ms:.3f} ms/cycle (CUDA events), "
         f"{host_ms:.3f} ms/cycle (host clock), {BATCH * 1000.0 / host_ms:.1f} solves/s; "
         f"admm_chunk launches {launches} ({chunks}/cycle), rollout_linearize launches "
@@ -1029,7 +943,6 @@ def phase_sixdof(dev=torch.device("cuda")):
     from gpmpc_tpu_torch.mpc.rti import _condensed_admm_cfg, _n_rows
     from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
     from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
-    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
 
     # the GP fit: six 64-step episodes of the sparse-form 6-DoF RTI
     # controller (the campaign's count, run_campaign_tpu.py:301-303; the
@@ -1080,11 +993,11 @@ def phase_sixdof(dev=torch.device("cuda")):
     if not cycles <= launches <= chunks * cycles:  # the second chunk is skipped when all converge
         raise RuntimeError(f"admm_chunk launched {launches} times in {cycles} 6-DoF cycles, "
                            f"expected {cycles} to {chunks * cycles}")
-    roll_launches = RL6.LAUNCHES
-    if roll_launches != cycles or RL.LAUNCHES != 0:
-        raise RuntimeError(f"rollout_linearize6dof launched {roll_launches} times and "
-                           f"rollout_linearize {RL.LAUNCHES} in {cycles} 6-DoF cycles, "
-                           f"expected {cycles} and 0")
+    roll_launches = RL.LAUNCHES["rollout_linearize6dof"]
+    if RL.LAUNCHES != {"rollout_linearize": 0, "rollout_linearize6dof": cycles}:
+        raise RuntimeError(f"the rollout kernels launched {RL.LAUNCHES} in {cycles} 6-DoF "
+                           f"cycles, expected rollout_linearize6dof {cycles} times and the "
+                           f"3-DoF one 0")
     log(f"[sixdof] {cycles} cycles x {BATCH} lanes: {dev_ms:.3f} ms/cycle (CUDA events), "
         f"{host_ms:.3f} ms/cycle (host clock), {BATCH * 1000.0 / host_ms:.1f} solves/s; "
         f"admm_chunk launches {launches} ({launches / cycles:.2f}/cycle, {cyc_variant} variant), "
@@ -2527,8 +2440,7 @@ def main():
     log(f"[build] kernel libraries in {enable_compilation_cache()}")
     _phase(phase_build)
     timings = _phase(phase_kernels)
-    roll_t = _phase(phase_rollout_kernel)
-    roll6_t = _phase(phase_rollout_kernel6dof)
+    roll_t = _phase(phase_rollout_kernels)
     main_res, fns = _phase(phase_main_path)
     land = _phase(phase_landing, fns)
     rti_res = _phase(phase_rti)
@@ -2649,14 +2561,14 @@ def main():
         "source": "gpmpc_tpu_torch/csrc/rollout_linearize.cu",
         "replaces": "none: the JAX package leaves the rollout and its jacfwd to XLA",
         "launches": main_res["rollout_launches"],
-        "shapes": roll_t,
+        "shapes": roll_t["3dof"],
     }, {
         "name": "rollout_linearize6dof",
         "route": "cuda",
         "source": "gpmpc_tpu_torch/csrc/rollout_linearize6dof.cu",
         "replaces": "none: the JAX package leaves the rollout and its jacfwd to XLA",
         "launches": six_res["rollout_launches"],
-        "shapes": roll6_t,
+        "shapes": roll_t["6dof"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

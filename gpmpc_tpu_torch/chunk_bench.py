@@ -1,6 +1,8 @@
 """Measurements of the ADMM chunk kernel on the card, and its tile sweep.
 
-``chip_smoke.py`` times the kernel with these helpers. Run alone, the module
+``chip_smoke.py`` times the kernel with these helpers, and takes the fused
+rollout kernels' inputs from :func:`rollout_step` and :func:`rollout_inputs`
+as the card tests do. Run alone, the module
 sweeps the kernel's tilings through ``csrc/admm_chunk_tiles.cu``, a build of
 the same kernels that takes the tiling per call:
 
@@ -52,9 +54,7 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks: HBM bandwidth and non-tensor-core f32 rate
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+from .ops.kernels import F32_FLOPS_PER_S, HBM_BYTES_PER_S
 BATCH, N_VARS, ITERS = 512, 60, 50
 SHAPES = (("main", (("diag", N_VARS),)), ("dense", None))
 KERNEL_ARGS = dict(iters=ITERS, sigma=1e-6, alpha=1.6)
@@ -279,6 +279,60 @@ def chunk_inputs(kind, gen, golden_path=None, lanes=8):
     z = torch.bmm(sdata.A, x[:, :, None])[:, :, 0]
     y = 0.01 * torch.randn(B, m, generator=gen, device=dev)
     return (Minv, sdata.A.contiguous(), sdata.q, sdata.l, sdata.u, rho_v, x, z, y)
+
+
+def rollout_step(model, dev, plant=False):
+    """The step value of a fused rollout kernel's model ("3dof", "6dof"),
+    dt = 0.1, nominal or with its plant's drag (the main path's, ρ C_D A_ref
+    = 0.1) or aero (Path D's, ρ = 0.8, C_A = 0.05·I)."""
+    from .dynamics import Rocket3DoFParams, Rocket3DoFStep, Rocket6DoFParams, Rocket6DoFStep
+
+    if model == "3dof":
+        kw = dict(rho=1.0, C_D=1.0, A_ref=0.1) if plant else {}
+        return Rocket3DoFStep(Rocket3DoFParams(device=dev, **kw), 0.1)
+    kw = dict(rho=0.8, C_A=0.05 * torch.eye(3)) if plant else {}
+    return Rocket6DoFStep(Rocket6DoFParams(device=dev, **kw), 0.1)
+
+
+def rollout_inputs(model, B, N, dev, seed=0):
+    """x0, U and a residual tape for a fused rollout kernel. 3-DoF: states
+    spread about the main path's (30 ± 5 m, −3 m/s, lateral and mass
+    offsets), controls about hover, a tape of the GP's lifted size. 6-DoF:
+    descent states about Path D's (15-20 m, −2 m/s, mass and lateral
+    offsets, unit quaternions near upright, small rates), controls about
+    hover, a tape of the two-GP residual's lifted size on every row."""
+    rng = np.random.default_rng(seed)
+    if model == "3dof":
+        x0 = (np.array([2, 30, 0, 0, -3, 0, 0])
+              + rng.normal(size=(B, 7)) * [0.2, 5, 1, 1, 0.5, 0.3, 0.3])
+        U = np.array([2, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
+        tape = 0.1 * rng.normal(size=(B, N, 7))
+    else:
+        x0 = np.zeros((B, 14))
+        x0[:, 0] = 1.5 + 0.4 * rng.random(B)
+        x0[:, 1] = 15.0 + 5.0 * rng.random(B)
+        x0[:, 2:4] = rng.normal(size=(B, 2))
+        x0[:, 4:7] = np.array([-2.0, 0.1, 0.0]) + 0.5 * rng.normal(size=(B, 3))
+        q = np.array([1.0, 0, 0, 0]) + 0.2 * rng.normal(size=(B, 4))
+        x0[:, 7:11] = q / np.linalg.norm(q, axis=1, keepdims=True)
+        x0[:, 11:14] = 0.2 * rng.normal(size=(B, 3))
+        U = np.array([2.0, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
+        tape = 0.05 * rng.normal(size=(B, N, 14))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return t(x0), t(U), t(tape)
+
+
+def step64(step):
+    """The same step with its parameters' tensors in float64 (the parameters
+    hold float32 values; this evaluates exactly those)."""
+    import dataclasses
+
+    p = dataclasses.replace(step.params)
+    for f in dataclasses.fields(p):
+        v = getattr(step.params, f.name)
+        if torch.is_tensor(v):
+            object.__setattr__(p, f.name, v.double())
+    return type(step)(p, step.dt)
 
 
 def bmm_chain_graph(args, iters, row_structure):

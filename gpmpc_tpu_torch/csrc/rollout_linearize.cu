@@ -50,7 +50,7 @@
 // Bound on an NVIDIA H100 (3.35 TB/s, 67 TFLOP/s f32): bytes. A lane reads
 // 828 bytes (x0, U, the tape) and writes 6,748 (N = 20), ~1.2 µs at 512
 // lanes and ~9.3 µs at 4,096; its ~59 kFLOP (ops/kernels/rollout_linearize.py
-// ::FLOPS_PER_KNOT) take ~3.6 µs at 4,096. The next knot's u and tape are
+// ::_KERNELS) take ~3.6 µs at 4,096. The next knot's u and tape are
 // loaded a knot ahead. Measured (H100 80GB HBM3, 700 W, CUDA-graph
 // replays): 0.037 ms a launch at 512 and at 4,096 lanes alike, so a
 // block's chain of knots sets the time, not the card's width: the store
@@ -60,6 +60,8 @@
 // caller's stream, does not synchronise and allocates nothing.
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
@@ -87,6 +89,8 @@ struct Model {
   float h6;      // dt/6
   float rdt;     // the time step the residual tape is scaled by
 };
+constexpr int kModelFloats = 10;
+static_assert(sizeof(Model) == kModelFloats * sizeof(float), "Model is a packed float array");
 
 // f(z, u) into k, and its derivative along (dz, du) into dk; du is a unit
 // vector (du0, du1, du2) or zero. rT = 1/‖u‖_ε, the same at every stage.
@@ -280,20 +284,24 @@ rollout_linearize_kernel(const float* __restrict__ x0, const float* __restrict__
 extern "C" {
 
 // x0 (B,7), U (B,N,3), tape (B,N,7) or null; outputs X (B,N+1,7), A (B,N,7,7),
-// Bm (B,N,7,3), c (B,N,7). Returns the CUDA error of the launch.
+// Bm (B,N,7,3), c (B,N,7); model: the kModelFloats floats of Model, in its
+// order, in host memory. Returns the CUDA error of the launch.
 int rollout_linearize_f32(const float* x0, const float* U, const float* tape, float* X,
-                          float* A, float* Bm, float* c, int B, int N, float alpha, float g0,
-                          float g1, float g2, float kd, float eps2, float h2, float h, float h6,
-                          float rdt, void* stream) {
-  if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Model p{alpha, g0, g1, g2, kd, eps2, h2, h, h6, rdt};
+                          float* A, float* Bm, float* c, int B, int N, const float* model,
+                          void* stream) {
+  if (B <= 0 || N <= 0 || model == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Model p;
+  std::memcpy(&p, model, sizeof(Model));
   const int blocks = (B + kLanes - 1) / kLanes;
   rollout_linearize_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x0, U, tape, X, A, Bm, c, B, N, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// threads a block of the launch, for reports
+// threads and lanes a block of the launch, and the floats of its model, for
+// reports and the wrapper's checks
 int rollout_linearize_threads() { return kThreads; }
+int rollout_linearize_lanes() { return kLanes; }
+int rollout_linearize_model_floats() { return kModelFloats; }
 
 }  // extern "C"

@@ -59,8 +59,8 @@
 //
 // Bound on an NVIDIA H100 (3.35 TB/s, 67 TFLOP/s f32): bytes, barely. A lane
 // reads 1,416 bytes (x0, U, the tape) and writes 21,336 (N = 20), ~3.5 µs at
-// 512 lanes; its ~428 kFLOP (ops/kernels/rollout_linearize6dof.py
-// ::FLOPS_PER_KNOT) take ~3.3 µs. A block's chain of knots sets the time, as
+// 512 lanes; its ~428 kFLOP (ops/kernels/rollout_linearize.py
+// ::_KERNELS) take ~3.3 µs. A block's chain of knots sets the time, as
 // in the 3-DoF kernel: each thread runs the primal and one tangent, ~2,400
 // operations a knot, in order. So fewer threads an SM run faster, and lanes
 // a block trade against the SMs that are busy. Measured (H100 80GB HBM3,

@@ -116,8 +116,8 @@ def step(params: Rocket3DoFParams, x, u, dt=None) -> torch.Tensor:
 class Rocket3DoFStep:
     """The discrete step ``F(x, u) = step(params, x, u, dt)`` as a value.
     Callers and ``torch.func`` see the same function as through a lambda;
-    ``mpc/gp_mpc.py`` reads from it that the fused rollout kernel
-    (``ops/kernels/rollout_linearize.py``) computes the same thing."""
+    ``ops/kernels/rollout_linearize.py`` reads from its type that a fused
+    rollout kernel computes the same thing."""
 
     params: Rocket3DoFParams
     dt: float

@@ -35,10 +35,7 @@ import torch
 
 from .._device import DeviceLike, as_f32, resolve_device
 from ..dynamics.linearize import residual_rollout, trajectory_jacobians
-from ..dynamics.rocket3dof import Rocket3DoFStep
-from ..dynamics.rocket6dof import Rocket6DoFStep
-from ..ops.kernels.rollout_linearize import rollout_linearize
-from ..ops.kernels.rollout_linearize6dof import rollout_linearize6dof
+from ..ops.kernels.rollout_linearize import fused, rollout_linearize
 from ..ops.qp import (SOLVED, IPMConfig, Scaling, build_condensed_qp, build_mpc_qp, extend_qp,
                       join_z, recover_states, solve, solve_ipm, split_z)
 from ..utils.profiler import span
@@ -118,28 +115,13 @@ def _check_supported(config: GPMPCConfig) -> None:
         raise ValueError("stage_rows_fn (linearized state rows) requires condensed=True")
 
 
-def fused_kernel(step_fn) -> Optional[Callable]:
-    """The fused rollout wrapper written for the step's type:
-    ``rollout_linearize`` for the 3-DoF rocket's step value
-    (:class:`Rocket3DoFStep`), ``rollout_linearize6dof`` for the 6-DoF one's
-    (:class:`Rocket6DoFStep`), None for any other step."""
-    if isinstance(step_fn, Rocket3DoFStep):
-        return rollout_linearize
-    if isinstance(step_fn, Rocket6DoFStep):
-        return rollout_linearize6dof
-    return None
-
-
 def fused_rollout(step_fn, config: GPMPCConfig, x0: Tensor) -> bool:
     """Whether the rollout and the first linearization go to the step's
-    :func:`fused_kernel` (one kernel launch on the card): where it computes
-    what the eager route computes, a rocket's RK4 step value in float32
-    under the frozen GP tape or a zero residual. A lambda step, the GP
-    inside the rollout loop, another integrator or dtype keep the eager
-    route."""
-    return (fused_kernel(step_fn) is not None and step_fn.params.integrator == "rk4"
-            and (config.rollout_gp_tape or not config.augment_rollout)
-            and x0.dtype == torch.float32)
+    kernel (``ops/kernels/rollout_linearize.py``, one launch on the card):
+    where the residual is the frozen GP tape or zero and the kernel computes
+    what the eager route computes (:func:`fused`). The GP inside the
+    rollout loop keeps the eager route."""
+    return (config.rollout_gp_tape or not config.augment_rollout) and fused(step_fn, x0)
 
 
 def _tightened_bounds(config: GPMPCConfig, Aks, X_lin, U_lin, gp_vars):
@@ -215,21 +197,19 @@ def gp_mpc_solve(
     # iteration (lin), inside this span.
     lin = None
     with span("gpmpc.rollout"):
+        # frozen residual tape: one batched GP eval at the incumbent knots
+        tape = (gp_mean_fn(state.X_lin[:, :-1], state.U_lin)
+                if config.augment_rollout and config.rollout_gp_tape else None)
         if fused_rollout(step_fn, config, x0):
-            tape = (gp_mean_fn(state.X_lin[:, :-1], state.U_lin).contiguous()
-                    if config.augment_rollout else None)
-            X_sim, *lin = fused_kernel(step_fn)(step_fn, x0.contiguous(),
-                                                state.U_lin.contiguous(), tape, dt=dt)
-        elif config.augment_rollout and config.rollout_gp_tape:
-            # frozen residual tape: one batched GP eval at the incumbent knots
-            tape = gp_mean_fn(state.X_lin[:, :-1], state.U_lin)
-            X_sim = residual_rollout(step_fn, x0, state.U_lin, dt, lambda k, x, u: tape[:, k])
-        elif config.augment_rollout:
+            X_sim, *lin = rollout_linearize(step_fn, x0.contiguous(), state.U_lin.contiguous(),
+                                            None if tape is None else tape.contiguous(), dt=dt)
+        elif config.augment_rollout and not config.rollout_gp_tape:
             X_sim = residual_rollout(step_fn, x0, state.U_lin, dt,
                                      lambda k, x, u: gp_mean_fn(x, u))
-        else:
+        else:  # the tape, or a zero residual without augmentation
             X_sim = residual_rollout(step_fn, x0, state.U_lin, dt,
-                                     lambda k, x, u: torch.zeros_like(x))
+                                     (lambda k, x, u: torch.zeros_like(x)) if tape is None
+                                     else (lambda k, x, u: tape[:, k]))
 
     admm_cfg = _condensed_admm_cfg(cfg) if cfg.condensed else _sparse_admm_cfg(cfg)
     X_lin, U_lin = X_sim, state.U_lin

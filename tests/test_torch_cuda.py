@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from gpmpc_tpu_torch.chunk_bench import (BOUNDED_SEGS, FLEET6_SEGS, LMPC_SEGS, chunk_inputs,
-                                         filter_lanes)
+                                         filter_lanes, rollout_inputs, rollout_step, step64)
 from gpmpc_tpu_torch.ops.kernels import admm_chunk as K
 from gpmpc_tpu_torch.ops.qp import QPData, ruiz_equilibrate
 from gpmpc_tpu_torch.ops.qp.admm import _factor, _rho_vec
@@ -788,223 +788,105 @@ def test_sparse_form_with_its_rows_declared(cuda_device, kind, lanes, iters):
     _assert_matches_plain(args, segs, iters, scaled=True)
 
 
-# The fused rollout and linearization kernel (csrc/rollout_linearize.cu).
-# Each output is held around a float64 run of the plain version: within
-# twice the float32 plain version's own distance from that run (the witness
-# rule), or 1e-6 of the output's scale where float32 lands closer still.
+# The fused rollout and linearization kernels (csrc/rollout_linearize.cu for
+# the 3-DoF rocket, csrc/rollout_linearize6dof.cu for the 6-DoF one). Each
+# output is held around a float64 run of the plain version: within twice the
+# float32 plain version's own distance from that run (the witness rule), or
+# 1e-6 of the output's scale where float32 lands closer still.
 ROLLOUT_WITNESS_X, ROLLOUT_FLOOR = 2.0, 1e-6
-
-
-def _rollout_inputs(B, N, dev, seed=0):
-    """States spread about the main path's (30 ± 5 m, −3 m/s, lateral and
-    mass offsets), controls about hover, a tape of the GP's lifted size."""
-    rng = np.random.default_rng(seed)
-    x0 = np.array([2, 30, 0, 0, -3, 0, 0]) + rng.normal(size=(B, 7)) * [0.2, 5, 1, 1, 0.5, 0.3, 0.3]
-    U = np.array([2, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
-    tape = 0.1 * rng.normal(size=(B, N, 7))
-    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-    return t(x0), t(U), t(tape)
+ROLLOUT_MODELS = ("3dof", "6dof")
 
 
 def _assert_rollout_matches_plain(step, x0, U, tape):
     from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
 
+    before = dict(RL.LAUNCHES)
     got = RL.rollout_linearize(step, x0, U, tape)
+    name = RL.kernel_name(type(step))
+    assert RL.LAUNCHES == {**before, name: before[name] + 1}
     f32 = RL.rollout_linearize_plain(step, x0, U, tape)
-    f64 = RL.rollout_linearize_plain(step, x0.double(), U.double(),
+    f64 = RL.rollout_linearize_plain(step64(step), x0.double(), U.double(),
                                      None if tape is None else tape.double())
     torch.cuda.synchronize()
-    for name, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
-        assert k.shape == p.shape and bool(torch.isfinite(k).all()), name
+    for what, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
+        assert k.shape == p.shape and bool(torch.isfinite(k).all()), what
         witness = (p.double() - r).abs().max().item()
         lim = max(ROLLOUT_WITNESS_X * witness, ROLLOUT_FLOOR * max(1.0, r.abs().max().item()))
         err = (k.double() - r).abs().max().item()
-        assert err <= lim, (f"{name}: kernel {err:.3e} from the float64 run, plain f32 "
+        assert err <= lim, (f"{what}: kernel {err:.3e} from the float64 run, plain f32 "
                             f"{witness:.3e}, limit {lim:.3e}; kernel vs plain "
                             f"{(k - p).abs().max().item():.3e}")
 
 
 @pytest.mark.parametrize("tape", [True, False], ids=["tape", "zero-residual"])
-@pytest.mark.parametrize("drag", [False, True], ids=["nominal", "drag"])
-@pytest.mark.parametrize("B", [512, 4096])
-def test_rollout_linearize_kernel_matches_plain(cuda_device, B, drag, tape):
-    from gpmpc_tpu_torch.dynamics import Rocket3DoFParams, Rocket3DoFStep
-
-    kw = dict(rho=1.0, C_D=1.0, A_ref=0.1) if drag else {}
-    step = Rocket3DoFStep(Rocket3DoFParams(device=cuda_device, **kw), 0.1)
-    x0, U, T = _rollout_inputs(B, 20, cuda_device)
-    _assert_rollout_matches_plain(step, x0, U, T if tape else None)
-
-
-@pytest.mark.parametrize("B", [1, 33])
-def test_rollout_linearize_kernel_on_a_ragged_block(cuda_device, B):
-    """Lane counts that leave a block's 32 lanes partly empty, at N = 3."""
-    from gpmpc_tpu_torch.dynamics import Rocket3DoFParams, Rocket3DoFStep
-
-    step = Rocket3DoFStep(Rocket3DoFParams(device=cuda_device, rho=1.0, C_D=1.0, A_ref=0.1), 0.1)
-    x0, U, T = _rollout_inputs(B, 3, cuda_device, seed=1)
-    _assert_rollout_matches_plain(step, x0, U, T)
-
-
-def _stand_in_gp():
-    """A smooth stand-in for the GP (no fit needed): a small state-dependent
-    mean on the velocity rows, constant variances."""
-    def mean(X, U):
-        out = torch.zeros_like(X)
-        out[..., 4:7] = 0.05 * torch.tanh(0.1 * X[..., 4:7] + 0.01 * U)
-        return out
-
-    return mean, lambda X, U: torch.full((*X.shape[:-1], 3), 1e-3, device=X.device)
-
-
-def test_main_path_launches_the_rollout_kernel_once_a_cycle(cuda_device):
-    """main_path()'s cycle at 512 lanes: one rollout_linearize launch a
-    cycle, and u0 and X_opt within the main path's card-vs-CPU 1e-3 of the
-    eager route (a lambda of the same step) from the same state."""
-    from gpmpc_tpu_torch.dynamics import rocket3dof as r3
-    from gpmpc_tpu_torch.main_path import fleet_x0, main_path
-    from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
-    from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
-
-    mp = main_path(cuda_device)
-    mean, var = _stand_in_gp()
-    xs = fleet_x0(512, cuda_device)
-    state = gp_mpc_init(mp.config, xs, mp.x_target, device=cuda_device)
-    eager = lambda x, u: r3.step(mp.params, x, u, 0.1)
-    for cycle in range(3):
-        before = RL.LAUNCHES
-        sol, new_state = gp_mpc_solve(mp.F, mean, var, mp.config, state, xs)
-        assert RL.LAUNCHES == before + 1
-        ref, _ = gp_mpc_solve(eager, mean, var, mp.config, state, xs)
-        assert RL.LAUNCHES == before + 1  # the lambda takes the eager route
-        torch.cuda.synchronize()
-        du = (sol.u0 - ref.u0).abs().max().item()
-        dX = (sol.X_opt - ref.X_opt).abs().max().item()
-        assert du <= 1e-3 and dX <= 1e-3, f"cycle {cycle}: max|du0| {du:.3e}, max|dX| {dX:.3e}"
-        state, xs = new_state, mp.F_true(xs, sol.u0)
-
-
-# The 6-DoF fused rollout and linearization kernel
-# (csrc/rollout_linearize6dof.cu), held by the same witness rule around a
-# float64 run of its plain version.
-
-
-def _rollout6_inputs(B, N, dev, seed=0):
-    """Descent states about Path D's (15-20 m, −2 m/s, mass and lateral
-    offsets, unit quaternions near upright, small rates), controls about
-    hover, a tape of the two-GP residual's lifted size on every row."""
-    rng = np.random.default_rng(seed)
-    x0 = np.zeros((B, 14))
-    x0[:, 0] = 1.5 + 0.4 * rng.random(B)
-    x0[:, 1] = 15.0 + 5.0 * rng.random(B)
-    x0[:, 2:4] = rng.normal(size=(B, 2))
-    x0[:, 4:7] = np.array([-2.0, 0.1, 0.0]) + 0.5 * rng.normal(size=(B, 3))
-    q = np.array([1.0, 0, 0, 0]) + 0.2 * rng.normal(size=(B, 4))
-    x0[:, 7:11] = q / np.linalg.norm(q, axis=1, keepdims=True)
-    x0[:, 11:14] = 0.2 * rng.normal(size=(B, 3))
-    U = np.array([2.0, 0, 0]) + 0.4 * rng.normal(size=(B, N, 3))
-    tape = 0.05 * rng.normal(size=(B, N, 14))
-    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-    return t(x0), t(U), t(tape)
-
-
-def _step64(step):
-    """The same 6-DoF step with its parameters' tensors in float64 (the
-    parameters hold float32 values; this evaluates exactly those)."""
-    import dataclasses
-
-    p = dataclasses.replace(step.params)
-    for name in ("J_B", "J_B_inv", "r_T_B", "r_cp_B", "g_I", "C_A"):
-        object.__setattr__(p, name, getattr(step.params, name).double())
-    return type(step)(p, step.dt)
-
-
-def _assert_rollout6_matches_plain(step, x0, U, tape):
-    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
-
-    before = RL6.LAUNCHES
-    got = RL6.rollout_linearize6dof(step, x0, U, tape)
-    assert RL6.LAUNCHES == before + 1
-    f32 = RL6.rollout_linearize6dof_plain(step, x0, U, tape)
-    f64 = RL6.rollout_linearize6dof_plain(_step64(step), x0.double(), U.double(),
-                                          None if tape is None else tape.double())
-    torch.cuda.synchronize()
-    for name, k, p, r in zip(("X", "A", "B", "c"), got, f32, f64):
-        assert k.shape == p.shape and bool(torch.isfinite(k).all()), name
-        witness = (p.double() - r).abs().max().item()
-        lim = max(ROLLOUT_WITNESS_X * witness, ROLLOUT_FLOOR * max(1.0, r.abs().max().item()))
-        err = (k.double() - r).abs().max().item()
-        assert err <= lim, (f"{name}: kernel {err:.3e} from the float64 run, plain f32 "
-                            f"{witness:.3e}, limit {lim:.3e}; kernel vs plain "
-                            f"{(k - p).abs().max().item():.3e}")
-
-
-@pytest.mark.parametrize("tape", [True, False], ids=["tape", "zero-residual"])
-@pytest.mark.parametrize("aero", [False, True], ids=["nominal", "aero"])
-def test_rollout_linearize6dof_kernel_matches_plain(cuda_device, aero, tape):
-    """512 lanes of 20 knots, Path D's nominal model and its plant's aero
-    (ρ = 0.8, C_A = 0.05·I)."""
-    from gpmpc_tpu_torch.dynamics import Rocket6DoFParams, Rocket6DoFStep
-
-    kw = dict(rho=0.8, C_A=0.05 * torch.eye(3)) if aero else {}
-    step = Rocket6DoFStep(Rocket6DoFParams(device=cuda_device, **kw), 0.1)
-    x0, U, T = _rollout6_inputs(512, 20, cuda_device)
-    _assert_rollout6_matches_plain(step, x0, U, T if tape else None)
+@pytest.mark.parametrize("plant", [False, True], ids=["nominal", "plant"])
+@pytest.mark.parametrize("model,B", [("3dof", 512), ("3dof", 4096), ("6dof", 512)])
+def test_rollout_linearize_kernel_matches_plain(cuda_device, model, B, plant, tape):
+    """20 knots at the GP-MPC cells' lanes: 512 and 4,096 for the 3-DoF
+    rocket, Path D's 512 for the 6-DoF one."""
+    x0, U, T = rollout_inputs(model, B, 20, cuda_device)
+    _assert_rollout_matches_plain(rollout_step(model, cuda_device, plant), x0, U,
+                                  T if tape else None)
 
 
 @pytest.mark.parametrize("B", [1, 33])
-def test_rollout_linearize6dof_kernel_on_a_ragged_block(cuda_device, B):
+@pytest.mark.parametrize("model", ROLLOUT_MODELS)
+def test_rollout_linearize_kernel_on_a_ragged_block(cuda_device, model, B):
     """Lane counts that leave a block's lanes partly empty, at N = 3."""
-    from gpmpc_tpu_torch.dynamics import Rocket6DoFParams, Rocket6DoFStep
-
-    step = Rocket6DoFStep(Rocket6DoFParams(device=cuda_device, rho=0.8,
-                                           C_A=0.05 * torch.eye(3)), 0.1)
-    x0, U, T = _rollout6_inputs(B, 3, cuda_device, seed=1)
-    _assert_rollout6_matches_plain(step, x0, U, T)
+    x0, U, T = rollout_inputs(model, B, 3, cuda_device, seed=1)
+    _assert_rollout_matches_plain(rollout_step(model, cuda_device, True), x0, U, T)
 
 
-def test_path_d_launches_the_rollout6dof_kernel_once_a_cycle(cuda_device):
-    """sixdof_path()'s cycle at 512 lanes with a stand-in GP: one
-    rollout_linearize6dof launch a cycle and none of the 3-DoF kernel; u0
-    and X_opt within the card-vs-CPU 1e-3 of the eager route (a lambda of
-    the same step) from the same state, on all but 1% of the lanes. A lane
-    meets two threshold tests a cycle: ADMM freezes it at the check after
-    30 iterations if it passes the termination test there, and its plan is
-    accepted or its rollout flown. Float32 rounding alone moves a lane that
-    lies on either threshold across: on Path D's fleet the eager route
-    itself, under one-ulp changes of the state, parts on 0-2 lanes a cycle
-    by up to 0.36, and the kernel route from it on 0-3. A fault of the
-    kernel would move every lane's plan; its outputs themselves are held
-    by the witness rule above."""
-    from gpmpc_tpu_torch.dynamics import rocket6dof as r6
-    from gpmpc_tpu_torch.main_path import sixdof_fleet_x0, sixdof_path
+@pytest.mark.parametrize("model", ROLLOUT_MODELS)
+def test_path_launches_its_rollout_kernel_once_a_cycle(cuda_device, model):
+    """The path's cycle at 512 lanes with a stand-in GP (main_path() for the
+    3-DoF rocket, sixdof_path() for the 6-DoF one): one launch a cycle of
+    the model's rollout kernel and none of the other's; u0 and X_opt within
+    the card-vs-CPU 1e-3 of the eager route (a lambda of the same step) from
+    the same state, on every lane of the main path and on all but 1% of Path
+    D's. A 6-DoF lane meets two threshold tests a cycle: ADMM freezes it at
+    the check after 30 iterations if it passes the termination test there,
+    and its plan is accepted or its rollout flown. Float32 rounding alone
+    moves a lane that lies on either threshold across: on Path D's fleet the
+    eager route itself, under one-ulp changes of the state, parts on 0-2
+    lanes a cycle by up to 0.36, and the kernel route from it on 0-3. A fault
+    of the kernel would move every lane's plan; its outputs themselves are
+    held by the witness rule above."""
+    from gpmpc_tpu_torch.main_path import fleet_x0, main_path, sixdof_fleet_x0, sixdof_path
     from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
     from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
-    from gpmpc_tpu_torch.ops.kernels import rollout_linearize6dof as RL6
 
     def mean(X, U):
         out = torch.zeros_like(X)
         out[..., 4:7] = 0.05 * torch.tanh(0.1 * X[..., 4:7] + 0.01 * U)
-        out[..., 11:14] = 0.02 * torch.tanh(X[..., 11:14] + 0.01 * U)
+        if model == "6dof":
+            out[..., 11:14] = 0.02 * torch.tanh(X[..., 11:14] + 0.01 * U)
         return out
 
-    var = lambda X, U: torch.full((*X.shape[:-1], 6), 1e-3, device=X.device)
-    sp = sixdof_path(cuda_device)
+    n_gp = 3 if model == "3dof" else 6
+    var = lambda X, U: torch.full((*X.shape[:-1], n_gp), 1e-3, device=X.device)
     lanes = 512
-    xs = sixdof_fleet_x0(torch.Generator(device=cuda_device).manual_seed(7), lanes, cuda_device)
-    state = gp_mpc_init(sp.config, xs, sp.x_target, device=cuda_device)
-    eager = lambda x, u: r6.step(sp.params, x, u, 0.1)
+    if model == "3dof":
+        path, xs, parted_max = main_path(cuda_device), fleet_x0(lanes, cuda_device), 0
+    else:
+        path = sixdof_path(cuda_device)
+        xs = sixdof_fleet_x0(torch.Generator(device=cuda_device).manual_seed(7), lanes,
+                             cuda_device)
+        parted_max = lanes // 100
+    name = RL.kernel_name(type(path.F))
+    state = gp_mpc_init(path.config, xs, path.x_target, device=cuda_device)
+    eager = lambda x, u: path.F(x, u)
     for cycle in range(3):
-        before, before3 = RL6.LAUNCHES, RL.LAUNCHES
-        sol, new_state = gp_mpc_solve(sp.F, mean, var, sp.config, state, xs)
-        assert (RL6.LAUNCHES, RL.LAUNCHES) == (before + 1, before3)
-        ref, _ = gp_mpc_solve(eager, mean, var, sp.config, state, xs)
-        assert (RL6.LAUNCHES, RL.LAUNCHES) == (before + 1, before3)  # the lambda: eager
+        before = dict(RL.LAUNCHES)
+        sol, new_state = gp_mpc_solve(path.F, mean, var, path.config, state, xs)
+        assert RL.LAUNCHES == {**before, name: before[name] + 1}
+        ref, _ = gp_mpc_solve(eager, mean, var, path.config, state, xs)
+        assert RL.LAUNCHES == {**before, name: before[name] + 1}  # the lambda: eager
         torch.cuda.synchronize()
         d = torch.maximum((sol.u0 - ref.u0).abs().amax(1),
                           (sol.X_opt - ref.X_opt).abs().amax((1, 2)))
         parted = int((d > 1e-3).sum())
-        assert parted <= lanes // 100, (
+        assert parted <= parted_max, (
             f"cycle {cycle}: {parted} lanes beyond 1e-3 in u0 or X_opt (max {d.max().item():.3e}, "
             f"median {d.median().item():.3e})")
-        state, xs = new_state, sp.F_true(xs, sol.u0)
+        state, xs = new_state, path.F_true(xs, sol.u0)
