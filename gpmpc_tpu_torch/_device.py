@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -24,3 +25,12 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
 def as_f32(x, device: torch.device) -> torch.Tensor:
     """float32 tensor on ``device`` from a tensor, array or sequence."""
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def device_constant(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``value`` (a number, or a tuple of them) as a tensor on ``device``,
+    copied from the host once per (value, dtype, device): a control cycle
+    that reads it then neither copies nor waits, and a CUDA-graph recording
+    of it can hold it. Shared between callers: never written to."""
+    return torch.tensor(value, dtype=dtype, device=device)

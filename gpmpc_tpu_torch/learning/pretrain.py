@@ -23,6 +23,7 @@ from .._device import DeviceLike, resolve_device
 from ..dynamics import rocket3dof as r3, rocket6dof as r6
 from ..gp import ResidualCollector, Simple3DoFGP, StructuredGPConfig, StructuredRocketGP
 from ..gp.sparse_gp import MultiOutputSparseGPState, refit_sparse_multi
+from ..mpc.cycle_replay import declare_frozen
 
 _X_START = (2.0, 30.0, 1.0, -1.0, -3.0, 0.5, 0.2)
 _X_RESET = (2.0, 25.0, -1.0, 2.0, -4.0, -0.5, 0.1)
@@ -32,10 +33,12 @@ def gp_fns(gp, gated: bool = True):
     """(mean_fn, var_fn) for ``gp_mpc_solve`` from a fitted
     :class:`Simple3DoFGP` or :class:`StructuredRocketGP`: the (variance-gated)
     residual mean lifted to the model's state (7 or 14), and the posterior
-    variances (…, 3) or (…, 6)."""
+    variances (…, 3) or (…, 6). Both declare a frozen posterior
+    (``mpc/cycle_replay.py``): the GP is not refitted in place."""
     predict = gp.predict_gated if gated else gp.predict
     mean_fn = lambda x, u: gp.lift_residual(predict(x, u)[0])
     var_fn = lambda x, u: gp.predict(x, u)[1]
+    declare_frozen(mean_fn, var_fn)
     return mean_fn, var_fn
 
 

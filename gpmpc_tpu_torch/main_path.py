@@ -81,6 +81,7 @@ from .experiments import (SimulationConfig, campaign_statistics, run_campaign,
 from .mpc import (GPMPCConfig, RTIConfig, gp_mpc_solve, make_gp_mpc_controller,
                   make_rti_controller, rti_closed_loop, rti_config_6dof)
 from .mpc.constraints import normal_quantile
+from .mpc.cycle_replay import declare_frozen, is_frozen
 from .ops.qp import ADMMConfig
 from .parallel import run_sharded_campaign
 from .reference import cubic_descent_reference, pad_reference
@@ -255,8 +256,12 @@ def calibration_x0(generator: torch.Generator, batch: int = BATCH,
 
 def with_gust_variance(var_fn: Callable, gust_sigma: float = GUST_SIGMA) -> Callable:
     """The total one-step velocity uncertainty: GP posterior variance plus
-    the known gust power."""
-    return lambda x, u: var_fn(x, u) + gust_sigma**2
+    the known gust power; frozen where ``var_fn`` is
+    (``mpc/cycle_replay.py``)."""
+    fn = lambda x, u: var_fn(x, u) + gust_sigma**2
+    if is_frozen(var_fn):
+        declare_frozen(fn)
+    return fn
 
 
 def calibration_cycle(cp: CalibrationPath, mean_fn: Callable, var_fn: Callable,

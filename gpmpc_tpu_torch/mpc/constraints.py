@@ -4,6 +4,7 @@ evaluator takes states and controls with any leading axes (lanes first)."""
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
@@ -111,6 +112,15 @@ def check_constraints_3dof(x: Tensor, u: Tensor, params: ConstraintParams) -> Di
 def normal_quantile(confidence: Tensor) -> Tensor:
     """κ = Φ⁻¹(confidence)."""
     return torch.special.ndtri(confidence)
+
+
+@functools.lru_cache(maxsize=64)
+def quantile_constant(confidence: float, dtype: torch.dtype, device: torch.device) -> Tensor:
+    """κ = Φ⁻¹(confidence) on ``device``, computed once per (confidence,
+    dtype, device) by the same ``ndtri`` on the device as
+    ``normal_quantile(torch.tensor(confidence, dtype=dtype, device=device))``,
+    and the same bits. Shared between callers: never written to."""
+    return normal_quantile(torch.tensor(confidence, dtype=dtype, device=device))
 
 
 @dataclass(frozen=True)

@@ -33,13 +33,14 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .._device import DeviceLike, as_f32, resolve_device
+from .._device import DeviceLike, as_f32, device_constant, resolve_device
 from ..dynamics.linearize import residual_rollout, trajectory_jacobians
 from ..ops.kernels.rollout_linearize import fused, rollout_linearize
 from ..ops.qp import (SOLVED, IPMConfig, Scaling, build_condensed_qp, build_mpc_qp, extend_qp,
                       join_z, recover_states, solve, solve_ipm, split_z)
 from ..utils.profiler import span
-from .constraints import normal_quantile
+from . import cycle_replay
+from .constraints import quantile_constant
 from .rti import (RTIConfig, _condensed_admm_cfg, _gx_rows, _n_rows, _sparse_admm_cfg,
                   _stage_rows, init_kkt_carry)
 from .uncertainty_prop import box_tightening, propagate_linear
@@ -134,11 +135,12 @@ def _tightened_bounds(config: GPMPCConfig, Aks, X_lin, U_lin, gp_vars):
     Sigma0 = config.sigma0_scale * torch.eye(n_x, dtype=X_lin.dtype, device=dev)
     prop = propagate_linear(Aks, X_lin, Sigma0, gp_vars, cfg.dt)
     if config.tighten:
+        # device constants made once: no copy, no wait
         if config.beta_method == "fixed":
-            kap = torch.tensor(config.beta_fixed, device=dev)
+            kap = device_constant(config.beta_fixed, torch.float32, dev)
         elif config.beta_method == "calibrated":
-            kap = config.beta_calibration * normal_quantile(
-                torch.tensor(config.confidence, device=dev))
+            kap = config.beta_calibration * quantile_constant(config.confidence,
+                                                              torch.float32, dev)
         elif config.beta_method == "quantile":
             kap = None
         else:
@@ -182,8 +184,21 @@ def gp_mpc_solve(
     - ``gp_mean_fn(X, U) → (…, n_x)`` lifted residual mean and
       ``gp_var_fn(X, U) → (…, n_gp)`` posterior variances, any leading dims.
     - ``x0`` (B, n_x): the measured states.
+
+    On the card a cycle that never reads the device from the host, with a
+    fused rollout and GP callables that declare a frozen posterior, is
+    replayed from CUDA-graph segments from its third call on
+    (``mpc/cycle_replay.py``); every other call runs eagerly. Both routes
+    run the same kernels and return tensors that belong to the caller.
     """
     _check_supported(config)
+    return cycle_replay.run(_cycle, step_fn, gp_mean_fn, gp_var_fn, config, state, x0,
+                            fused_rollout(step_fn, config, x0))
+
+
+def _cycle(step_fn, gp_mean_fn, gp_var_fn, config: GPMPCConfig, state: GPMPCState,
+           x0: Tensor) -> Tuple[GPMPCSolution, GPMPCState]:
+    """The eager cycle of :func:`gp_mpc_solve`."""
     cfg = config.base
     N, n_u, dt = cfg.N, cfg.n_u, cfg.dt
     Bsz = x0.shape[0]

@@ -11,6 +11,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .._device import DeviceLike, as_f32, resolve_device
+from .cycle_replay import declare_frozen
 from .gp_mpc import GPMPCConfig, GPMPCState, gp_mpc_init, gp_mpc_solve, make_gp_mpc_controller
 from .rti import RTIConfig
 
@@ -38,6 +39,7 @@ def _zero_gp(n_x: int):
     n_gp = 6 if n_x >= 14 else 3
     mean = lambda x, u: x.new_zeros(*x.shape[:-1], n_x)
     var = lambda x, u: x.new_zeros(*x.shape[:-1], n_gp)
+    declare_frozen(mean, var)  # they read no posterior at all
     return mean, var
 
 

@@ -10,7 +10,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .constraints import normal_quantile
+from .constraints import normal_quantile, quantile_constant
 
 Tensor = torch.Tensor
 
@@ -62,10 +62,10 @@ def propagate_linear(Aks, means, Sigma0, gp_vars: Optional[torch.Tensor] = None,
 def box_tightening(Sigmas: torch.Tensor, confidence: float = 0.95,
                    kappa: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-coordinate back-offs κ·σ_i for box bounds, (..., n_x).
-    ``kappa`` overrides the Gaussian quantile."""
+    ``kappa`` overrides the Gaussian quantile, which is made once per
+    (confidence, dtype, device) and kept on the device."""
     if kappa is None:
-        kappa = normal_quantile(torch.tensor(confidence, dtype=Sigmas.dtype,
-                                             device=Sigmas.device))
+        kappa = quantile_constant(confidence, Sigmas.dtype, Sigmas.device)
     return kappa * torch.sqrt(torch.diagonal(Sigmas, dim1=-2, dim2=-1).clamp_min(0.0))
 
 

@@ -339,7 +339,7 @@ def _check(Minv, A, q, l, u, rho, x, z, y) -> Tuple[int, int, int]:
 
 
 def _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
-            row_structure) -> _Tensors:
+            row_structure, out) -> _Tensors:
     global LAUNCHES
     B, m, n = A.shape
     if not pallas_available(A.device):
@@ -349,9 +349,7 @@ def _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
     A, d0, mg = kernel_rows(A, row_structure)
     blt = kernel_blt(row_structure, m)
     ins = [t.contiguous() for t in (Minv, A, q, l, u, rho, x, z, y)]
-    xo = torch.empty_like(ins[6])
-    zo = torch.empty_like(ins[7])
-    yo = torch.empty_like(ins[8])
+    xo, zo, yo = out if out is not None else (torch.empty_like(t) for t in ins[6:])
     lib = _library()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
@@ -429,19 +427,34 @@ def threads(n: int, m: int, mg: int = 0, lanes: int = 1, device=None,
 def admm_chunk(Minv, A, q, l, u, rho, x, z, y, iters: int, sigma: float,
                alpha: float, row_structure: Optional[tuple] = None,
                E: Optional[torch.Tensor] = None,
-               D: Optional[torch.Tensor] = None) -> _Tensors:
-    """Run ``iters`` ADMM iterations for every lane; returns (x, z, y).
+               D: Optional[torch.Tensor] = None,
+               out: Optional[_Tensors] = None) -> _Tensors:
+    """Run ``iters`` ADMM iterations for every lane; returns (x, z, y), in
+    ``out`` where given (three contiguous tensors shaped as x, z, y: a
+    CUDA-graph replay's buffers).
 
     On CUDA tensors this launches the Hopper kernel once (or raises); on CPU
     tensors it runs :func:`admm_chunk_plain`, which takes the Ruiz scalings
     ``E``, ``D`` for a "blockdiag_shared" segment (the kernel reads those
     rows densely and needs neither)."""
     _check(Minv, A, q, l, u, rho, x, z, y)
+    if out is not None:
+        for name, o, t in zip("xzy", out, (x, z, y)):
+            if o.shape != t.shape or o.dtype != t.dtype or o.device != t.device \
+                    or not o.is_contiguous():
+                raise ValueError(f"out's {name} must be a contiguous {tuple(t.shape)} "
+                                 f"{t.dtype} tensor on {t.device}")
     if A.device.type == "cuda":
-        return _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha, row_structure)
+        return _launch(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha, row_structure,
+                       out)
     if A.device.type == "cpu":
-        return admm_chunk_plain(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
-                                row_structure, E=E, D=D)
+        res = admm_chunk_plain(Minv, A, q, l, u, rho, x, z, y, iters, sigma, alpha,
+                               row_structure, E=E, D=D)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return out
     raise ValueError(f"unsupported device {A.device}")
 
 

@@ -34,7 +34,8 @@ A x + B u + c at (X[k], U[k]): the first SCP iteration's linearization in
   ``residual_rollout`` and then ``trajectory_jacobians``.
 - :func:`bound_ms` — the least time an H100 could take for a launch.
 - ``LAUNCHES`` — launches by kernel name, each incremented once per launch
-  of its kernel, and nowhere else.
+  of its kernel, and nowhere else: in a cycle replayed from CUDA graphs
+  (``utils/graph_segments.py``), once per replay and not at the recording.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import torch
 from ...dynamics import rocket3dof as r3
 from ...dynamics import rocket6dof as r6
 from ...dynamics.linearize import residual_rollout, trajectory_jacobians
+from ...utils.graph_segments import tally
 from . import F32_FLOPS_PER_S, HBM_BYTES_PER_S, _build
 
 _Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -222,7 +224,11 @@ def _launch(kernel: _Kernel, step, x0, U, tape, dt: float) -> _Outputs:
     if err != 0:
         raise RuntimeError(f"{name}_f32 launch failed: CUDA error {err} "
                            f"(B={B}, N={N}, tape {tape is not None})")
-    LAUNCHES[name] += 1
+
+    def count():
+        LAUNCHES[name] += 1
+
+    tally(count)  # at each replay instead where a CUDA-graph recording captured the launch
     return X, A, Bm, c
 
 

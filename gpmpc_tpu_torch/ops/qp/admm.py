@@ -53,6 +53,7 @@ from typing import Optional
 
 import torch
 
+from ...utils.graph_segments import eager_call
 from ...utils.profiler import profiling, span
 from ..kernels import admm_chunk as chunk_kernel
 from ..kernels.admm_chunk import compact_structure, make_A_ops
@@ -120,6 +121,18 @@ def _check_supported(cfg: ADMMConfig) -> None:
             f"{cfg.use_pallas!r} applies the f32 A in the chunk kernel; the bf16 bulk + "
             f"f32 tail split exists on the streamed path only). Set use_pallas='off' "
             f"or tail_f32_iters=0.")
+
+
+def host_reads(cfg: ADMMConfig) -> bool:
+    """Whether :func:`solve` under ``cfg`` reads the device from the host:
+    the early-exit test at a chunk boundary past the ρ-adaptation chunks
+    (``admm.exit_check``), or the test before the bf16 stream's f32 tail."""
+    n_chunks = max(cfg.max_iter // cfg.check_interval, 1)
+    n_adapt = min(cfg.rho_adapt_chunks, n_chunks) if cfg.adaptive_rho else 0
+    exit_read = cfg.early_exit and n_chunks > max(n_adapt, 1)
+    tail_read = (cfg.matvec_dtype == "bf16" and cfg.use_pallas not in _KERNEL_MODES
+                 and cfg.tail_f32_iters > 0)
+    return exit_read or tail_read
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -401,9 +414,12 @@ def solve(
 
     def run_chunk(x, z, y, rho_v, L):
         if use_kernel:
-            return chunk_kernel.admm_chunk(
+            # a launch of its own between two segments of a CUDA-graph
+            # recording (utils/graph_segments.py), on every replay
+            return eager_call(lambda out: chunk_kernel.admm_chunk(
                 L, A, q, l, u, rho_v, x, z, y, iters=cfg.check_interval,
-                sigma=cfg.sigma, alpha=cfg.alpha, row_structure=segs, E=E, D=D)
+                sigma=cfg.sigma, alpha=cfg.alpha, row_structure=segs, E=E, D=D, out=out),
+                (x, z, y))
         if bf16:  # the KKT inverse streams rounded too, one cast a chunk
             return streamed(x, z, y, rho_v, _bf16(L), cfg.check_interval,
                             A_apply, AT_apply, _bf16)

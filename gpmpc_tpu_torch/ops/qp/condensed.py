@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..._device import device_constant
 from .types import QPData
 
 
@@ -88,8 +89,11 @@ def build_condensed_qp(
     # solver's free-row detection (|bound| ≥ 1e20) still fires
     big = 1e19
     if sel:
-        Gs_b, ds_b = Gs[:, :, sel, :], ds[:, :, sel]
-        Xlo_b, Xhi_b = Xlo[:, :, sel], Xhi[:, :, sel]
+        # the rows through an index made on the device once, not one copied
+        # from the host each call
+        rows = device_constant(tuple(sel), torch.long, dev)
+        Gs_b, ds_b = Gs.index_select(2, rows), ds.index_select(2, rows)
+        Xlo_b, Xhi_b = Xlo.index_select(2, rows), Xhi.index_select(2, rows)
         blocks.append(Gs_b.reshape(Bsz, N * len(sel), nu))
         ls.append(torch.where(Xlo_b <= -big, Xlo_b, Xlo_b - ds_b).reshape(Bsz, -1))
         us.append(torch.where(Xhi_b >= big, Xhi_b, Xhi_b - ds_b).reshape(Bsz, -1))

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -42,10 +43,19 @@ _NO_SPAN = contextlib.nullcontext()
 
 profiling = torch.autograd._profiler_enabled  # whether a torch.profiler is running
 
+# the CUDA-graph recording in progress on this thread, as ``RECORDING.graph``
+# (``utils/graph_segments.py``): while one runs, a span ends one recorded
+# segment and begins the next
+RECORDING = threading.local()
+
 
 def span(name: str):
     """A ``record_function(name)`` range while a ``torch.profiler`` runs,
-    else a shared no-op context."""
+    else a shared no-op context; while a CUDA-graph recording runs, the
+    boundary of its segments."""
+    graph = getattr(RECORDING, "graph", None)
+    if graph is not None:
+        return graph.cut(name)
     return record_function(name) if profiling() else _NO_SPAN
 
 

@@ -890,3 +890,129 @@ def test_path_launches_its_rollout_kernel_once_a_cycle(cuda_device, model):
             f"cycle {cycle}: {parted} lanes beyond 1e-3 in u0 or X_opt (max {d.max().item():.3e}, "
             f"median {d.median().item():.3e})")
         state, xs = new_state, path.F_true(xs, sol.u0)
+
+
+# The main path's cycle replayed from CUDA-graph segments (mpc/cycle_replay.py):
+# from the third call at a key on, against the eager route (the same GP
+# behind callables that declare no frozen posterior) on the same inputs. The
+# replay runs the same kernels in the same order, so the two agree bit for bit
+# (every output, at 512 and 4,096 lanes and over 8 closed-loop cycles, on an
+# H100).
+
+def _replay_setup(dev, lanes=512, path="main"):
+    """The main path (or Path C: its bounded QP, m = 200, and the gust's
+    variance on the GP's) with the main cells' exploration GP."""
+    from gpmpc_tpu_torch.learning import explore_gp_3dof
+    from gpmpc_tpu_torch.main_path import (calibration_path, fleet_x0, main_path,
+                                           with_gust_variance)
+    from gpmpc_tpu_torch.mpc import gp_mpc_init
+
+    mp = main_path(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    gp, mean_fn, var_fn = explore_gp_3dof(g, g, mp.params, mp.F_true, dt=0.1, n_points=128,
+                                          n_inducing=48, device=dev)
+    if path == "calibration":
+        mp, var_fn = calibration_path(dev), with_gust_variance(var_fn)
+    xs = fleet_x0(lanes, dev)
+    return mp, gp, mean_fn, var_fn, gp_mpc_init(mp.config, xs, mp.x_target, device=dev), xs
+
+
+def _outputs(sol, state):
+    return {"u0": sol.u0, "X": sol.X_opt, "U": sol.U_opt, "Sigma": sol.Sigmas,
+            "cost": sol.cost, "converged": sol.converged, "success": sol.success,
+            "X_lin": state.X_lin, "U_lin": state.U_lin, "rho": state.rho, "y": state.y_prev}
+
+
+def _assert_same(got, want, what=""):
+    for k, w in want.items():
+        assert torch.equal(got[k], w), f"{what}{k}: {(got[k].double() - w.double()).abs().max()}"
+
+
+@pytest.mark.parametrize("path", ["main", "calibration"])
+def test_replayed_cycle_is_the_eager_cycle(cuda_device, path):
+    from gpmpc_tpu_torch.mpc import cycle_replay as R
+    from gpmpc_tpu_torch.mpc import gp_mpc_solve
+
+    mp, _, mean_fn, var_fn, state, xs = _replay_setup(cuda_device, path=path)
+    eager_mean, eager_var = (lambda x, u: mean_fn(x, u)), (lambda x, u: var_fn(x, u))
+    captures, replays = R.CAPTURES, R.REPLAYS
+    for _ in range(3):  # eager, recorded, replayed
+        got = _outputs(*gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, state, xs))
+    assert (R.CAPTURES, R.REPLAYS) == (captures + 1, replays + 1)
+    posterior = R.EAGER.get("posterior", 0)
+    want = _outputs(*gp_mpc_solve(mp.F, eager_mean, eager_var, mp.config, state, xs))
+    assert R.EAGER["posterior"] == posterior + 1
+    _assert_same(got, want)
+
+
+def test_replayed_results_belong_to_the_caller(cuda_device):
+    """What a replayed call returned is unchanged after three more calls
+    from other states."""
+    from gpmpc_tpu_torch.mpc import gp_mpc_solve
+
+    mp, _, mean_fn, var_fn, state, xs = _replay_setup(cuda_device)
+    for _ in range(3):
+        sol, new_state = gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, state, xs)
+    kept = _outputs(sol, new_state)
+    copies = {k: v.clone() for k, v in kept.items()}
+    st, x = new_state, xs
+    for _ in range(3):
+        s, st = gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, st, x)
+        x = mp.F_true(x, s.u0)
+    torch.cuda.synchronize()
+    _assert_same(kept, copies, "kept ")
+    assert new_state.x_ref is state.x_ref  # carried over, as the eager cycle carries it
+
+
+def test_replay_launches_the_chunk_kernel_once_a_cycle_and_never_waits(cuda_device):
+    from gpmpc_tpu_torch.mpc import cycle_replay as R
+    from gpmpc_tpu_torch.mpc import gp_mpc_solve
+    from gpmpc_tpu_torch.ops.kernels import rollout_linearize as RL
+
+    mp, _, mean_fn, var_fn, state, xs = _replay_setup(cuda_device)
+    for _ in range(2):
+        gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, state, xs)
+    chunk, roll, replays = K.LAUNCHES, dict(RL.LAUNCHES), R.REPLAYS
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, state, xs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert R.REPLAYS == replays + 4
+    assert K.LAUNCHES == chunk + 4
+    assert RL.LAUNCHES == {**roll, "rollout_linearize": roll["rollout_linearize"] + 4}
+
+
+def test_new_gp_callables_are_recorded_anew(cuda_device):
+    from gpmpc_tpu_torch.learning import gp_fns
+    from gpmpc_tpu_torch.mpc import cycle_replay as R
+    from gpmpc_tpu_torch.mpc import gp_mpc_solve
+
+    mp, gp, mean_fn, var_fn, state, xs = _replay_setup(cuda_device)
+    for _ in range(3):
+        first = _outputs(*gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, state, xs))
+    mean2, var2 = gp_fns(gp)
+    captures, first_calls = R.CAPTURES, R.EAGER.get("first_call", 0)
+    for _ in range(3):
+        again = _outputs(*gp_mpc_solve(mp.F, mean2, var2, mp.config, state, xs))
+    assert R.CAPTURES == captures + 1 and R.EAGER["first_call"] == first_calls + 1
+    _assert_same(again, first)
+
+
+def test_replayed_closed_loop_is_the_eager_loop(cuda_device):
+    """Eight cycles of the main path's closed loop at 512 lanes, replayed
+    against eager: the plant under each route's own u0. Within the witness
+    rule (PERF.md §6) trivially: the two loops fly the same bits."""
+    from gpmpc_tpu_torch.mpc import gp_mpc_solve
+
+    mp, _, mean_fn, var_fn, state, xs = _replay_setup(cuda_device)
+    eager_mean, eager_var = (lambda x, u: mean_fn(x, u)), (lambda x, u: var_fn(x, u))
+    s1 = s2 = state
+    x1 = x2 = xs
+    for cycle in range(8):
+        a, s1 = gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, s1, x1)
+        b, s2 = gp_mpc_solve(mp.F, eager_mean, eager_var, mp.config, s2, x2)
+        _assert_same(_outputs(a, s1), _outputs(b, s2), f"cycle {cycle}: ")
+        x1, x2 = mp.F_true(x1, a.u0), mp.F_true(x2, b.u0)

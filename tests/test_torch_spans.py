@@ -285,8 +285,8 @@ def test_6dof_cell_readers_on_its_rehearsal_trace(monkeypatch):
     """The 6-DoF cell at its rehearsal size, traced on the CPU as ``run.py
     --trace 1`` traces it: the two readers it adds (``span_ms.gp_rot``,
     ``span_ms.propagate_tighten``) and its other span and host-clock metrics
-    read finite values, its device metrics nothing (a CPU run has no device
-    trace)."""
+    read finite values, ``cycle_replay_share`` 0 (its cycles run eagerly),
+    its device metrics nothing (a CPU run has no device trace)."""
     from gpmpc_tpu_torch.ops.qp import admm
     from portbench import run as bench
 
@@ -307,5 +307,7 @@ def test_6dof_cell_readers_on_its_rehearsal_trace(monkeypatch):
         value = bench.reader(m["name"])(data)
         if m["source"] == "device_trace":
             assert value is None, m["name"]
+        elif m["name"] == "cycle_replay_share":
+            assert value == 0.0  # eager: CPU tensors here, two chunks and an exit read on the card
         else:
             assert value is not None and math.isfinite(value) and value > 0, m["name"]
