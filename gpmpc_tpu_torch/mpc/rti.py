@@ -50,7 +50,7 @@ from ..ops.qp import (
 )
 from ..ops.qp.admm import _factor, _rho_vec
 from ..ops.qp.ruiz import ruiz_equilibrate
-from ..utils.profiler import span
+from ..utils.profiler import open_solve_record, span
 
 Tensor = torch.Tensor
 
@@ -411,6 +411,11 @@ def rti_feedback(config: RTIConfig, state: RTIState, prepared, x_current
     sol, X_sol, U_sol = _solve_qp(
         config, state, Aks, Bks, cks, x_current, (state.X_prev, state.U_prev), y0)
     ok = (sol.status == SOLVED) | (sol.pri_res <= config.accept_pri_tol)
+    record = open_solve_record()
+    if record is not None:
+        admm = None if config.solver == "ipm" else (
+            _condensed_admm_cfg if config.condensed else _sparse_admm_cfg)(config)
+        record["rti"].append({"iterations": sol.iterations, "admm": admm})
     # fallback: a lane whose QP failed reuses its shifted previous solution
     X_opt = torch.where(ok[:, None, None], X_sol, state.X_prev)
     U_opt = torch.where(ok[:, None, None], U_sol, state.U_prev)
@@ -439,12 +444,13 @@ def rti_prepare(step_fn, config: RTIConfig, state: RTIState):
 def rti_step(step_fn: Callable[[Tensor, Tensor], Tensor], config: RTIConfig,
              state: RTIState, x_current) -> Tuple[RTISolution, RTIState]:
     """One combined prepare + feedback RTI cycle for every lane; x_current
-    is (B, n_x)."""
-    if config.reanchor:
-        # re-simulate the linearization trajectory from the measured state
-        with span("rti.rollout"):
-            state = state.replace(X_lin=_rollout(step_fn, x_current, state.U_lin))
-    return rti_feedback(config, state, rti_prepare(step_fn, config, state), x_current)
+    is (B, n_x). The span ``rti.step`` encloses the whole cycle."""
+    with span("rti.step"):
+        if config.reanchor:
+            # re-simulate the linearization trajectory from the measured state
+            with span("rti.rollout"):
+                state = state.replace(X_lin=_rollout(step_fn, x_current, state.U_lin))
+        return rti_feedback(config, state, rti_prepare(step_fn, config, state), x_current)
 
 
 def simple_rti_step(step_fn, config: RTIConfig, state: RTIState, x_current,

@@ -18,8 +18,11 @@ solver's own (none on the default schedule, whose every chunk adapts ρ).
 
 ``step_fn(x, u) → x⁺`` and the backup's ``control`` take (B, n_x), (B, n_u)
 and must be differentiable by autograd; ``invariant.value`` maps (B, n_x) to
-(B,). The spans ``safety.check``, ``safety.grad``, ``safety.qp`` and
-``safety.select`` name the filter's stages in a profiler trace.
+(B,). The span ``safety.filter`` encloses one :func:`filter_control` call,
+and ``safety.check``, ``safety.grad``, ``safety.qp`` and ``safety.select``
+name its stages in a profiler trace. Inside ``utils.profiler.solve_record``
+each SCP iteration records its V, ∂V/∂u, linearization point, QP solution,
+QP status and ADMM settings under ``"filter"``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..ops.qp import SOLVED, ADMMConfig, QPData
 from ..ops.qp import solve as qp_solve
-from ..utils.profiler import span
+from ..utils.profiler import open_solve_record, span
 
 Tensor = torch.Tensor
 
@@ -152,6 +155,12 @@ def filter_control(step_fn: Callable, backup, invariant, config: SafetyFilterCon
     times; where the last QP fails, the backup's control. The QP runs on
     ``admm`` (default: 100 iterations in four chunks that all adapt ρ, with
     polish), through the chunk kernel on a CUDA tensor."""
+    with span("safety.filter"):
+        return _filter_control(step_fn, backup, invariant, config, x, u_nominal, admm)
+
+
+def _filter_control(step_fn, backup, invariant, config: SafetyFilterConfig, x: Tensor,
+                    u_nominal: Tensor, admm: Optional[ADMMConfig]) -> SafetyFilterResult:
     admm = admm or ADMMConfig(max_iter=100, polish=True)
     n_u = u_nominal.shape[1]
     N = config.N
@@ -168,6 +177,7 @@ def filter_control(step_fn: Callable, backup, invariant, config: SafetyFilterCon
         safe = V0_nom <= invariant.alpha
     u_lin = u_nominal
     qp_ok = torch.ones_like(safe)
+    record = open_solve_record()
     for it in range(config.scp_iterations):
         with span("safety.grad"):
             if it == 0:
@@ -180,6 +190,9 @@ def filter_control(step_fn: Callable, backup, invariant, config: SafetyFilterCon
             z0 = torch.cat([u_lin, torch.zeros_like(u_lin[:, :1])], dim=1)
             sol = qp_solve(data, z0, None, admm)
             qp_ok = sol.status == SOLVED
+            if record is not None:
+                record["filter"].append({"V": V0, "dVdu": g, "u_lin": u_lin, "x": sol.x,
+                                         "ok": qp_ok, "admm": admm})
             u_lin = torch.where(qp_ok[:, None], sol.x[:, :n_u], u_lin)
     with span("safety.select"):
         u_filtered = torch.where(qp_ok[:, None], u_lin, backup.control(x))

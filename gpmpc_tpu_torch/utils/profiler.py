@@ -49,6 +49,32 @@ profiling = torch.autograd._profiler_enabled  # whether a torch.profiler is runn
 RECORDING = threading.local()
 
 
+# the solve record open on this thread (:func:`solve_record`), as ``_SOLVES.rec``
+_SOLVES = threading.local()
+
+
+@contextlib.contextmanager
+def solve_record():
+    """Inside the block, the program's solvers that a check judges append
+    what they solved to the yielded ``{key: [entry, ...]}``: ``"rti"`` one
+    entry an RTI feedback, ``"filter"`` one a safety filter's SCP
+    iteration. Each entry holds its tensors by reference (no device op, no
+    sync); a tensor it holds is the step's own, which no later step
+    writes. Outside a block nothing is recorded."""
+    rec = defaultdict(list)
+    outer = getattr(_SOLVES, "rec", None)
+    _SOLVES.rec = rec
+    try:
+        yield rec
+    finally:
+        _SOLVES.rec = outer
+
+
+def open_solve_record():
+    """The solve record open on this thread, or None."""
+    return getattr(_SOLVES, "rec", None)
+
+
 def span(name: str):
     """A ``record_function(name)`` range while a ``torch.profiler`` runs,
     else a shared no-op context; while a CUDA-graph recording runs, the

@@ -311,3 +311,141 @@ def test_6dof_cell_readers_on_its_rehearsal_trace(monkeypatch):
             assert value == 0.0  # eager: CPU tensors here, two chunks and an exit read on the card
         else:
             assert value is not None and math.isfinite(value) and value > 0, m["name"]
+
+
+# -- the rescue cell: the filter's and the RTI step's enclosing spans ---------------
+
+RESCUE = "safety3dof-rescue1024"
+RESCUE_READERS = ("span_ms.safety_filter.rescue", "span_ms.rti_step.rescue",
+                  "device_ops.safety_filter.rescue", "admm_live_share.rescue",
+                  "span_ms.campaign_self.rescue")
+
+
+def _rescue_step(lanes=3, device="cpu"):
+    """The rescue path's filtered controller and a state in the downdraft:
+    (fstep, its carry, x)."""
+    from gpmpc_tpu_torch.main_path import filtered_controller, safety_rescue_path
+
+    sp = safety_rescue_path(device)
+    finit, fstep = filtered_controller(sp)
+    x = torch.tensor([[2.0, 5.0, 0.3, -0.2, -3.0, 0.1, 0.0]], device=device).repeat(lanes, 1)
+    x[:, 1] += torch.arange(lanes, dtype=torch.float32, device=device)
+    return fstep, finit(x), x
+
+
+def test_filter_and_rti_step_spans_enclose_their_stages_once_a_cycle():
+    fstep, state, x = _rescue_step()
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        for k in range(2):
+            _, state = fstep(state, x, k)
+    by = {}
+    for name, s, e in _host_events(p):
+        by.setdefault(name, []).append((s, e))
+    assert len(by["safety.filter"]) == len(by["rti.step"]) == 2
+    inside = lambda iv, name: any(a <= iv[0] and iv[1] <= b for a, b in by[name])
+    for (rs, re_), (fs, fe) in zip(sorted(by["rti.step"]), sorted(by["safety.filter"])):
+        assert re_ <= fs  # the RTI step hands u_nom to the filter
+    for name in ("rti.rollout", "rti.linearize", "rti.qp_build", "rti.admm_solve"):
+        assert len(by[name]) == 2 and all(inside(iv, "rti.step") for iv in by[name]), name
+    for name in ("safety.check", "safety.grad", "safety.qp", "safety.select"):
+        assert by[name] and all(inside(iv, "safety.filter") for iv in by[name]), name
+    assert not any(inside(iv, "rti.step") for iv in by["safety.filter"])
+
+
+def test_solve_record_fills_only_inside_its_block():
+    """Inside ``solve_record`` one filtered step records one RTI feedback
+    and one entry a filter SCP iteration, each holding the step's own
+    tensors; outside it, and under a profiler alone, nothing is kept. On a
+    card the record is read under ``set_sync_debug_mode`` ("error") after
+    the step: its entries are tensors already made, and reading the record
+    waits for nothing."""
+    from gpmpc_tpu_torch.utils.profiler import open_solve_record, solve_record
+
+    devices = ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
+    for dev in devices:
+        fstep, state, x = _rescue_step(device=dev)
+        assert open_solve_record() is None
+        with profile(activities=[ProfilerActivity.CPU]):
+            u_plain, _ = fstep(state, x, 0)
+        assert open_solve_record() is None
+        with solve_record() as rec:
+            assert open_solve_record() is rec
+            u, new_state = fstep(state, x, 0)
+        assert open_solve_record() is None
+        assert torch.equal(u, u_plain)
+        (rti,), its = rec["rti"], rec["filter"]
+        assert len(its) == 2 and rti["admm"].max_iter == 50 and its[0]["admm"].polish
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for e in its:
+                assert e["V"].shape == (3,) and e["dVdu"].shape == (3, 3)
+                assert e["x"].shape == (3, 4) and e["ok"].dtype == torch.bool
+                assert e["u_lin"].shape == (3, 3)
+            assert rti["iterations"].shape == (3,)
+        finally:
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        # the first SCP iteration linearizes at the RTI step's control
+        assert torch.equal(its[0]["u_lin"], new_state[0][0].U_lin[:, 0])
+
+
+def test_3dof_gpmpc_cycle_enters_no_filter_or_rti_step_span():
+    from gpmpc_tpu_torch.learning import explore_gp_3dof
+    from gpmpc_tpu_torch.main_path import main_path
+    from gpmpc_tpu_torch.mpc import gp_mpc_init, gp_mpc_solve
+
+    mp = main_path("cpu")
+    g = torch.Generator().manual_seed(0)
+    _, mean_fn, var_fn = explore_gp_3dof(g, g, mp.params, mp.F_true, n_points=32,
+                                         n_inducing=8, device="cpu")
+    x = torch.tensor([[2.0, 20.0, 0.5, -0.5, -3.0, 0.1, 0.0]] * 2)
+    state = gp_mpc_init(mp.config, x, mp.x_target, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        gp_mpc_solve(mp.F, mean_fn, var_fn, mp.config, state, x)
+    names = {n for n, _, _ in _host_events(p)}
+    assert "gpmpc.admm_solve" in names
+    assert not names & {"safety.filter", "rti.step"}
+
+
+def test_rescue_cell_readers_on_its_rehearsal_trace(monkeypatch):
+    """The rescue cell at its rehearsal size, traced on the CPU as ``run.py
+    --trace 1`` traces it: its span and counter readers read finite values,
+    its device readers nothing (a CPU run has no device trace)."""
+    from gpmpc_tpu_torch.ops.qp import admm
+    from portbench import run as bench
+
+    monkeypatch.setattr(admm, "TRACE_RECORDS", [])
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    _, cell, outcome, _, _ = bench.drive(RESCUE, 2147483999, 0.1, True, True,
+                                         torch.device("cpu"), time.perf_counter())
+    # two traced steps: each an RTI solve and two filter QP solves
+    assert cell.tracer.traced_units == 2 and len(admm.TRACE_RECORDS) == 6
+    data = cell.tracer.data
+    mine = {m["name"]: m for m in bench.cell_metrics(spec, "per_layer", RESCUE)}
+    assert set(RESCUE_READERS) <= set(mine)
+    for name, m in mine.items():
+        value = bench.reader(name)(data)
+        if m["source"] == "device_trace":
+            assert value is None, name
+        else:
+            assert value is not None and math.isfinite(value), name
+    assert 0.0 < bench.reader("admm_live_share.rescue")(data) <= 100.0
+
+
+def test_filter_launch_reader_counts_the_launches_inside_its_span():
+    """``device_ops.safety_filter`` on a made-up window of two units: the
+    launch, copy and memset calls that start inside safety.filter, by unit."""
+    from portbench import run as bench
+    from portbench.core.trace import TraceData
+
+    host = [("safety.filter", 10.0, 20.0), ("cudaLaunchKernel", 11.0, 12.0),
+            ("cudaMemcpyAsync", 13.0, 14.0), ("safety.qp", 14.0, 19.0),
+            ("cudaLaunchKernel", 15.0, 16.0), ("cudaLaunchKernel", 21.0, 22.0),
+            ("rti.step", 30.0, 40.0), ("cudaLaunchKernel", 31.0, 32.0),
+            ("safety.filter", 50.0, 60.0), ("cudaMemsetAsync", 55.0, 56.0),
+            ("aten::add", 57.0, 58.0)]
+    data = TraceData(window_s=1e-4, units=2, trajectories=0, device_name="cpu",
+                     device=[("k", 0.0, 1.0)], host=host, launches=[])
+    assert bench.reader("device_ops.safety_filter.rescue")(data) == 4 / 2
