@@ -30,7 +30,9 @@ entry points a user calls, and checks the hand-written kernel on the way:
    plain version at its GP-MPC cells' lanes of 20 knots (512 and 4,096 for
    the 3-DoF rocket, Path D's 512 for the 6-DoF one), with and without the
    plant's drag or aero and the GP tape, with its registers and spills, and
-   its time beside its bound and the plain version;
+   its time beside its bound and the plain version; then the safety
+   filter's backup value and gradient (``phase_backup_value``) against its
+   autograd route at the rescue campaign's 1,024 lanes, timed the same way;
 4. the main path: fit the GP on the card, then time GP-MPC cycles + plant
    steps with the launch counters reset just before and read just after
    (one chunk and one rollout_linearize launch a cycle), and hold one
@@ -195,7 +197,7 @@ ONLINE_SAFETY_EPISODES = 3
 # under one-ulp changes of the state (the witness rule)
 SAFETY_U_ATOL, SAFETY_WITNESS_X = 1e-3, 2.0
 # the port's CUDA sources (gpmpc_tpu_torch/csrc), built together
-KERNELS = ("admm_chunk", "rollout_linearize", "rollout_linearize6dof")
+KERNELS = ("admm_chunk", "rollout_linearize", "rollout_linearize6dof", "backup_value")
 # the fused rollout kernel against a float64 run of its plain version: within
 # twice the float32 plain version's own distance from that run (the witness
 # rule), or 1e-6 of the output's scale where float32 lands closer still
@@ -492,6 +494,81 @@ def phase_rollout_kernels(dev=torch.device("cuda")):
                     f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), share of bound "
                     f"{bnd / ms:.3f}")
     return timings
+
+
+def phase_backup_value(dev=torch.device("cuda"), lanes=1024, seeds=5):
+    """The backup-value kernel (the safety filter's V and ∂V/∂u, one launch)
+    against its plain version, the autograd route, with the rescue
+    campaign's filter (N = 5) at its 1,024 lanes: registers and spills; on
+    ``seeds`` draws of ``filter_lanes`` and on landed lanes, each route's
+    departure from a float64 run of the plain version (the kernel's held
+    within twice the float32 plain version's, or 1e-6 of the lane's scale);
+    the kernel's time beside its bound and the plain version's. Returns the
+    timings."""
+    from gpmpc_tpu_torch.chunk_bench import (cuda_ms, filter_lanes, filter_value64, graph_ms,
+                                             host_us, ptxas_report)
+    from gpmpc_tpu_torch.main_path import safety_rescue_path
+    from gpmpc_tpu_torch.ops.kernels import _build
+    from gpmpc_tpu_torch.ops.kernels import backup_value as BV
+    from gpmpc_tpu_torch.safety.safety_filter import _value_and_grad
+
+    sp = safety_rescue_path(dev)
+    N_f = sp.filter_config.N
+    args = (sp.F_filter, sp.backup, sp.invariant, N_f)
+    draws = [filter_lanes(lanes, torch.Generator(device=dev).manual_seed(s), dev)
+             for s in range(seeds)]
+    x = torch.tensor([2.0, 0.0, 0.1, -0.2, 0.0, 0.0, 0.0], device=dev).repeat(lanes, 1)
+    x[1::2, 1] = -0.05
+    u = torch.tensor([[2.0, 0.0, 0.0], [0.0, 0.0, 0.0], [6.5, 0.3, -0.2]], device=dev)
+    draws.append((x, u.repeat(lanes // 3 + 1, 1)[:lanes].contiguous()))
+    BV.backup_value_grad(*args, *draws[0])  # builds
+    regs, spill_st, spill_ld = ptxas_report(_build.build_log(BV.NAME), f"{BV.NAME}_kernel")
+    log(f"[backup] {BV.NAME}_kernel: {BV.threads()} threads a block ({BV.lanes_per_block()} "
+        f"lanes), {regs} registers, spill stores {spill_st} B, loads {spill_ld} B")
+    worst = {"V": [0.0, 0.0, 0.0], "dV/du": [0.0, 0.0, 0.0]}
+    for i, (x, u) in enumerate(draws):
+        before = BV.LAUNCHES
+        got = BV.backup_value_grad(*args, x, u)
+        if BV.LAUNCHES != before + 1:
+            raise RuntimeError(f"{BV.NAME} was not launched")
+        f32 = _value_and_grad(*args, x, u)
+        f64 = filter_value64(sp, x, u)
+        torch.cuda.synchronize()
+        what = "landed lanes" if i == seeds else f"filter_lanes seed {i}"
+        parts = []
+        for out, k, p, r in zip(("V", "dV/du"), got, f32, f64):
+            scale = r.abs().reshape(lanes, -1).amax(1).clamp_min(1.0)
+            rel = lambda t: (t.double() - r).abs().reshape(lanes, -1).amax(1) / scale
+            witness, err = rel(p).max().item(), rel(k).max().item()
+            vs_plain = ((k.double() - p.double()).abs().reshape(lanes, -1).amax(1)
+                        / scale).max().item()
+            lim = max(ROLLOUT_WITNESS_X * witness, ROLLOUT_FLOOR)
+            worst[out] = [max(a, b) for a, b in zip(worst[out], (err, witness, vs_plain))]
+            parts.append(f"{out} {err:.3e} (autograd f32 {witness:.3e}, limit {lim:.3e}, "
+                         f"kernel vs autograd {vs_plain:.3e})")
+            if not bool(torch.isfinite(k).all()) or err > lim:
+                raise RuntimeError(f"{BV.NAME} disagrees with its plain version ({what}): "
+                                   f"{parts[-1]}")
+        log(f"[backup] B={lanes} N={N_f} {what}: from the float64 run, relative to each lane's "
+            f"scale: " + "; ".join(parts))
+    x, u = draws[0]
+    launch = lambda: BV.backup_value_grad(*args, x, u)
+    ms, ms2 = graph_ms(launch, 20), graph_ms(launch, 20)
+    eager_ms, wrap_us = cuda_ms(launch, 50), host_us(launch, 200)
+    plain = lambda: _value_and_grad(*args, x, u)
+    plain_ms, plain_host_us = cuda_ms(plain, 10), host_us(plain, 10)
+    bnd, by, nbytes, flops = BV.bound_ms(lanes, N_f)
+    log(f"[backup] {BV.NAME} B={lanes} N={N_f}: kernel {ms:.4f} ms (repeat {ms2:.4f}; CUDA graph "
+        f"of 20 launches), eager back-to-back calls {eager_ms:.4f} ms, wrapper host time "
+        f"{wrap_us:.1f} us a call; plain (autograd route) {plain_ms:.4f} ms a call on the "
+        f"device's clock, host {plain_host_us:.1f} us; bound {bnd:.5f} ms by {by} "
+        f"({nbytes / 1e3:.1f} KB, {flops / 1e6:.2f} MFLOP), share of bound {bnd / ms:.4f}; "
+        f"worst over the draws (kernel, autograd f32, kernel vs autograd): "
+        + json.dumps({k: [float(f"{v:.3e}") for v in vs] for k, vs in worst.items()}))
+    return dict(lanes=lanes, N=N_f, ms=ms, ms_repeat=ms2, eager_ms=eager_ms, wrapper_us=wrap_us,
+                plain_ms=plain_ms, plain_host_us=plain_host_us, bound_ms=bnd, bound_by=by,
+                registers=regs, spill_stores=spill_st, spill_loads=spill_ld,
+                threads=BV.threads(), lanes_per_block=BV.lanes_per_block(), worst=worst)
 
 
 def _to(obj, dev, dtype=None):
@@ -2042,9 +2119,13 @@ def phase_safety(gp_fns_, dev=torch.device("cuda")):
     # the rescue: RTI into the downdraft, with and without the funnel filter
     sp = safety_rescue_path(dev)
     x0s = _safety_x0("campaign", dev)[:SAFETY_LANES]
+    from gpmpc_tpu_torch.ops.kernels import backup_value as BV
+
     _reset_launches()
+    backup_before = BV.LAUNCHES
     res = fly_safety(sp, x0s)
     res["launches"], res["launches_by_shape"] = _launches()
+    res["backup_launches"] = BV.LAUNCHES - backup_before
     art = _artifact("campaign_rti3dof_safety_gust_1024.json",
                     ("success_rate", "success_rate_unfiltered", "success_rate_delta",
                      "crash_count_filtered", "crash_count_unfiltered", "intervention_rate",
@@ -2056,6 +2137,8 @@ def phase_safety(gp_fns_, dev=torch.device("cuda")):
     if res["launches_by_shape"].get("n4_m6", 0) <= 0 or res["launches_by_shape"].get(
             "n60_m200", 0) <= 0:
         raise RuntimeError("the rescue campaign did not go through the kernel at both shapes")
+    if res["backup_launches"] <= 0:
+        raise RuntimeError("the rescue campaign's filter did not launch the backup-value kernel")
     if not (res["success_rate_delta"] >= 0.5
             and res["crash_count_filtered"] < res["crash_count_unfiltered"]):
         raise RuntimeError(f"the rescue misses its gate: success delta "
@@ -2441,6 +2524,7 @@ def main():
     _phase(phase_build)
     timings = _phase(phase_kernels)
     roll_t = _phase(phase_rollout_kernels)
+    backup_t = _phase(phase_backup_value)
     main_res, fns = _phase(phase_main_path)
     land = _phase(phase_landing, fns)
     rti_res = _phase(phase_rti)
@@ -2569,6 +2653,13 @@ def main():
         "replaces": "none: the JAX package leaves the rollout and its jacfwd to XLA",
         "launches": six_res["rollout_launches"],
         "shapes": roll_t["6dof"],
+    }, {
+        "name": "backup_value",
+        "route": "cuda",
+        "source": "gpmpc_tpu_torch/csrc/backup_value.cu",
+        "replaces": "none: the JAX package leaves the backup rollout's jax.grad to XLA",
+        "launches": saf_res["rescue"]["backup_launches"],
+        "shapes": [backup_t],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

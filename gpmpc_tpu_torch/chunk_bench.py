@@ -332,7 +332,7 @@ def step64(step):
         v = getattr(step.params, f.name)
         if torch.is_tensor(v):
             object.__setattr__(p, f.name, v.double())
-    return type(step)(p, step.dt)
+    return dataclasses.replace(step, params=p)
 
 
 def bmm_chain_graph(args, iters, row_structure):
@@ -837,6 +837,19 @@ def filter_qp(lanes, gen, dev):
     x, u = filter_lanes(lanes, gen, dev)
     V0, g = _value_and_grad(sp.F_filter, sp.backup, sp.invariant, cfg.N, x, u)
     return _intervention_qp(cfg, u, u, V0, g, _target(cfg, sp.invariant))
+
+
+def filter_value64(sp, x, u):
+    """(V, ∂V/∂u) of the safety path ``sp``'s filter at (x, u) by its plain
+    version in float64: the filter's model, backup and states evaluated
+    exactly as they hold their float32 values."""
+    import dataclasses
+
+    from .ops.kernels.backup_value import backup_value_grad_plain
+
+    backup = dataclasses.replace(sp.backup, g_I=sp.backup.g_I.double())
+    return backup_value_grad_plain(step64(sp.F_filter), backup, sp.invariant,
+                                   sp.filter_config.N, x.double(), u.double())
 
 
 def suite_qp(kind, lanes, dev):

@@ -31,6 +31,7 @@ from .rocket3dof import (
     Rocket3DoF,
     Rocket3DoFConfig,
     Rocket3DoFDynamics,
+    Rocket3DoFDowndraftStep,
     Rocket3DoFParams,
     Rocket3DoFStep,
     create_rocket_3dof,
@@ -47,8 +48,8 @@ from .rocket6dof import (
 )
 
 __all__ = [
-    "AffineModel", "Rocket3DoF", "Rocket3DoFConfig", "Rocket3DoFDynamics", "Rocket3DoFParams",
-    "Rocket3DoFStep", "Rocket6DoF", "Rocket6DoFConfig", "Rocket6DoFDynamics",
+    "AffineModel", "Rocket3DoF", "Rocket3DoFConfig", "Rocket3DoFDowndraftStep",
+    "Rocket3DoFDynamics", "Rocket3DoFParams", "Rocket3DoFStep", "Rocket6DoF", "Rocket6DoFConfig", "Rocket6DoFDynamics",
     "Rocket6DoFParams", "Rocket6DoFStep", "STEP_FNS", "ad_jacobians", "create_rocket_3dof",
     "create_szmuk_rocket",
     "dcm_from_quaternion", "discretize_jacobians", "euler_step", "get_step_fn", "heun_step",

@@ -126,6 +126,34 @@ class Rocket3DoFStep:
         return step(self.params, x, u, self.dt)
 
 
+def gust_accel(x: torch.Tensor, gust: float) -> torch.Tensor:
+    """The low-altitude downdraft (``run_campaign_tpu.py:68-89``): gust·σ((6 −
+    altitude)/1), on below ~6 m; (B,) from states (B, n_x)."""
+    return gust * torch.sigmoid(6.0 - x[:, 1])
+
+
+def as_vertical(a: torch.Tensor, n_x: int = N_STATE) -> torch.Tensor:
+    """(B, n_x) with ``a`` (B,) in the vertical-velocity slot x[4]."""
+    z = a.new_zeros(a.shape[0], 1)
+    return torch.cat([z.expand(-1, 4), a[:, None], z.expand(-1, n_x - 5)], dim=1)
+
+
+@dataclass(frozen=True)
+class Rocket3DoFDowndraftStep:
+    """The discrete step padded with the low-altitude downdraft,
+    ``F(x, u) + dt·[0, 0, 0, 0, gust·σ(6 − x[1]), 0, 0]``, as a value: the
+    rescue campaign's plant and its safety filter's model. Lanes first
+    (B, n_x), (B, n_u). ``ops/kernels/backup_value.py`` reads from its type
+    that the backup-value kernel computes the same thing."""
+
+    params: Rocket3DoFParams
+    dt: float
+    gust: float
+
+    def __call__(self, x, u) -> torch.Tensor:
+        return step(self.params, x, u, self.dt) + self.dt * as_vertical(gust_accel(x, self.gust))
+
+
 def hover_thrust(params: Rocket3DoFParams, x) -> torch.Tensor:
     """Thrust that exactly cancels gravity at the current mass."""
     return -x[..., 0:1] * params.g_I

@@ -70,6 +70,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .dynamics import Rocket3DoFParams, Rocket6DoFParams, rocket3dof as r3, rocket6dof as r6
+from .dynamics.rocket3dof import as_vertical, gust_accel
 from .gp import StructuredGPConfig
 from .learning.batched_learner import BatchedLearningConfig, default_mpc, run_batched_learning
 from .lmpc import LMPCConfig, default_stage_cost, fly_episode, lmpc_config_6dof, lmpc_plan_value
@@ -1055,18 +1056,6 @@ ONLINE_SAFETY_FILTER_N = 8
 SAFETY_GPMPC_COMMIT = "ab18305"  # the commit the GP-MPC safety artifact was flown at
 
 
-def gust_accel(x: torch.Tensor, gust: float) -> torch.Tensor:
-    """The low-altitude downdraft (``run_campaign_tpu.py:68-89``): gust·σ((6 −
-    altitude)/1), on below ~6 m; (B,) from states (B, n_x)."""
-    return gust * torch.sigmoid(6.0 - x[:, 1])
-
-
-def _vertical(a: torch.Tensor, n_x: int = 7) -> torch.Tensor:
-    """(B, n_x) with ``a`` (B,) in the vertical-velocity slot x[4]."""
-    z = a.new_zeros(a.shape[0], 1)
-    return torch.cat([z.expand(-1, 4), a[:, None], z.expand(-1, n_x - 5)], dim=1)
-
-
 def _braking_filter(p: Rocket3DoFParams, N: int, dev: torch.device):
     """The campaigns' emergency-braking backup and filter configuration
     (``run_campaign_tpu.py:543-547``): thrust box [0, T_max] × [−T_max, T_max]²."""
@@ -1113,7 +1102,7 @@ def safety_rescue_path(device: DeviceLike = "cuda") -> SafetyPath:
                                      scaling=3, use_pallas="auto"),
                      device=dev)
     F = lambda x, u: r3.step(p, x, u, DT)
-    pad = lambda x, u: F(x, u) + DT * _vertical(gust_accel(x, RESCUE_GUST))
+    pad = r3.Rocket3DoFDowndraftStep(p, DT, RESCUE_GUST)
     xT = torch.zeros(7, device=dev)
     xT[0] = 2.0
     ctrl = make_rti_controller(F, base, xT,
@@ -1222,7 +1211,7 @@ def online_safety_path(device: DeviceLike = "cuda") -> OnlineSafetyPath:
     wind[5], wind[6] = 0.4, 0.25
     F = lambda x, u: r3.step(p, x, u, DT)
     plant = lambda x, u: (r3.step(p_true, x, u, DT)
-                          + DT * (wind + _vertical(gust_accel(x, gust))))
+                          + DT * (wind + as_vertical(gust_accel(x, gust))))
     base = RTIConfig(N=N, dt=DT, accept_pri_tol=1e-2, condensed=True,
                      admm=ADMMConfig(max_iter=ADMM_ITERS, check_interval=ADMM_ITERS, scaling=2,
                                      polish=False, adaptive_rho=False, infeas_certs=False,
@@ -1242,13 +1231,13 @@ def online_safety_path(device: DeviceLike = "cuda") -> OnlineSafetyPath:
         def sf(x, u):
             m, v = gp.predict_gated(x, u)
             w_vert = (1.0 - v[:, 0] / prior_v).clamp(0.0, 1.0)
-            d = gp.lift_residual(m, 7) + _vertical((1.0 - w_vert) * gust_accel(x, gust))
+            d = gp.lift_residual(m, 7) + as_vertical((1.0 - w_vert) * gust_accel(x, gust))
             return F(x, u) + DT * d
 
         return sf
 
     backup, fcfg = _braking_filter(p, ONLINE_SAFETY_FILTER_N, dev)
-    pad = lambda x, u: F(x, u) + DT * _vertical(gust_accel(x, gust))
+    pad = r3.Rocket3DoFDowndraftStep(p, DT, gust)
     ctrl = make_filtered_controller(*inner, pad, backup, DescentFunnelSet(0.6, 1.5), fcfg,
                                     step_fn_from_inner=sf_from_inner)
     return OnlineSafetyPath(inner=inner, controller=ctrl, filter_model=sf_from_inner, plant=plant,
@@ -1397,7 +1386,7 @@ def experiment_suite_path(n_runs: Optional[int] = None, preset: str = "standard"
         wind[dtype][5], wind[dtype][6] = 0.4, 0.25
 
     def plant(x, u):
-        return r3.step(p_true, x, u, dt) + dt * (wind[x.dtype] + _vertical(suite_downdraft(x)))
+        return r3.step(p_true, x, u, dt) + dt * (wind[x.dtype] + as_vertical(suite_downdraft(x)))
 
     gp_cfg = GPMPCConfig(
         base=rti_cfg.replace(accept_pri_tol=5e-3, condensed=True,

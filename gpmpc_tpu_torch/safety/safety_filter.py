@@ -8,10 +8,13 @@ Where a lane is unsafe the minimal-intervention QP
     min ‖u − u_nom‖² + w·s²   s.t.  V0 + gᵀ(u − u_lin) ≤ α·margin + s,
                                     u_min ≤ u ≤ u_max,  s ≥ 0
 
-linearizes V(x_N(u)) by autograd (one ``torch.autograd.grad`` of the summed
-V gives every lane's gradient: lanes do not couple) and is solved on the
-ADMM solver in a fixed small SCP loop. The lane axis is the batch axis of
-one ``ops.qp.solve`` call per SCP iteration: the QP is solved for every lane
+linearizes V(x_N(u)) and is solved on the ADMM solver in a fixed small SCP
+loop. V and ∂V/∂u of every lane come from one launch of the backup-value
+kernel where the state lies on a card and
+``ops/kernels/backup_value.py::fused`` admits the model, backup and set (the
+rescue campaign's filter), else from one ``torch.autograd.grad`` of the
+summed V (lanes do not couple). The lane axis is the batch axis of one
+``ops.qp.solve`` call per SCP iteration: the QP is solved for every lane
 every cycle and ``where(safe, …)`` picks the result, as the JAX package's
 ``vmap`` does. There is no branch on the data and no host read besides the
 solver's own (none on the default schedule, whose every chunk adapts ρ).
@@ -20,9 +23,11 @@ solver's own (none on the default schedule, whose every chunk adapts ρ).
 and must be differentiable by autograd; ``invariant.value`` maps (B, n_x) to
 (B,). The span ``safety.filter`` encloses one :func:`filter_control` call,
 and ``safety.check``, ``safety.grad``, ``safety.qp`` and ``safety.select``
-name its stages in a profiler trace. Inside ``utils.profiler.solve_record``
-each SCP iteration records its V, ∂V/∂u, linearization point, QP solution,
-QP status and ADMM settings under ``"filter"``.
+name its stages in a profiler trace; inside them each evaluation of V and
+∂V/∂u is a span ``safety.value.kernel`` or ``safety.value.autograd``, by the
+route that ran. Inside ``utils.profiler.solve_record`` each SCP iteration
+records its V, ∂V/∂u, linearization point, QP solution, QP status and ADMM
+settings under ``"filter"``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..ops.kernels import backup_value
+from ..ops.kernels.backup_value import backup_value_grad_plain as _value_and_grad
 from ..ops.qp import SOLVED, ADMMConfig, QPData
 from ..ops.qp import solve as qp_solve
 from ..utils.profiler import open_solve_record, span
@@ -83,33 +90,24 @@ class SafetyFilterResult(NamedTuple):
     qp_success: Tensor  # (B,) bool: the last SCP iteration's QP solved
 
 
-def _backup_rollout_terminal(step_fn: Callable, backup, x: Tensor, u: Tensor, N: int) -> Tensor:
-    """x_N after [u, backup, backup, …]."""
-    x = step_fn(x, u)
-    for _ in range(N - 1):
-        x = step_fn(x, backup.control(x))
-    return x
-
-
-def _terminal_value(step_fn, backup, invariant, N: int, x: Tensor, u: Tensor) -> Tensor:
-    return invariant.value(_backup_rollout_terminal(step_fn, backup, x, u, N))
-
-
-def _value_and_grad(step_fn, backup, invariant, N: int, x: Tensor, u: Tensor):
-    """(V(x_N(u)) (B,), ∂V/∂u (B, n_u)) of every lane from one backward
-    pass of the summed V."""
-    with torch.enable_grad():
-        u = u.detach().requires_grad_(True)
-        V = _terminal_value(step_fn, backup, invariant, N, x.detach(), u)
-        (g,) = torch.autograd.grad(V.sum(), u)
-    return V.detach(), g
+def _value_grad(step_fn, backup, invariant, N: int, x: Tensor, u: Tensor):
+    """(V(x_N(u)) (B,), ∂V/∂u (B, n_u)) of every lane: one launch of the
+    backup-value kernel where the state lies on a card and the kernel's seam
+    admits the step, backup and set (span ``safety.value.kernel``), else the
+    autograd route (span ``safety.value.autograd``)."""
+    if x.is_cuda and backup_value.fused(step_fn, backup, invariant, x):
+        with span("safety.value.kernel"):
+            return backup_value.backup_value_grad(step_fn, backup, invariant, N,
+                                                  x.contiguous(), u.contiguous())
+    with span("safety.value.autograd"):
+        return _value_and_grad(step_fn, backup, invariant, N, x, u)
 
 
 def check_safety(step_fn: Callable, backup, invariant, config: SafetyFilterConfig, x: Tensor,
                  u: Tensor, constraint_fn: Optional[Callable[[Tensor, Tensor], Tensor]] = None):
     """(is_safe (B,), V(x_N) (B,)): the terminal test, and where
     ``constraint_fn(x, u) → (B, k)`` is given every constraint ≤ 0."""
-    V = _terminal_value(step_fn, backup, invariant, config.N, x, u)
+    V, _ = _value_grad(step_fn, backup, invariant, config.N, x, u)
     safe = V <= invariant.alpha
     if constraint_fn is not None:
         safe = safe & (constraint_fn(x, u) <= 0.0).all(-1)
@@ -168,12 +166,9 @@ def _filter_control(step_fn, backup, invariant, config: SafetyFilterConfig, x: T
     u_nominal = u_nominal.detach()
     target = _target(config, invariant)
     with span("safety.check"):
-        # the check's rollout is the first SCP iteration's linearization
-        # point: one forward serves both
-        with torch.enable_grad():
-            u_req = u_nominal.clone().requires_grad_(True)
-            V_nom = _terminal_value(step_fn, backup, invariant, N, x, u_req)
-        V0_nom = V_nom.detach()
+        # the check's evaluation is the first SCP iteration's linearization:
+        # one evaluation serves both
+        V0_nom, g_nom = _value_grad(step_fn, backup, invariant, N, x, u_nominal)
         safe = V0_nom <= invariant.alpha
     u_lin = u_nominal
     qp_ok = torch.ones_like(safe)
@@ -181,10 +176,9 @@ def _filter_control(step_fn, backup, invariant, config: SafetyFilterConfig, x: T
     for it in range(config.scp_iterations):
         with span("safety.grad"):
             if it == 0:
-                (g,) = torch.autograd.grad(V_nom.sum(), u_req)
-                V0 = V0_nom
+                V0, g = V0_nom, g_nom
             else:
-                V0, g = _value_and_grad(step_fn, backup, invariant, N, x, u_lin)
+                V0, g = _value_grad(step_fn, backup, invariant, N, x, u_lin)
         with span("safety.qp"):
             data = _intervention_qp(config, u_nominal, u_lin, V0, g, target)
             z0 = torch.cat([u_lin, torch.zeros_like(u_lin[:, :1])], dim=1)
@@ -210,7 +204,7 @@ def filter_gradient(step_fn: Callable, backup, invariant, config: SafetyFilterCo
     target = _target(config, invariant)
     u = u_nominal
     for _ in range(steps):
-        V, g = _value_and_grad(step_fn, backup, invariant, config.N, x, u)
+        V, g = _value_grad(step_fn, backup, invariant, config.N, x, u)
         u_new = torch.minimum(torch.maximum(u - lr * g, config.u_min), config.u_max)
         u = torch.where((V > target)[:, None], u_new, u)
     return SafetyFilterResult(u=torch.where(safe[:, None], u_nominal, u), intervened=~safe,
